@@ -5,7 +5,7 @@ Registry parity with ddsp_pytorch_tpu/models/__init__.py.  Only the
 later slice (ROADMAP.md §1).
 """
 
-from ddsp_pytorch_tpu_torch.models.decoder import DDSPDecoder, GRUDecoder  # noqa: F401
+from ddsp_pytorch_tpu_torch.models.decoder import DDSPDecoder, GRUDecoder, init_params  # noqa: F401
 from ddsp_pytorch_tpu_torch.models.modules import (  # noqa: F401
     FilteredNoise,
     HarmonicSynth,
@@ -17,8 +17,8 @@ MODEL_REGISTRY = {"single-inst-decoder": DDSPDecoder}
 
 def load_model(name: str, kwargs: dict):
     """Build a model by registry name from its kwargs (as in a bundle's
-    meta.json).  The model's weights are uninitialized until a state_dict
-    is loaded."""
+    meta.json).  Its weights are placeholders: load a state_dict, or draw
+    fresh ones with `init_params(model, generator)`."""
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"model {name!r} is not ported (ported: {sorted(MODEL_REGISTRY)}); "

@@ -192,3 +192,49 @@ class DDSPDecoder(nn.Module):
         )
         noise_audio = self.noise_synth(**noise_ctrls, noise=noise, generator=generator)
         return harmonic + noise_audio, new_gru_state, new_phase
+
+
+# flax's truncated normal draws from N(0, 1) cut at ±2, whose std is
+# 0.8796…; variance_scaling divides the target std by it
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw fresh weights with flax's initializers, in distribution (the
+    bits of jax.random cannot be reproduced): what `model.init` gives the
+    JAX model (models/decoder.py:32-98, models/modules.py:157-167).
+
+      Dense      kernel lecun_normal (truncated normal, std 1/√fan_in,
+                 cut at ±2σ), bias zeros
+      LayerNorm  scale ones, bias zeros
+      GRU        w_ih glorot_uniform, w_hh orthogonal over the flax (H, 3H)
+                 layout, biases zeros
+      Reverb     noise U(−1, 1), decay its initial_decay (5), wet its
+                 initial_wet (0)
+
+    `generator` must live on the parameters' device.  Returns the model.
+    """
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            std = (1.0 / module.in_features) ** 0.5 / _TRUNC_NORMAL_STD
+            nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.LayerNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, GRU):
+            # weight_ih (3H, in) has flax's fans: fan_in = in, fan_out = 3H
+            nn.init.xavier_uniform_(module.weight_ih, generator=generator)
+            # weight_hh (3H, H) is flax's w_hh (H, 3H) transposed: orthonormal
+            # rows there are orthonormal columns here
+            nn.init.orthogonal_(module.weight_hh, generator=generator)
+            nn.init.zeros_(module.bias_ih)
+            nn.init.zeros_(module.bias_hh)
+        elif isinstance(module, Reverb):
+            module.noise.copy_(
+                torch.rand(module.noise.shape, generator=generator, device=module.noise.device) * 2.0 - 1.0
+            )
+            module.decay.fill_(module.initial_decay)
+            module.wet.fill_(module.initial_wet)
+    return model

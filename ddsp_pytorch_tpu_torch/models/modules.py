@@ -94,8 +94,8 @@ class Reverb(nn.Module):
     """Trainable convolution reverb (modules.py:143-185): a 1 s noise IR
     under a learned exponential decay and wet gain, dry tap = 1.
 
-    Parameters start at zeros/initial constants; a bundle's weights replace
-    them (weights.py)."""
+    Parameters start as placeholders (noise zeros); a bundle's weights
+    replace them (weights.py), or init_params draws fresh ones."""
 
     def __init__(
         self,
@@ -107,6 +107,8 @@ class Reverb(nn.Module):
         super().__init__()
         self.length = int(length)
         self.sample_rate = int(sample_rate)
+        self.initial_wet = float(initial_wet)
+        self.initial_decay = float(initial_decay)
         self.noise = nn.Parameter(torch.zeros(self.length))
         self.decay = nn.Parameter(torch.tensor(float(initial_decay)))
         self.wet = nn.Parameter(torch.tensor(float(initial_wet)))

@@ -1,7 +1,7 @@
 """Elementwise primitives of the DSP core.
 
-Port of ddsp_pytorch_tpu/ops/core.py:24-56 (safe_log, scale_function,
-remove_above_nyquist).  Operation order follows the JAX functions so that
+Port of ddsp_pytorch_tpu/ops/core.py:24-56 and :101-117 (safe_log,
+scale_function, remove_above_nyquist, mean_std_loudness).  Operation order follows the JAX functions so that
 float32 results agree to rounding.
 """
 
@@ -40,3 +40,20 @@ def remove_above_nyquist(
     pitches = f0 * harm_numbers
     mask = (pitches < sample_rate / 2.0).to(amplitudes.dtype) + 1e-4
     return amplitudes * mask
+
+
+def mean_std_loudness(batches) -> tuple:
+    """Running-mean estimate of loudness mean and std over an iterable of
+    batches with a 'loudness' key (ops/core.py:101-117): the running mean of
+    per-batch float32 means and of per-batch stds with ddof=1 — not the
+    global std, as in the reference, because the stats are baked into
+    exported models."""
+    mean = 0.0
+    std = 0.0
+    n = 0
+    for batch in batches:
+        loud = torch.as_tensor(batch["loudness"], dtype=torch.float32)
+        n += 1
+        mean += (float(loud.mean()) - mean) / n
+        std += (float(loud.std(unbiased=True)) - std) / n
+    return mean, std

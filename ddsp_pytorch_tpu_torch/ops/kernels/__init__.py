@@ -33,6 +33,13 @@ KERNELS = {
         # phi, omega, amp, out, rows, n_harmonic, block_size, stream
         [_P, _P, _P, _P, _I, _I, _I, _P],
     ),
+    "oscillator_bwd": (
+        "oscillator_bwd.cu",
+        "ddsp_oscillator_bwd",
+        # phi, omega, amp, grad, dphi, domega, damp, rows, n_harmonic,
+        # block_size, stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    ),
 }
 
 NVCC_FLAGS = [

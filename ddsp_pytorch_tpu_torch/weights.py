@@ -1,4 +1,4 @@
-"""flax parameter tree → this package's state_dict.
+"""flax parameter tree ⇄ this package's state_dict.
 
 The port's modules keep flax's module names (`decoder.f0_mlp.Dense_0`,
 `decoder.gru`, `harmonic_proj`, ...), so a state_dict key is the flax path
@@ -54,3 +54,39 @@ def flax_to_state_dict(tree: dict) -> dict:
 
     walk(tree, ())
     return out
+
+
+# state_dict leaf name → flax leaf name; a 2-D `weight` is a Dense kernel
+# (transposed), a 1-D one a LayerNorm scale
+_FLAX_LEAF = {
+    "bias": ("bias", False),
+    "weight_ih": ("w_ih", True),
+    "weight_hh": ("w_hh", True),
+    "bias_ih": ("b_ih", False),
+    "bias_hh": ("b_hh", False),
+    "noise": ("noise", False),
+    "decay": ("decay", False),
+    "wet": ("wet", False),
+}
+
+
+def state_dict_to_flax(state_dict: dict) -> dict:
+    """Flat state_dict (tensors, any device) → nested dict of float32 numpy
+    arrays in the flax tree's layout: the inverse of flax_to_state_dict,
+    used to compare parameters or gradients leaf by leaf with the JAX
+    package (utils/torch_reference.py:31-64)."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            name, transpose = ("kernel", True) if arr.ndim == 2 else ("scale", False)
+        elif leaf in _FLAX_LEAF:
+            name, transpose = _FLAX_LEAF[leaf]
+        else:
+            raise KeyError(f"unknown parameter leaf {key}")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.array(arr.T if transpose else arr, order="C")
+    return tree
