@@ -8,21 +8,29 @@ Phases (any failure raises, so the exit code is nonzero and no result line
 is printed):
   1. card: name and power limit, torch version, build of every hand-written
      kernel from the sources in this checkout (one nvcc per source, all
-     started together);
-  2. kernels: each kernel against its plain PyTorch version on the card at
-     the serving shape and at larger shapes (the forward also against a
-     float64 numpy oracle), with times, the plain version's time and the
-     bound; OscillatorBank's gradients (both kernels) against autograd
-     through the plain forward at the training shape;
+     started together); each kernel function's registers and spill bytes
+     from `-Xptxas -v`, and no spill in the K = 64 variants;
+  2. kernels: every variant of each kernel (K = 64 template or runtime K,
+     few- or many-row configuration) against its plain PyTorch version on
+     the card at the serving shape and at larger shapes (the forward also
+     against a float64 numpy oracle), with its time, the plain version's
+     time, the bound and the share of the bound; OscillatorBank's gradients
+     (both kernels) against autograd through the plain forward at the
+     training shape;
   3. streaming: make_streaming_synth on the full-width violin bundle streams
      64 blocks of a glide on the card and on the CPU (plain versions); the
      two agree, the kernel's launch counter rose by one per block, and the
-     per-block render time is reported against the realtime budget;
+     per-block render time is reported against the realtime budget; then
+     64 blocks with noise on (the noise generator's state carried by value),
+     its render times and the host cost of that state's round trip, and a
+     replayed StreamState giving identical audio on the card;
   4. server: StreamServer on the card answers two clients' block-sized
      requests (phase continues across requests, sessions are independent,
      deterministic sessions repeat);
   5. training at configs/config.yaml's full width: one train step on the
-     card against the same step on the CPU (loss and every gradient); then
+     card against the same step on the CPU (loss and every gradient), and
+     each of the two against the same step on the CPU in float64 (every
+     leaf's error printed); then
      Trainer.fit on a fresh model for a few tens of steps (batch 16 × 375
      frames, six scales, Adam 1e-3, reverb on) on a 16-item cache of glides
      whose targets the violin bundle renders on the card: every loss finite,
@@ -38,9 +46,8 @@ from __future__ import annotations
 
 import copy
 import json
-import math
 import os
-import subprocess
+import re
 import sys
 import tempfile
 import threading
@@ -54,20 +61,26 @@ from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import Datamodule
 from ddsp_pytorch_tpu_torch.export import load_bundle, make_streaming_synth
+from ddsp_pytorch_tpu_torch.kernel_bench import (
+    card_line,
+    oscillator_bound,
+    oscillator_bwd_bound,
+    oscillator_inputs,
+    sleep_cycles_per_ms,
+    time_ms,
+)
 from ddsp_pytorch_tpu_torch.models import DDSPDecoder, init_params
-from ddsp_pytorch_tpu_torch.ops import kernels
+from ddsp_pytorch_tpu_torch.ops import kernels, multiscale_fft
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 from ddsp_pytorch_tpu_torch.profile_serving import glide
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
 from ddsp_pytorch_tpu_torch.training import Trainer
+from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
 from ddsp_pytorch_tpu_torch.training.metrics import read_metrics
 from ddsp_pytorch_tpu_torch.training.train import loss_and_grads, make_train_step, to_device
 
 BUNDLE = "pretrained/ddsp_violin_bundle"
 SEED = 0
-# H100 SXM published peaks (dense): FP32 without tensor cores, HBM3 rate.
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 # Pallas-vs-XLA bound of the JAX suite (tests/test_oscillator.py:156) and the
 # 64-harmonic recurrence-vs-f64 bound (tests/test_oscillator.py:165).
 KERNEL_VS_PLAIN_ATOL = 5e-4
@@ -107,6 +120,11 @@ LOSS_FALL_FACTOR = 1.3
 N_TRAIN_ITEMS, N_VAL_ITEMS = 16, 4
 N_BLOCKS = 64
 N_REQUESTS = 8
+# Phase 2's shapes (rows, harmonics, samples): the serving row, the training
+# rows (16 × 375 frames), a ragged count with a K that takes the runtime-K
+# variants, the same K at the training rows, and a one-harmonic edge case.
+# Together they launch every variant and configuration of both kernels.
+KERNEL_SHAPES = ((1, 64, 512), (6000, 64, 512), (37, 100, 512), (6000, 100, 512), (5, 1, 64))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -114,85 +132,43 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+def ptxas_report(log: str) -> dict:
+    """{kernel function: (spill store bytes, spill load bytes, registers)}
+    from nvcc's `-Xptxas -v` output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn] = [int(m.group(1)), int(m.group(2)), None]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in out:
+            out[fn][2] = int(m.group(1))
+            fn = None
+    return out
 
 
-def sleep_cycles_per_ms() -> float:
-    """Calibrate torch.cuda._sleep (a spin of N clock cycles) against CUDA
-    events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(1000)  # warm-up
-    start.record()
-    torch.cuda._sleep(20_000_000)
-    end.record()
-    torch.cuda.synchronize()
-    return 20_000_000 / start.elapsed_time(end)
-
-
-def time_ms(fn, iters: int, cycles_per_ms: float, warmup: int = 3):
-    """(device ms, host ms) per fn() call over `iters` back-to-back calls.
-
-    Host ms is wall time per call with a synchronize at the end: what a
-    caller waits for when the host, not the card, is the limit.  Device ms
-    comes from CUDA events around the same calls queued behind a GPU sleep
-    longer than the host needs to enqueue them all, so the gaps between
-    launches that host overhead would leave are not timed."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(cycles_per_ms * (1.5 * host_ms + 1.0)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, host_ms / iters
-
-
-def oscillator_bound(rows: int, k: int, s: int):
-    """(bound_ms, bound_by): each input read once, each output written once;
-    two FMAs (4 flops) per harmonic per sample (the sincosf per sample is
-    not counted)."""
-    nbytes = 4 * rows * (2 + k) + 4 * rows * s
-    flops = 4 * rows * s * k
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def oscillator_bwd_bound(rows: int, k: int, s: int):
-    """(bound_ms, bound_by) of the backward: reads phi, omega, amp and the
-    (R, S) cotangent once, writes dphi, domega, damp once; two recurrences,
-    the dA product and the dθ FMA, 8 flops per harmonic per sample."""
-    nbytes = 4 * rows * (s + 2 * k + 4)
-    flops = 8 * rows * s * k
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def check_spills(name: str, log: str) -> None:
+    """Print each kernel function's ptxas line; the K = 64 instantiations
+    (the main path's, template argument 64) must not spill."""
+    report = ptxas_report(log)
+    fixed = [f for f in report if f"ILi{osc.KERNEL_FIXED_K}E" in f]
+    check(bool(fixed), f"no K={osc.KERNEL_FIXED_K} variant of {name} in the ptxas report")
+    for fn, (stores, loads, regs) in sorted(report.items()):
+        m = re.search(r"\d(oscillator_\w+?_kernelI\w*?E)Ev", fn)
+        print(f"ptxas {name} {m.group(1) if m else fn}: registers={regs} "
+              f"spill_stores={stores} B spill_loads={loads} B", flush=True)
+    for fn in fixed:
+        check(report[fn][0] == 0 and report[fn][1] == 0, f"{fn} spills: {report[fn]}")
 
 
 def rel_err(got, want) -> float:
     """max |got − want| over max |want|."""
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-
-
-def oscillator_inputs(rng, rows: int, k: int, sample_rate: float = 48000.0):
-    phi = rng.uniform(0.0, 2 * math.pi, rows).astype(np.float32)
-    f0 = rng.uniform(50.0, 2000.0, rows).astype(np.float32)
-    omega = ((2.0 * math.pi / sample_rate) * f0).astype(np.float32)
-    amp = (rng.random((rows, k)) / k).astype(np.float32)
-    return phi, omega, amp
 
 
 def oscillator_f64(phi, omega, amp, s: int) -> np.ndarray:
@@ -210,7 +186,7 @@ def phase_kernels(device) -> dict:
     rng = np.random.default_rng(SEED)
     cycles_per_ms = sleep_cycles_per_ms()
     entry = None
-    for rows, k, s in ((1, 64, 512), (6000, 64, 512), (37, 100, 512), (5, 1, 64)):
+    for rows, k, s in KERNEL_SHAPES:
         phi, omega, amp = oscillator_inputs(rng, rows, k)
         args = [torch.tensor(x, device=device) for x in (phi, omega, amp)]
         got = osc.oscillator_bank(*args, s)
@@ -232,9 +208,11 @@ def phase_kernels(device) -> dict:
         )
         bound_ms, bound_by = oscillator_bound(rows, k, s)
         print(
-            f"oscillator_fwd R={rows} K={k} S={s}: max|kernel-plain|={err:.3e} "
+            f"oscillator_fwd R={rows} K={k} S={s} [{osc.kernel_variant(k)}]: "
+            f"max|kernel-plain|={err:.3e} "
             f"max|kernel-f64|={err64 if err64 is None else f'{err64:.3e}'} "
             f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
+            f"share_of_bound={bound_ms / ms:.3f} "
             f"host_call_ms: kernel={call_ms:.6f} plain={plain_call_ms:.6f}",
             flush=True,
         )
@@ -263,7 +241,7 @@ def phase_bwd_kernel(device) -> dict:
     rng = np.random.default_rng(SEED + 1)
     cycles_per_ms = sleep_cycles_per_ms()
     entry = None
-    for rows, k, s in ((1, 64, 512), (6000, 64, 512), (37, 100, 512), (5, 1, 64)):
+    for rows, k, s in KERNEL_SHAPES:
         phi, omega, amp = oscillator_inputs(rng, rows, k)
         g = rng.standard_normal((rows, s)).astype(np.float32)
         args = [torch.tensor(x, device=device) for x in (phi, omega, amp, g)]
@@ -283,9 +261,10 @@ def phase_bwd_kernel(device) -> dict:
         )
         bound_ms, bound_by = oscillator_bwd_bound(rows, k, s)
         print(
-            f"oscillator_bwd R={rows} K={k} S={s}: "
+            f"oscillator_bwd R={rows} K={k} S={s} [{osc.kernel_variant(k)}]: "
             + " ".join(f"{n}: max|Δ|={a:.3e} rel={r:.3e}" for n, (a, r) in errs.items())
             + f" kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
+            f"share_of_bound={bound_ms / ms:.3f} "
             f"host_call_ms: kernel={call_ms:.6f} plain={plain_call_ms:.6f}",
             flush=True,
         )
@@ -371,6 +350,57 @@ def phase_streaming(device) -> None:
     check(peak > 1e-3, f"streamed audio silent (peak {peak})")
     check(err <= STREAM_GPU_VS_CPU_ATOL, f"gpu vs cpu streaming {err}")
     check(launches == N_BLOCKS, f"oscillator kernel launched {launches}x for {N_BLOCKS} blocks")
+    phase_streaming_noise(device, pitch, loud)
+
+
+def phase_streaming_noise(device, pitch, loud) -> None:
+    """Phase 3, with noise: the noise generator's state travels by value in
+    the StreamState, so a step builds a generator from it and returns the
+    advanced state.  Per-block render time with noise on (beside the
+    deterministic run's), the host cost of that state round trip, and on
+    the card: replaying a state gives bit-identical audio and leaves the
+    state as it was."""
+    synth = make_streaming_synth(BUNDLE, device=device, seed=SEED)
+    block = synth.block_size
+    for i in range(4):
+        synth.step_samples(pitch[:, i * block : (i + 1) * block], loud[:, i * block : (i + 1) * block])
+    synth.reset(SEED)
+    torch.cuda.synchronize()
+    render_ms = []
+    for i in range(N_BLOCKS):
+        sl = slice(i * block, (i + 1) * block)
+        t0 = time.perf_counter()
+        synth.step_samples(pitch[:, sl], loud[:, sl])
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+
+    state = synth.fresh_state(SEED + 1)
+    kept = state.noise_state.clone()
+    f0, ld = pitch[:, :block:block, None], loud[:, :block:block, None]
+    a1, n1 = synth.step_stateless(state, f0, ld)
+    a2, n2 = synth.step_stateless(state, f0, ld)
+    b1, _ = synth.step_stateless(n1, f0, ld)
+    torch.cuda.synchronize()
+    check(torch.equal(a1, a2) and torch.equal(n1.noise_state, n2.noise_state),
+          "replaying a StreamState on the card gave other audio")
+    check(torch.equal(state.noise_state, kept), "step_stateless changed the state passed in")
+    check(not torch.equal(a1, b1), "the next state's noise did not move on")
+
+    n = 1000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        gen = torch.Generator(device=device)
+        gen.set_state(kept)
+        gen.get_state()
+    roundtrip_us = (time.perf_counter() - t0) * 1e6 / n
+    p50, p99 = np.percentile(render_ms, [50, 99])
+    print(
+        f"streaming {N_BLOCKS} blocks with noise (generator state by value, {kept.numel()} bytes): "
+        f"render_ms p50={p50:.4f} p99={p99:.4f} max={max(render_ms):.4f}; "
+        f"generator state round trip (build, set_state, get_state) {roundtrip_us:.2f} us a block on the host; "
+        f"replayed state: identical audio",
+        flush=True,
+    )
 
 
 def phase_server(device) -> int:
@@ -462,12 +492,30 @@ def phase_train_step(device) -> None:
     noise = rng.uniform(-1.0, 1.0, (batch_size, frames, block)).astype(np.float32)
     batch = {"pitch": pitch[..., None], "loudness": loud[..., None], "sig": sig.astype(np.float32)}
 
-    def step(model, dev):
-        tb = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+    def step(model, dev, dtype=torch.float32):
+        tb = {k: torch.tensor(v, device=dev, dtype=dtype) for k, v in batch.items()}
         loss, grads = loss_and_grads(model, tb, meta_mean, meta_std, cfg.train.scales,
-                                     cfg.train.overlap, noise=torch.tensor(noise, device=dev))
+                                     cfg.train.overlap, noise=torch.tensor(noise, device=dev, dtype=dtype))
         names = [n for n, _ in model.named_parameters()]
         return float(loss), {n: g.detach().cpu().double() for n, g in zip(names, grads)}
+
+    def held_step(model, dev, dtype, held=None):
+        """The same loss with the STFT bins marked in `held` (a bool mask
+        per scale) held constant, and its gradients; also the
+        reconstruction's magnitudes per scale."""
+        tb = {k: torch.tensor(v, device=dev, dtype=dtype) for k, v in batch.items()}
+        tb["loudness"] = (tb["loudness"] - meta_mean) / meta_std
+        out = model(tb, noise=torch.tensor(noise, device=dev, dtype=dtype))
+        ori = multiscale_fft(tb["sig"], cfg.train.scales, cfg.train.overlap)
+        rec = multiscale_fft(out["signal"], cfg.train.scales, cfg.train.overlap)
+        if held is not None:
+            ori = [torch.where(h.to(dev), torch.ones_like(o), o) for h, o in zip(held, ori)]
+            rec = [torch.where(h.to(dev), torch.ones_like(r), r) for h, r in zip(held, rec)]
+        loss = multiscale_spec_loss(ori, rec)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, [q for _, q in model.named_parameters()])
+        return (float(loss.detach()), {n: g.detach().cpu().double() for n, g in zip(names, grads)},
+                [r.detach().cpu() for r in rec])
 
     cpu_model = init_params(DDSPDecoder(**kw), torch.Generator().manual_seed(SEED))
     gpu_model = copy.deepcopy(cpu_model).to(device)
@@ -495,6 +543,58 @@ def phase_train_step(device) -> None:
           f"GPU vs CPU harmonic_proj.weight rel L2 {rel['harmonic_proj.weight']}")
     for n, e in of_whole.items():
         check(e <= STEP_LEAF_OF_WHOLE, f"GPU vs CPU gradient of {n}: |Δ|/|g| {e}")
+    phase_train_step_f64(step, held_step, copy.deepcopy(cpu_model).double(),
+                         {"gpu_f32": (gpu_model, device, gpu_loss, gpu_grads),
+                          "cpu_f32": (cpu_model, "cpu", cpu_loss, cpu_grads)},
+                         cfg.train.scales)
+
+
+# The leaves on which GPU-f32 and CPU-f32 steps disagreed most at fresh
+# weights (PERF.md §6).
+FLAGGED_LEAVES = ("noise_proj.weight", "noise_proj.bias", "reverb.noise",
+                  "decoder.loudness_mlp.Dense_0.bias")
+HELD_BIN_LEVEL = 1e-6
+
+
+def phase_train_step_f64(step, held_step, model64, sides: dict, scales) -> None:
+    """Phase 5a, float64 reference: the same step on the CPU in float64
+    (the plain paths, same weights, batch and noise), and each float32
+    side's error against it, leaf by leaf (relative L2 to the f64 leaf's
+    norm).  Both f32 sides off f64 by similar amounts says the f32
+    disagreement is the loss's conditioning; one side far off would be a
+    defect of that side.  Then the STFT bins whose f64 magnitude is below
+    HELD_BIN_LEVEL, where the log term's weight 1/(S + 1e-7) passes 10^6,
+    are held constant on every side, and the whole-gradient errors are
+    taken again: what is left is the rest of the step's f32 rounding."""
+    loss64, grads64 = step(model64, "cpu", torch.float64)
+    summary, own = {}, {}
+    for side, (_, _, loss, grads) in sides.items():
+        whole, leaf, _ = _grad_errors(grads, grads64)
+        own[side] = {n: d / max(w, 1e-300) for n, (d, w) in leaf.items()}
+        summary[side] = (abs(loss - loss64) / abs(loss64), whole)
+    print("train step vs CPU float64 (full width, batch 2 x 48 frames, init_params weights): loss f64="
+          f"{loss64:.10f}; " + "; ".join(
+              f"{side} loss rel={lr:.3e} whole-gradient rel L2={w:.3e}" for side, (lr, w) in summary.items()),
+          flush=True)
+    for n in FLAGGED_LEAVES:
+        print(f"  flagged leaf {n}: rel L2 vs f64 gpu_f32={own['gpu_f32'][n]:.3e} "
+              f"cpu_f32={own['cpu_f32'][n]:.3e}", flush=True)
+    print("  every leaf, rel L2 vs f64 (gpu_f32, cpu_f32): " + ", ".join(
+        f"{n}=({own['gpu_f32'][n]:.2e}, {own['cpu_f32'][n]:.2e})" for n in grads64), flush=True)
+
+    _, _, rec64 = held_step(model64, "cpu", torch.float64)
+    held = [r < HELD_BIN_LEVEL for r in rec64]
+    where = [(sc, tuple(idx)) for sc, h in zip(scales, held) for idx in torch.nonzero(h).tolist()]
+    print(f"  STFT bins below {HELD_BIN_LEVEL:g} in f64 (scale, (item, bin, frame)): {where}; smallest "
+          "magnitude per scale: " + ", ".join(f"{sc}={float(r.min()):.3e}" for sc, r in zip(scales, rec64)),
+          flush=True)
+    _, held64, _ = held_step(model64, "cpu", torch.float64, held)
+    for side, (model, dev, _, _) in sides.items():
+        _, grads, _ = held_step(model, dev, torch.float32, held)
+        print(f"  {side} vs f64 with those bins held: whole-gradient rel L2="
+              f"{_grad_errors(grads, held64)[0]:.3e}", flush=True)
+    for side, (loss_rel, _) in summary.items():
+        check(loss_rel <= STEP_LOSS_REL, f"{side} vs f64 loss rel {loss_rel}")
 
 
 def write_cache(out_dir: str, device) -> None:
@@ -607,7 +707,8 @@ def main() -> int:
     report = kernels.build()
     print(f"kernel build wall s={time.perf_counter() - t0:.2f}", flush=True)
     for name, (secs, log) in report.items():
-        print(f"built {name} in {secs:.2f} s\n{log.strip()}", flush=True)
+        print(f"built {name} in {secs:.2f} s", flush=True)
+        check_spills(name, log)
 
     fwd_entry = phase_kernels(device)
     bwd_entry = phase_bwd_kernel(device)

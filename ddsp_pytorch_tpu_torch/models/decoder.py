@@ -49,7 +49,12 @@ class GRU(nn.Module):
       n = tanh(x·W_n + b_in + r ⊙ (h·U_n + b_hn))
       h' = (1 − z) ⊙ n + z ⊙ h
 
-    The input projection of all frames is one matmul before the loop."""
+    The input projection of all frames is one matmul before the loop, split
+    into frames once (`unbind`), so the backward stacks the F frame
+    gradients into one tensor; slicing `x_proj[:, t]` inside the loop would
+    give each frame a zero-filled gradient of the whole (B, F, 3H) tensor
+    and sum F of them, O(F²) work.  The JAX GRU scans over the same split
+    (decoder.py:97)."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
@@ -61,7 +66,7 @@ class GRU(nn.Module):
 
     def forward(self, x: torch.Tensor, initial_state: Optional[torch.Tensor] = None):
         """x (B, F, in) → (outputs (B, F, H), final_state (B, H))."""
-        b, n_frames = x.shape[0], x.shape[1]
+        b = x.shape[0]
         x_proj = x @ self.weight_ih.T + self.bias_ih
         if initial_state is None:
             h = torch.zeros((b, self.hidden_size), dtype=x.dtype, device=x.device)
@@ -69,9 +74,9 @@ class GRU(nn.Module):
             h = initial_state
         w_hh_t = self.weight_hh.T
         outputs = []
-        for t in range(n_frames):
+        for x_t in x_proj.unbind(1):
             h_proj = h @ w_hh_t + self.bias_hh
-            xr, xz, xn = x_proj[:, t].chunk(3, dim=-1)
+            xr, xz, xn = x_t.chunk(3, dim=-1)
             hr, hz, hn = h_proj.chunk(3, dim=-1)
             r = torch.sigmoid(xr + hr)
             z = torch.sigmoid(xz + hz)
@@ -133,6 +138,12 @@ class DDSPDecoder(nn.Module):
         if self.has_reverb:
             self.reverb = Reverb(self.sample_rate, self.sample_rate)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """float32, or float64 after `.double()` (the CPU reference of a
+        float32 run); f0 enters the synths in this type."""
+        return self.harmonic_proj.weight.dtype
+
     def _controls(self, hidden: torch.Tensor, f0: torch.Tensor):
         """Decoder hidden state → (harmonic controls, noise controls)
         (decoder.py:156-168)."""
@@ -153,7 +164,7 @@ class DDSPDecoder(nn.Module):
         (B, F, 1) → dict with f0, loudness, signal, noise, harmonic_audio,
         noise_ctrls, harmonic_ctrls.  noise (B, F, S) is injected, or drawn
         from `generator`."""
-        f0, loudness = batch["pitch"].float(), batch["loudness"]
+        f0, loudness = batch["pitch"].to(self.dtype), batch["loudness"]
         hidden, _ = self.decoder(f0, loudness)
         harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
         harmonic = self.harmonic_synth(**harmonic_ctrls)
@@ -184,7 +195,7 @@ class DDSPDecoder(nn.Module):
         (B, F, 1), GRU carry (B, H) and phase carry (B,) → (audio (B, F·S),
         new GRU carry, new phase).  No reverb (applied externally in the
         realtime contract)."""
-        f0 = f0.float()
+        f0 = f0.to(self.dtype)
         hidden, new_gru_state = self.decoder(f0, loudness, gru_state)
         harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
         harmonic, new_phase = self.harmonic_synth(

@@ -1,7 +1,8 @@
 """Synthesizer modules: HarmonicSynth, FilteredNoise, Reverb.
 
 Port of ddsp_pytorch_tpu/models/modules.py:22-185, keeping its
-get_controls() → forward() split.  Audio is (B, T) float32.
+get_controls() → forward() split.  Audio is (B, T) float32 (float64 after
+`.double()`, the CPU reference).
 """
 
 from __future__ import annotations
@@ -115,7 +116,9 @@ class Reverb(nn.Module):
 
     def build_impulse(self) -> torch.Tensor:
         """(length,) impulse: noise · exp-decay envelope · sigmoid(wet)."""
-        t = torch.arange(self.length, dtype=torch.float32, device=self.noise.device)
+        # in the parameters' type: torch would not promote a float32 grid by
+        # the 0-d decay
+        t = torch.arange(self.length, dtype=self.noise.dtype, device=self.noise.device)
         t = t / self.sample_rate
         envelope = torch.exp(-F.softplus(-self.decay) * t * 500.0)
         impulse = self.noise * envelope * torch.sigmoid(self.wet)

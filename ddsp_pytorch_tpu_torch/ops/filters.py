@@ -18,7 +18,9 @@ def amp_to_impulse_response(amp: torch.Tensor, target_size: int) -> torch.Tensor
     """(..., n_bands) zero-phase magnitudes → (..., target_size) linear-phase
     FIR stored causally from index 0 with its tail wrapped (filters.py:29-53).
     """
-    impulse = torch.fft.irfft(amp.to(torch.complex64))
+    # complex64 as in the JAX function; complex128 for float64 magnitudes
+    complex_dtype = torch.complex128 if amp.dtype == torch.float64 else torch.complex64
+    impulse = torch.fft.irfft(amp.to(complex_dtype))
     filter_size = impulse.shape[-1]  # 2 * (n_bands - 1)
     impulse = torch.roll(impulse, filter_size // 2, dims=-1)
     impulse = impulse * hann_window(filter_size, impulse.dtype, impulse.device)

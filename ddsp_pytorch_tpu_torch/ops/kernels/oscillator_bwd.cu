@@ -15,121 +15,226 @@
 // run in registers, one sincosf per sample.
 //
 // What bounds it on an H100: per row it reads 4*(S+K+2) bytes and writes
-// 4*(K+2) bytes, and does about 8*S*K flops (two recurrences, the dA
-// product and the dtheta FMA), i.e. ~2K flops per byte: at K = 64 the FP32
-// pipe bounds it (8*R*S*K over 67 TFLOP/s).  This design spends more on the
-// K per-sample reductions than on the arithmetic: every dA_rk is a sum over
-// the S samples, done as a 5-step warp shuffle per k per sample.
+// 4*(K+2) bytes, and does 4 FMAs (8 flops) per harmonic per sample: the two
+// recurrences, the dA product and the dtheta sum.  At K = 64 that is ~2K
+// flops per byte, so the FP32 pipe bounds it (8*R*S*K over 67 TFLOP/s);
+// the bytes take a fifth of that time.
 //
-// Design (simple and right first): one CTA per row, threads stride over the
-// S samples.  The row's K amplitudes, pre-multiplied by k, sit in shared
-// memory.  For each k every warp reduces g*sin(k*theta) by shuffles and its
-// lane 0 adds the warp's partial to partial_s[warp][k] (each warp owns its
-// own slice, so there is no race and no atomic); after the sample loop the
-// warps' partials are summed in warp order.  dtheta is accumulated per
-// sample in a register, folded into per-thread dphi/domega sums, and those
-// are reduced the same way at the end.  theta is formed with explicit
-// round-to-nearest multiply and add exactly as in oscillator_fwd.cu, so it
-// is bitwise the plain version's; sincosf is the accurate libdevice routine
-// (build WITHOUT --use_fast_math).
+// Design.  The first port reduced every dA_rk across the 32 lanes of a warp
+// for every sample (a 5-step shuffle per harmonic per sample), so the
+// shuffle pipe, not the FP32 pipe, set its pace.  Here no value crosses
+// lanes inside the sample loop:
+//   * a warp owns a share of one row's samples, two at a time per lane
+//     (i and i + 32, so the g loads stay coalesced), and keeps the row's
+//     dA partials for a tile of TILE harmonics in registers across all its
+//     samples (`part[TILE]`, indexed by compile-time constants only);
+//   * after the sample loop each warp reduces its TILE partials across its
+//     lanes ONCE, by a reduce-scatter butterfly: 5 halving steps of
+//     TILE/2, TILE/4, ... shuffles (62 at TILE = 64) leave each lane with
+//     TILE/32 finished sums; the warps sharing a row add theirs through
+//     shared memory.  S*K warp reductions become one per warp and tile;
+//   * the row's k*A_k sit in shared memory, read as 16-byte float4
+//     broadcasts: one load feeds 4 harmonics of 2 samples, 8 dtheta FMAs
+//     (the first port re-read one float per FMA);
+//   * a CTA of 4 warps takes 4 rows (a warp a row) when there are many
+//     rows, so a row's set-up and reduction are paid once (2 warps a row
+//     measured slower at R = 6000); with few rows it puts all 4 warps on
+//     one row, for latency;
+//   * K is a template parameter: TILE = 64 with one pass is the main path
+//     (every committed config has 64 harmonics), so the harmonic loop and
+//     `part` unroll fully into registers.  Any other K runs the SAME kernel
+//     with TILE = 32 in ceil(K/32) passes; a pass first advances both
+//     recurrences to its first harmonic without accumulating, so the sines
+//     are those of the one-pass kernel.  The launcher picks by K.
+// Tensor cores do not apply: the per-row products share no operand across
+// rows (each row has its own theta grid and amplitudes), and TF32 would
+// not meet the 1e-4 check against the plain version.
+//
+// Numerics as in oscillator_fwd.cu: theta from explicit round-to-nearest
+// multiply and add (bitwise the plain version's), the accurate libdevice
+// sincosf (build WITHOUT --use_fast_math), f32 throughout.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC  (see ops/kernels/__init__.py)
+//        -Xcompiler -fPIC -Xptxas -v  (see ops/kernels/__init__.py)
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarps = 4;         // warps per CTA
+constexpr int kFixedK = 64;       // the main path's harmonics: one pass
+constexpr int kRuntimeTile = 32;  // harmonics per pass for any other K
+constexpr int kManyRows = 1056;   // from here on a warp a row, else 4
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(kFullMask, v, off);
-  }
-  return v;  // the sum is in lane 0
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
 }
 
-__global__ void oscillator_bwd_kernel(const float* __restrict__ phi,
-                                      const float* __restrict__ omega,
-                                      const float* __restrict__ amp,
-                                      const float* __restrict__ grad,
-                                      float* __restrict__ dphi,
-                                      float* __restrict__ domega,
-                                      float* __restrict__ damp,
-                                      int n_harmonic, int block_size) {
-  extern __shared__ float smem[];
-  const int n_warps = blockDim.x / 32;
-  float* kamp_s = smem;                       // [K]: k * A_k
-  float* partial_s = smem + n_harmonic;       // [n_warps][K]
-  float* red_s = partial_s + n_warps * n_harmonic;  // [2][n_warps]
+// Reduce-scatter of v[0..N) across the warp: at each step the lanes whose
+// bit M is set keep the upper half and send the lower, the others the
+// reverse, so N/2 shuffles halve what a lane holds.  After the steps
+// M = 16 .. 1 lane L holds in v[0 .. N/32) the warp's sums of harmonics
+// base + j (base from L's bits).
+template <int N, int M, int A>
+__device__ __forceinline__ void reduce_scatter(float (&v)[A], int lane, int& base) {
+  if constexpr (M >= 1) {
+    constexpr int H = N / 2;
+    const bool upper = (lane & M) != 0;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float send = upper ? v[j] : v[j + H];
+      const float keep = upper ? v[j + H] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFullMask, send, M);
+    }
+    if (upper) base += H;
+    reduce_scatter<H, M / 2>(v, lane, base);
+  }
+}
 
-  const int row = blockIdx.x;
+// sin and cos of (k-1)*theta and k*theta for one sample
+struct Osc {
+  float sp, sk, cp, ck, two_c;
+};
+
+__device__ __forceinline__ void advance(Osc& o) {
+  const float sn = fmaf(o.two_c, o.sk, -o.sp);
+  const float cn = fmaf(o.two_c, o.ck, -o.cp);
+  o.sp = o.sk;
+  o.sk = sn;
+  o.cp = o.ck;
+  o.ck = cn;
+}
+
+// One harmonic of two samples: dA partial, dtheta sums, recurrences.
+__device__ __forceinline__ void harmonic(float kamp, float& part, Osc& o0, Osc& o1,
+                                         float g0, float g1, float& fac0, float& fac1) {
+  part = fmaf(g0, o0.sk, part);
+  part = fmaf(g1, o1.sk, part);
+  fac0 = fmaf(kamp, o0.ck, fac0);
+  fac1 = fmaf(kamp, o1.ck, fac1);
+  advance(o0);
+  advance(o1);
+}
+
+__device__ __forceinline__ Osc start(float p, float w, float ramp) {
+  float s, c;
+  sincosf(__fadd_rn(p, __fmul_rn(w, ramp)), &s, &c);
+  return Osc{0.0f, s, 1.0f, c, 2.0f * c};
+}
+
+// Shared memory: [kWarps][TILE] reduced dA partials, [kWarps][2] dphi and
+// domega partials, then [rows per CTA][k_pad] k*A_k (16-byte aligned: the
+// two earlier parts are 4*TILE + 8 floats).
+template <int TILE, bool kOnePass>
+__global__ void __launch_bounds__(32 * kWarps)
+    oscillator_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ omega,
+                          const float* __restrict__ amp, const float* __restrict__ grad,
+                          float* __restrict__ dphi, float* __restrict__ domega,
+                          float* __restrict__ damp, int rows, int n_harmonic,
+                          int block_size, int warps_per_row) {
+  static_assert(TILE >= 32 && (TILE & (TILE - 1)) == 0, "TILE: a power of two >= 32");
+  constexpr int kPerLane = TILE / 32;
+  extern __shared__ float4 smem4[];
+  float* red_s = reinterpret_cast<float*>(smem4);
+  float* acc_s = red_s + kWarps * TILE;
+  float* kamp_all = acc_s + 2 * kWarps;
+
+  const int rows_per_cta = kWarps / warps_per_row;
+  const int k_pad = kOnePass ? TILE : (n_harmonic + TILE - 1) / TILE * TILE;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const float* amp_row = amp + static_cast<size_t>(row) * n_harmonic;
-  for (int k = threadIdx.x; k < n_harmonic; k += blockDim.x) {
-    kamp_s[k] = static_cast<float>(k + 1) * amp_row[k];
-  }
-  for (int j = threadIdx.x; j < n_warps * n_harmonic; j += blockDim.x) {
-    partial_s[j] = 0.0f;
+  const int slot = warp / warps_per_row;   // the CTA's row this warp works on
+  const int share = warp % warps_per_row;  // and which share of its samples
+  const int row = blockIdx.x * rows_per_cta + slot;
+  const bool live = row < rows;
+  const int r = live ? row : rows - 1;  // a CTA's last slot may be empty
+
+  float* kamp_s = kamp_all + slot * k_pad;
+  const float* amp_row = amp + static_cast<size_t>(r) * n_harmonic;
+  for (int k = share * 32 + lane; k < k_pad; k += warps_per_row * 32) {
+    kamp_s[k] = k < n_harmonic ? static_cast<float>(k + 1) * amp_row[k] : 0.0f;
   }
   __syncthreads();
 
-  const float p = phi[row];
-  const float w = omega[row];
-  const float* g_row = grad + static_cast<size_t>(row) * block_size;
-  float* my_partial = partial_s + warp * n_harmonic;
+  const float p = phi[r];
+  const float w = omega[r];
+  const float* g_row = grad + static_cast<size_t>(r) * block_size;
+  float* damp_row = damp + static_cast<size_t>(r) * n_harmonic;
+  const int n_pairs = (block_size + 63) / 64;
   float dphi_acc = 0.0f;
   float domega_acc = 0.0f;
-  // every thread runs the same number of iterations so that the full-mask
-  // shuffles see all 32 lanes; samples past the end contribute g = 0
-  for (int base = 0; base < block_size; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const bool valid = i < block_size;
-    const float g = valid ? g_row[i] : 0.0f;
-    const float ramp = static_cast<float>(i + 1);
-    const float theta = __fadd_rn(p, __fmul_rn(w, ramp));
-    float s, c;
-    sincosf(theta, &s, &c);
-    const float two_c = 2.0f * c;
-    float s_prev = 0.0f, s_cur = s;  // sin(0*theta), sin(1*theta)
-    float c_prev = 1.0f, c_cur = c;  // cos(0*theta), cos(1*theta)
-    float fac = 0.0f;                // sum_k k * A_k * cos(k*theta)
-    for (int k = 0; k < n_harmonic; ++k) {
-      const float part = warp_sum(g * s_cur);
-      if (lane == 0) my_partial[k] += part;
-      fac = fmaf(kamp_s[k], c_cur, fac);
-      const float s_next = fmaf(two_c, s_cur, -s_prev);
-      const float c_next = fmaf(two_c, c_cur, -c_prev);
-      s_prev = s_cur;
-      s_cur = s_next;
-      c_prev = c_cur;
-      c_cur = c_next;
+
+  for (int k0 = 0; k0 < k_pad; k0 += TILE) {
+    float part[TILE];
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) part[j] = 0.0f;
+
+    for (int pair = share; pair < n_pairs; pair += warps_per_row) {
+      const int i0 = pair * 64 + lane;
+      const int i1 = i0 + 32;
+      // samples past the end take g = 0: they add nothing
+      const float g0 = i0 < block_size ? g_row[i0] : 0.0f;
+      const float g1 = i1 < block_size ? g_row[i1] : 0.0f;
+      const float ramp0 = static_cast<float>(i0 + 1);
+      const float ramp1 = static_cast<float>(i1 + 1);
+      Osc o0 = start(p, w, ramp0);
+      Osc o1 = start(p, w, ramp1);
+      if constexpr (!kOnePass) {
+        for (int k = 0; k < k0; ++k) {
+          advance(o0);
+          advance(o1);
+        }
+      }
+      float fac0 = 0.0f;
+      float fac1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < TILE; j += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(kamp_s + k0 + j);
+        harmonic(a.x, part[j], o0, o1, g0, g1, fac0, fac1);
+        harmonic(a.y, part[j + 1], o0, o1, g0, g1, fac0, fac1);
+        harmonic(a.z, part[j + 2], o0, o1, g0, g1, fac0, fac1);
+        harmonic(a.w, part[j + 3], o0, o1, g0, g1, fac0, fac1);
+      }
+      const float dt0 = g0 * fac0;
+      const float dt1 = g1 * fac1;
+      dphi_acc += dt0;
+      dphi_acc += dt1;
+      domega_acc = fmaf(ramp0, dt0, domega_acc);
+      domega_acc = fmaf(ramp1, dt1, domega_acc);
     }
-    const float dtheta = g * fac;
-    dphi_acc += dtheta;
-    domega_acc = fmaf(ramp, dtheta, domega_acc);
+
+    int base = 0;
+    reduce_scatter<TILE, 16>(part, lane, base);
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) red_s[warp * TILE + base + j] = part[j];
+    __syncthreads();
+    if (share == 0 && live) {
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        float sum = 0.0f;
+        for (int v = 0; v < warps_per_row; ++v) sum += red_s[(warp + v) * TILE + base + j];
+        const int k = k0 + base + j;
+        if (k < n_harmonic) damp_row[k] = sum;
+      }
+    }
+    __syncthreads();  // red_s is reused by the next pass
   }
 
   dphi_acc = warp_sum(dphi_acc);
   domega_acc = warp_sum(domega_acc);
   if (lane == 0) {
-    red_s[warp] = dphi_acc;
-    red_s[n_warps + warp] = domega_acc;
+    acc_s[2 * warp] = dphi_acc;
+    acc_s[2 * warp + 1] = domega_acc;
   }
   __syncthreads();
-
-  float* damp_row = damp + static_cast<size_t>(row) * n_harmonic;
-  for (int k = threadIdx.x; k < n_harmonic; k += blockDim.x) {
-    float acc = 0.0f;
-    for (int v = 0; v < n_warps; ++v) acc += partial_s[v * n_harmonic + k];
-    damp_row[k] = acc;
-  }
-  if (threadIdx.x == 0) {
+  if (share == 0 && lane == 0 && live) {
     float a = 0.0f, b = 0.0f;
-    for (int v = 0; v < n_warps; ++v) {
-      a += red_s[v];
-      b += red_s[n_warps + v];
+    for (int v = 0; v < warps_per_row; ++v) {
+      a += acc_s[2 * (warp + v)];
+      b += acc_s[2 * (warp + v) + 1];
     }
     dphi[row] = a;
     domega[row] = b;
@@ -138,29 +243,33 @@ __global__ void oscillator_bwd_kernel(const float* __restrict__ phi,
 
 }  // namespace
 
-// Threads per CTA for a row of `block_size` samples: a multiple of 32 (the
-// shuffles assume whole warps), at most 512.
-static int bwd_threads(int block_size) {
-  int threads = ((block_size + 31) / 32) * 32;
-  return threads > 512 ? 512 : threads;
-}
-
 // Launches on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the caller can raise on a refused launch.  Shapes are checked by the
-// Python wrapper (ops/oscillator.py::oscillator_bank_bwd).
+// Python wrapper (ops/oscillator.py::oscillator_bank_bwd), which bounds K so
+// that the shared memory stays under 48 KB.
 extern "C" int ddsp_oscillator_bwd(const float* phi, const float* omega,
                                    const float* amp, const float* grad,
                                    float* dphi, float* domega, float* damp,
                                    int rows, int n_harmonic, int block_size,
                                    void* stream) {
-  const int threads = bwd_threads(block_size);
-  const int warps = threads / 32;
-  // k*A (K), the per-warp dA partials (warps*K), the dphi/domega partials
-  // (2*warps); ops/oscillator.py bounds K so that this stays under 48 KB
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_harmonic) * (1 + warps) + 2 * warps);
-  oscillator_bwd_kernel<<<rows, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      phi, omega, amp, grad, dphi, domega, damp, n_harmonic, block_size);
+  const int warps_per_row = rows >= kManyRows ? 1 : kWarps;
+  const int rows_per_cta = kWarps / warps_per_row;
+  const dim3 grid((rows + rows_per_cta - 1) / rows_per_cta);
+  const dim3 block(32 * kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_harmonic == kFixedK) {
+    const size_t smem =
+        sizeof(float) * (kWarps * kFixedK + 2 * kWarps + rows_per_cta * kFixedK);
+    oscillator_bwd_kernel<kFixedK, true><<<grid, block, smem, s>>>(
+        phi, omega, amp, grad, dphi, domega, damp, rows, n_harmonic, block_size,
+        warps_per_row);
+  } else {
+    const int k_pad = (n_harmonic + kRuntimeTile - 1) / kRuntimeTile * kRuntimeTile;
+    const size_t smem =
+        sizeof(float) * (kWarps * kRuntimeTile + 2 * kWarps + rows_per_cta * k_pad);
+    oscillator_bwd_kernel<kRuntimeTile, false><<<grid, block, smem, s>>>(
+        phi, omega, amp, grad, dphi, domega, damp, rows, n_harmonic, block_size,
+        warps_per_row);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,19 +41,26 @@ def phase_accumulate_frames(
     """Frame-start phases for frame-rate f0 (oscillator.py:49-75).
 
     f0 (B, F) Hz; phase0 optional (B,) carry.  Returns (phi (B, F), phase_out
-    (B,)), both wrapped to [0, 2π).  Each frame's increment is wrapped mod 2π
-    *before* the cumsum, which keeps f32 phase exact over long signals.
+    (B,)), both wrapped to [0, 2π), in f0's type.  Each frame's increment is
+    wrapped mod 2π *before* the cumsum, as in the JAX function.  Unlike it,
+    the sum runs in float64 and is rounded to f0's type once, after the
+    wrap: a float32 cumsum's partial sums reach F·2π, whose spacing (3e-5
+    rad at F = 48) the recurrence multiplies by k, and its error depends on
+    the order of the sum (a GPU scan's is larger than a sequential sum's).
+    The float64 sum makes φ exact to one rounding on every device.
     """
-    omega = 2.0 * math.pi * f0 / sample_rate
+    dtype = f0.dtype
+    omega = 2.0 * math.pi * f0.double() / sample_rate
     dphi = block_size * omega
     inc = torch.cumsum(torch.remainder(dphi, TWO_PI), dim=-1)
     phi = torch.remainder(F.pad(inc[..., :-1], (1, 0)), TWO_PI)
     if phase0 is not None:
+        phase0 = phase0.double()
         phi = torch.remainder(phi + phase0[..., None], TWO_PI)
         phase_out = torch.remainder(inc[..., -1] + phase0, TWO_PI)
     else:
         phase_out = torch.remainder(inc[..., -1], TWO_PI)
-    return phi, phase_out
+    return phi.to(dtype), phase_out.to(dtype)
 
 
 def oscillator_bank_plain(
@@ -113,11 +120,23 @@ def oscillator_bank_bwd_plain(
     )
 
 
-# Shared memory holds a row's K amplitudes: 48 KB without opting in to more.
-MAX_KERNEL_HARMONICS = 48 * 1024 // 4
-# The backward kernel also keeps one K-vector of partial sums per warp (16
-# warps at S = 512) and two per-warp scalars: (48 KB/4 − 2·16) / (1 + 16).
-MAX_BWD_KERNEL_HARMONICS = (48 * 1024 // 4 - 2 * 16) // (1 + 16)
+# Shared memory stays under the 48 KB a CTA gets without opting in to more.
+SMEM_FLOATS = 48 * 1024 // 4
+# oscillator_fwd.cu: at many rows a CTA holds 4 rows' amplitudes, each
+# padded to a multiple of 4.
+MAX_KERNEL_HARMONICS = SMEM_FLOATS // 4 // 4 * 4
+# oscillator_bwd.cu: a CTA of 4 warps holds 32 reduced dA partials and 2
+# scalars per warp, then up to 4 rows' k·A_k, each padded to a multiple of
+# the 32-harmonic tile.
+MAX_BWD_KERNEL_HARMONICS = (SMEM_FLOATS - 4 * 32 - 2 * 4) // 4 // 32 * 32
+# Both kernels have a variant for this many harmonics, known at compile time
+# (every committed config), and a runtime-K variant for any other K.
+KERNEL_FIXED_K = 64
+
+
+def kernel_variant(n_harmonic: int) -> str:
+    """The variant the kernels' launchers take for `n_harmonic` harmonics."""
+    return f"K={KERNEL_FIXED_K} template" if n_harmonic == KERNEL_FIXED_K else "runtime K"
 
 
 def _check_rows(phi, omega, amp, block_size, grad=None) -> int:
@@ -135,9 +154,14 @@ def _check_rows(phi, omega, amp, block_size, grad=None) -> int:
                 f"need grad (R, S) = ({phi.shape[0]}, {block_size}); got {tuple(grad.shape)}"
             )
         named.append(("grad", grad))
+    # float64 only for the plain versions on the CPU, the reference that
+    # float32 runs are measured against; the kernels take float32 only
+    allowed = (torch.float32, torch.float64) if phi.device.type == "cpu" else (torch.float32,)
+    if phi.dtype not in allowed:
+        raise TypeError(f"phi must be one of {allowed} on {phi.device}, got {phi.dtype}")
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != phi.dtype:
+            raise TypeError(f"{name} must be {phi.dtype} like phi, got {t.dtype}")
         if t.device != phi.device:
             raise ValueError(f"{name} is on {t.device}, phi on {phi.device}")
         if not t.is_contiguous():
@@ -155,8 +179,8 @@ def oscillator_bank(
     """The oscillator bank on rows: phi (R,), omega (R,), amp (R, K), all
     float32 and contiguous on one device → audio (R, block_size).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel and
-    count the launch in `oscillator_bank.launches`.
+    CPU tensors run the plain version (float64 too); CUDA tensors launch
+    the kernel and count the launch in `oscillator_bank.launches`.
     """
     block_size = _check_rows(phi, omega, amp, block_size)
     if phi.device.type == "cpu":
@@ -194,8 +218,8 @@ def oscillator_bank_bwd(
     audio cotangent grad (R, block_size), all float32 and contiguous on one
     device → (dphi (R,), domega (R,), damp (R, K)).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel and
-    count the launch in `oscillator_bank_bwd.launches`.
+    CPU tensors run the plain version (float64 too); CUDA tensors launch
+    the kernel and count the launch in `oscillator_bank_bwd.launches`.
     """
     block_size = _check_rows(phi, omega, amp, block_size, grad)
     if phi.device.type == "cpu":
@@ -261,14 +285,17 @@ def synth_from_phases(
     """(B, F) f0, (B, F, K) amplitudes, (B, F) frame-start phases →
     (B, F·S) audio (oscillator.py:191-218, harmonic_synth_pallas:184-214):
     flatten batch and frames to rows and run the bank.  ω = 2π/sr·f0 stays
-    in differentiable torch, so dω and dφ chain to df0 through autograd."""
+    in differentiable torch, so dω and dφ chain to df0 through autograd.
+    The rows are float32, or float64 where the amplitudes are (the CPU
+    reference)."""
     b, f = f0.shape
     k = amplitudes.shape[-1]
+    dtype = torch.promote_types(amplitudes.dtype, torch.float32)
     omega = (2.0 * math.pi / sample_rate) * f0
     audio = OscillatorBank.apply(
-        phi.reshape(b * f).float().contiguous(),
-        omega.reshape(b * f).float().contiguous(),
-        amplitudes.reshape(b * f, k).float().contiguous(),
+        phi.reshape(b * f).to(dtype).contiguous(),
+        omega.reshape(b * f).to(dtype).contiguous(),
+        amplitudes.reshape(b * f, k).to(dtype).contiguous(),
         block_size,
     )
     return audio.reshape(b, f * block_size)

@@ -163,6 +163,7 @@ def main(argv=None) -> dict:
         },
         "traced_wall_ms": traced_wall_ms,
         "device_busy_ms": busy_ms,
+        "device_busy_ms_per_step": busy_ms / args.steps,
         "device_idle_share": 1.0 - busy_ms / traced_wall_ms,
         "kernel_launches_per_step": per_step,
         "gru_fwd_bwd_launches": gru_launches,

@@ -14,9 +14,9 @@ wire protocol is the same, byte for byte (little-endian):
   n = 0 and closes it.
 
 One thread per connection.  Each connection holds its own StreamState
-(GRU carry, oscillator phase, noise generator seeded with a per-session
-counter); all share one StreamingSynth, and a lock serializes the device
-dispatch.
+(GRU carry, oscillator phase, and the state of a noise generator seeded
+with a per-session counter); all share one StreamingSynth, and a lock
+serializes the device dispatch.
 
 Run:  python -m ddsp_pytorch_tpu_torch.serve --bundle pretrained/ddsp_violin_bundle
 """

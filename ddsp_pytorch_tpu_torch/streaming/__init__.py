@@ -2,14 +2,18 @@
 
 Port of ddsp_pytorch_tpu/streaming/__init__.py:29-303 for the decoder
 family.  A StreamState carries the GRU hidden state, the oscillator phase
-and the noise generator; each `step` renders one or more blocks and
-streamed output equals offline output (tests/test_torch_streaming.py).
+and the noise generator's state; each `step` renders one or more blocks
+and streamed output equals offline output (tests/test_torch_streaming.py).
+
+`step_stateless` is pure, as the JAX step is (it splits a key,
+streaming/__init__.py:125-128): the noise generator's state travels by
+value in the StreamState (the bytes of `torch.Generator.get_state()`); a
+step builds a generator from it, draws, and returns the advanced bytes in
+the new state.  The state passed in is never mutated, so replaying a state
+repeats its audio and two holders of one state draw the same noise.
 
 Differences from the JAX version, by design:
-  * the noise generator is a torch.Generator on the synth's device; a step
-    advances it in place (jax.random keys are split instead), so the state
-    returned by `step_stateless` shares the generator object with the state
-    passed in;
+  * the noise is torch.Generator's stream, not jax.random's;
   * steps run under torch.inference_mode();
   * in-stream reverb and the masked VoicePool step are not ported yet
     (ROADMAP.md §1).
@@ -29,7 +33,7 @@ from ddsp_pytorch_tpu_torch import resolve_device
 class StreamState:
     gru: torch.Tensor  # (B, hidden) decoder GRU carry
     phase: torch.Tensor  # (B,) oscillator phase carry, radians in [0, 2π)
-    generator: torch.Generator  # noise source, on the synth's device
+    noise_state: torch.Tensor  # uint8 state of the noise torch.Generator
 
 
 class StreamingSynth:
@@ -70,7 +74,7 @@ class StreamingSynth:
         return StreamState(
             gru=torch.zeros((self._batch, self.model.hidden_size), device=self.device),
             phase=torch.zeros((self._batch,), device=self.device),
-            generator=gen,
+            noise_state=gen.get_state(),
         )
 
     def reset(self, seed: int = 0) -> None:
@@ -83,28 +87,30 @@ class StreamingSynth:
         return torch.tensor(np.asarray(x, np.float32), device=self.device)
 
     def step_stateless(self, state: StreamState, f0_frames, loudness_frames):
-        """(state, controls (B, F, 1)) → (audio (B, F·S), new state)."""
+        """(state, controls (B, F, 1)) → (audio (B, F·S), new state).
+
+        Pure: `state` is left as it was."""
         f0 = self._as_f32(f0_frames)
         loudness = self._as_f32(loudness_frames)
         with torch.inference_mode():
             loudness = (loudness - self.mean_loudness) / self.std_loudness
             b, f = f0.shape[0], f0.shape[1]
+            noise_state = state.noise_state
             if self.noise_deterministic:
                 noise = torch.zeros((b, f, self.block_size), device=self.device)
             else:
+                gen = torch.Generator(device=self.device)
+                gen.set_state(noise_state)
                 noise = (
-                    torch.rand(
-                        (b, f, self.block_size),
-                        generator=state.generator,
-                        device=self.device,
-                    )
+                    torch.rand((b, f, self.block_size), generator=gen, device=self.device)
                     * 2.0
                     - 1.0
                 )
+                noise_state = gen.get_state()
             audio, gru, phase = self.model.streaming_step(
                 f0, loudness, state.gru, state.phase, noise
             )
-        return audio, StreamState(gru=gru, phase=phase, generator=state.generator)
+        return audio, StreamState(gru=gru, phase=phase, noise_state=noise_state)
 
     def step(self, f0_frames, loudness_frames) -> torch.Tensor:
         """Frame-rate controls (B, F, 1) → (B, F·block_size) audio."""

@@ -72,13 +72,14 @@ _FLAX_LEAF = {
 
 def state_dict_to_flax(state_dict: dict) -> dict:
     """Flat state_dict (tensors, any device) → nested dict of float32 numpy
-    arrays in the flax tree's layout: the inverse of flax_to_state_dict,
-    used to compare parameters or gradients leaf by leaf with the JAX
-    package (utils/torch_reference.py:31-64)."""
+    arrays (float64 ones stay float64) in the flax tree's layout: the
+    inverse of flax_to_state_dict, used to compare parameters or gradients
+    leaf by leaf with the JAX package (utils/torch_reference.py:31-64)."""
     tree: dict = {}
     for key, value in state_dict.items():
         *path, leaf = key.split(".")
-        arr = value.detach().to("cpu", torch.float32).numpy()
+        dtype = torch.float64 if value.dtype == torch.float64 else torch.float32
+        arr = value.detach().to("cpu", dtype).numpy()
         if leaf == "weight":
             name, transpose = ("kernel", True) if arr.ndim == 2 else ("scale", False)
         elif leaf in _FLAX_LEAF:

@@ -171,3 +171,54 @@ def test_gpu_train_step_gradients_reach_harmonic_branch(cuda):
     assert float((a - b).norm() / b.norm()) <= 2e-2
     for name, ga, gb in zip(names, gpu_grads, cpu_grads):
         assert float((ga - gb).norm()) <= max(0.1 * float(gb.norm()), 1e-3 * float(b.norm())), name
+
+
+def _rows_on(device, rng, rows, k, s):
+    phi = torch.tensor(rng.uniform(0, 2 * np.pi, rows).astype(np.float32), device=device)
+    omega = torch.tensor((2 * np.pi / 48000 * rng.uniform(50, 2000, rows)).astype(np.float32), device=device)
+    amp = torch.tensor((rng.random((rows, k)) / k).astype(np.float32), device=device)
+    g = torch.tensor(rng.standard_normal((rows, s)).astype(np.float32), device=device)
+    return phi, omega, amp, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 37, 6000])
+@pytest.mark.parametrize("k", [64, 100], ids=["K64-template", "runtime-K"])
+def test_kernel_variants_match_plain_on_cuda(cuda, rows, k):
+    """Both variants of each kernel (the K = 64 template and the runtime-K
+    instantiation) in both launch configurations (few rows, many rows)
+    against the plain versions: the forward within 5e-4 of the plain
+    float32 version.  The backward against the plain version in float64
+    (on the CPU), each output relative to its largest magnitude: within
+    1e-4, or no further off than twice the plain float32 version is.  A
+    row's dphi and domega are sums of S terms that cancel (at R = 1 here
+    Σ|dθ_i| is ~150 times |dphi|), where two float32 summation orders
+    differ by more than 1e-4 while neither is more accurate."""
+    rng = np.random.default_rng(rows + k)
+    phi, omega, amp, g = _rows_on(cuda, rng, rows, k, 512)
+    before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    y = osc.oscillator_bank(phi, omega, amp, 512)
+    grads = osc.oscillator_bank_bwd(phi, omega, amp, g, 512)
+    assert (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches) == (before[0] + 1, before[1] + 1)
+    y_plain = osc.oscillator_bank_plain(phi, omega, amp, 512)
+    grads_plain = osc.oscillator_bank_bwd_plain(phi, omega, amp, g, 512)
+    grads_64 = osc.oscillator_bank_bwd_plain(*(t.cpu().double() for t in (phi, omega, amp, g)), 512)
+    torch.cuda.synchronize()
+    assert float((y - y_plain).abs().max()) <= 5e-4
+    for a, b, ref in zip(grads, grads_plain, grads_64):
+        assert bool(torch.isfinite(a).all())
+        scale = float(ref.abs().max())
+        err = float((a.cpu().double() - ref).abs().max()) / scale
+        plain_err = float((b.cpu().double() - ref).abs().max()) / scale
+        assert err <= max(1e-4, 2.0 * plain_err), (err, plain_err)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_take_float32_only(cuda):
+    """float64 is for the plain versions on the CPU; on the card the
+    wrappers raise rather than convert."""
+    phi, omega, amp, g = (t.double() for t in _rows_on(cuda, np.random.default_rng(9), 3, 8, 64))
+    with pytest.raises(TypeError):
+        osc.oscillator_bank(phi, omega, amp, 64)
+    with pytest.raises(TypeError):
+        osc.oscillator_bank_bwd(phi, omega, amp, g, 64)

@@ -18,7 +18,7 @@ from ddsp_pytorch_tpu.models.decoder import DDSPDecoder as JaxDecoder
 from ddsp_pytorch_tpu.models.modules import Reverb as JaxReverb
 from ddsp_pytorch_tpu.streaming import init_stream_state
 from ddsp_pytorch_tpu_torch.models import DDSPDecoder, load_model
-from ddsp_pytorch_tpu_torch.models.decoder import MLP
+from ddsp_pytorch_tpu_torch.models.decoder import GRU, MLP
 from ddsp_pytorch_tpu_torch.models.modules import Reverb
 from ddsp_pytorch_tpu_torch.weights import flax_to_state_dict
 
@@ -167,3 +167,74 @@ def test_load_model_registry():
     for name in ("mfcc-autoencoder", "no-such-model"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             load_model(name, {})
+
+
+def _gru_frame_sliced(gru, x):
+    """The GRU loop as it slices x_proj[:, t] per frame, the formulation
+    whose backward sums F zero-filled (B, F, 3H) gradients."""
+    x_proj = x @ gru.weight_ih.T + gru.bias_ih
+    h = torch.zeros((x.shape[0], gru.hidden_size), dtype=x.dtype)
+    outputs = []
+    for t in range(x.shape[1]):
+        h_proj = h @ gru.weight_hh.T + gru.bias_hh
+        xr, xz, xn = x_proj[:, t].chunk(3, dim=-1)
+        hr, hz, hn = h_proj.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        outputs.append(h)
+    return torch.stack(outputs, dim=1), h
+
+
+def _narrow_gru(seed, hidden=8, n_in=5):
+    rng = np.random.default_rng(seed)
+    gru = GRU(n_in, hidden)
+    with torch.no_grad():
+        for p in gru.parameters():
+            p.copy_(torch.tensor(rng.standard_normal(p.shape).astype(np.float32) * 0.5))
+    return gru, rng
+
+
+def test_gru_gradients_equal_frame_sliced_loop():
+    """The GRU's outputs and every gradient equal those of the loop that
+    slices x_proj per frame: only additions of exact zeros went away
+    (1e-7 of each gradient's largest magnitude)."""
+    gru, rng = _narrow_gru(4)
+    x = torch.tensor(rng.standard_normal((2, 16, 5)).astype(np.float32), requires_grad=True)
+    g_out = torch.tensor(rng.standard_normal((2, 16, 8)).astype(np.float32))
+    g_h = torch.tensor(rng.standard_normal((2, 8)).astype(np.float32))
+    results = []
+    for fn in (gru, lambda inp: _gru_frame_sliced(gru, inp)):
+        out, h = fn(x)
+        grads = torch.autograd.grad((out * g_out).sum() + (h * g_h).sum(), [x, *gru.parameters()])
+        results.append((out.detach(), h.detach(), grads))
+    (out, h, grads), (want_out, want_h, want_grads) = results
+    assert torch.equal(out, want_out) and torch.equal(h, want_h)
+    for got, want in zip(grads, want_grads):
+        assert float((got - want).abs().max()) <= 1e-7 * float(want.abs().max())
+
+
+def _graph_nodes(fn):
+    seen, stack = set(), [fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        stack.extend(nxt for nxt, _ in node.next_functions)
+    return [type(n).__name__ for n in seen]
+
+
+def test_gru_graph_has_no_per_frame_select():
+    """The autograd graph of a narrow GRU (H = 8) over F = 16 frames splits
+    the input projection once (one UnbindBackward) and holds no
+    SelectBackward node, which the per-frame slice made 16 of."""
+    gru, rng = _narrow_gru(5)
+    x = torch.tensor(rng.standard_normal((2, 16, 5)).astype(np.float32), requires_grad=True)
+    out, _ = gru(x)
+    names = _graph_nodes(out.grad_fn)
+    assert not [n for n in names if n.startswith("SelectBackward")]
+    assert sum(n.startswith("UnbindBackward") for n in names) == 1
+    sliced, _ = _gru_frame_sliced(gru, x)
+    assert sum(n.startswith("SelectBackward") for n in _graph_nodes(sliced.grad_fn)) == 16

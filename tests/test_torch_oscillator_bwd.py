@@ -159,5 +159,9 @@ def test_backward_wrapper_rejects_bad_inputs(grad, err):
 
 
 def test_backward_harmonic_bound():
-    assert osc.MAX_BWD_KERNEL_HARMONICS == (12288 - 32) // 17
-    assert 4 * (osc.MAX_BWD_KERNEL_HARMONICS * 17 + 32) <= 48 * 1024
+    """The bound follows oscillator_bwd.cu's shared memory at its largest
+    (4 rows a CTA): 4 warps × (32 reduced partials + 2 scalars) + 4 rows ×
+    K padded to 32, all f32, within 48 KB."""
+    assert osc.MAX_BWD_KERNEL_HARMONICS == (12288 - 4 * 32 - 8) // 4 // 32 * 32 == 3008
+    assert 4 * (4 * 32 + 8 + 4 * osc.MAX_BWD_KERNEL_HARMONICS) <= 48 * 1024
+    assert 4 * (4 * 32 + 8 + 4 * (osc.MAX_BWD_KERNEL_HARMONICS + 32)) > 48 * 1024

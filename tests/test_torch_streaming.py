@@ -18,6 +18,7 @@ from ddsp_pytorch_tpu.export import make_streaming_synth as jax_make_streaming_s
 from ddsp_pytorch_tpu.streaming import init_stream_state
 from ddsp_pytorch_tpu_torch.export import load_bundle, make_streaming_synth
 from ddsp_pytorch_tpu_torch.profile_serving import glide
+from ddsp_pytorch_tpu_torch.streaming import StreamState
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -110,3 +111,67 @@ def test_generator_noise_is_per_state():
     assert torch.equal(a1, a2) and not torch.equal(a1, a3)
     with pytest.raises(ValueError):
         port.step_samples(pitch[:, :100], loud[:, :100])
+
+
+def _state_copy(state):
+    return StreamState(gru=state.gru.clone(), phase=state.phase.clone(),
+                       noise_state=state.noise_state.clone())
+
+
+def _assert_states_equal(a, b):
+    assert torch.equal(a.gru, b.gru) and torch.equal(a.phase, b.phase)
+    assert torch.equal(a.noise_state, b.noise_state)
+
+
+def test_step_stateless_replay_is_identical_and_pure():
+    """Stepping one state twice gives bit-identical audio and next states,
+    and leaves the state passed in as it was; the next state's noise has
+    moved on."""
+    port = make_streaming_synth(BUNDLE, device="cpu", seed=5)
+    pitch, loud = glide(2, 512)
+    f0, ld = pitch[:, ::512, None], loud[:, ::512, None]
+    state = port.fresh_state(5)
+    before = _state_copy(state)
+    a1, n1 = port.step_stateless(state, f0[:, :1], ld[:, :1])
+    a2, n2 = port.step_stateless(state, f0[:, :1], ld[:, :1])
+    _assert_states_equal(state, before)
+    assert torch.equal(a1, a2)
+    _assert_states_equal(n1, n2)
+    assert not torch.equal(n1.noise_state, state.noise_state)
+    b1, _ = port.step_stateless(n1, f0[:, :1], ld[:, :1])
+    assert not torch.equal(a1, b1)  # same controls and carries, fresh noise
+
+
+def test_forked_states_draw_identical_noise():
+    """Two holders of copies of one state render the same blocks: the noise
+    is not one stream shared between them."""
+    port = make_streaming_synth(BUNDLE, device="cpu", seed=6)
+    pitch, loud = glide(3, 512)
+    f0, ld = pitch[:, ::512, None], loud[:, ::512, None]
+    _, state = port.step_stateless(port.fresh_state(6), f0[:, :1], ld[:, :1])
+    left, right = state, _state_copy(state)
+    for i in range(1, 3):
+        a, left = port.step_stateless(left, f0[:, i : i + 1], ld[:, i : i + 1])
+        b, right = port.step_stateless(right, f0[:, i : i + 1], ld[:, i : i + 1])
+        assert torch.equal(a, b), f"block {i}"
+        _assert_states_equal(left, right)
+
+
+def test_step_streams_repeat_by_seed():
+    """`step` carries the state: one seed repeats its whole stream, equal to
+    chained step_stateless calls; another seed gives another stream."""
+    pitch, loud = glide(4, 512)
+    streams = []
+    for seed in (7, 7, 8):
+        port = make_streaming_synth(BUNDLE, device="cpu", seed=seed)
+        streams.append(torch.cat([port.step_samples(pitch[:, 512 * i : 512 * (i + 1)],
+                                                    loud[:, 512 * i : 512 * (i + 1)])
+                                  for i in range(4)], dim=-1))
+    assert torch.equal(streams[0], streams[1]) and not torch.equal(streams[0], streams[2])
+    port = make_streaming_synth(BUNDLE, device="cpu", seed=7)
+    state, outs = port.fresh_state(7), []
+    for i in range(4):
+        audio, state = port.step_stateless(state, pitch[:, 512 * i : 512 * i + 1, None],
+                                           loud[:, 512 * i : 512 * i + 1, None])
+        outs.append(audio)
+    assert torch.equal(torch.cat(outs, dim=-1), streams[0])

@@ -418,3 +418,98 @@ def test_trainer_refuses_what_waits(cache, tmp_path):
             setattr(cfg, section, dataclasses.replace(getattr(cfg, section), **values))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Trainer(cfg, str(tmp_path / "run"), device="cpu")
+
+
+class _Widened:
+    """jax.numpy with its 32-bit float names bound to the 64-bit types."""
+
+    float32 = jnp.float64
+    complex64 = jnp.complex128
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@pytest.fixture
+def jax_float64(monkeypatch):
+    """JAX's train step in float64, for this test only.
+
+    x64 is on through `jax.enable_x64` as a context, so it is off again when
+    the test ends (pytest-xdist runs other JAX tests in this process).  The
+    JAX modules on the step's path pin float32 by name at a few places: the
+    controls and f0 (models/decoder.py:158,164,230), the noise draw and the
+    reverb's time grid (models/modules.py:125,171), the noise FIR's complex64
+    (ops/filters.py:41) and the loss (training/loss.py:25,51-52).  Each of
+    those modules sees `jnp` with those names bound to the 64-bit types, so
+    its arithmetic runs in float64 unchanged; the monkeypatch undoes it."""
+    import ddsp_pytorch_tpu.models.decoder as jax_decoder
+    import ddsp_pytorch_tpu.models.modules as jax_modules
+    import ddsp_pytorch_tpu.ops.filters as jax_filters
+    import ddsp_pytorch_tpu.training.loss as jax_loss_module
+
+    for module in (jax_decoder, jax_modules, jax_filters, jax_loss_module):
+        monkeypatch.setattr(module, "jnp", _Widened())
+    with jax.enable_x64(True):
+        yield
+
+
+F64_LEAF_REL = 1e-6
+
+
+def test_float64_step_matches_jax_float64(setup, jax_float64):
+    """The port's train step in float64 on the CPU (the model after
+    `.double()`, the plain oscillator and the STFT loss in float64) against
+    jax.value_and_grad of the JAX step's loss in float64, from the same
+    weights, batch and noise: the loss within 1e-6 relative and every
+    gradient leaf within 1e-6 of its own norm (measured: loss 2.6e-15,
+    worst leaf 2.4e-11).  The loss's conditioning at init, which holds the
+    float32 test above to 0.1 a leaf, still leaves float64 ~10 digits, so
+    this is the reference that float32 runs (the CPU's and the card's,
+    chip_smoke.py phase 5) are measured against.  Then one Adam step of
+    make_train_step runs in float64 too."""
+    from ddsp_pytorch_tpu.training.loss import spectral_loss_from_signals as jax_loss
+    from ddsp_pytorch_tpu.training.train import _normalize_loudness
+
+    _, params, batch = setup
+    params64 = jax.tree.map(lambda a: np.asarray(a, np.float64), params)
+    batch64 = {k: v.astype(np.float64) for k, v in batch.items()}
+    jmodel = JaxDecoder(**KW, dtype=jnp.float64, use_pallas="never")
+    mean, std = -6.0, 1.1
+    _, noise_rng = jax.random.split(jax.random.PRNGKey(3))
+    jbatch = {k: jnp.asarray(v) for k, v in batch64.items()}
+
+    def loss_fn(p):
+        out = jmodel.apply({"params": p}, _normalize_loudness(jbatch, mean, std), rngs={"noise": noise_rng})
+        return jax_loss(jbatch["sig"], out["signal"], SCALES, 0.75)[0]
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(jax.tree.map(jnp.asarray, params64))
+    noise = np.asarray(jmodel.apply({"params": params64}, jbatch["pitch"], method=jmodel.sample_noise,
+                                    rngs={"noise": noise_rng}))
+    assert want_loss.dtype == noise.dtype == np.float64
+    want = dict(_leaves(jax.tree.map(np.asarray, want_grads)))
+
+    model = DDSPDecoder(**KW)
+    model.load_state_dict(flax_to_state_dict(params))
+    model.double()
+    tbatch = {k: torch.tensor(v) for k, v in batch64.items()}
+    loss, grads = loss_and_grads(model, tbatch, mean, std, SCALES, 0.75, noise=torch.tensor(noise))
+    assert loss.dtype == torch.float64 and all(g.dtype == torch.float64 for g in grads)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=F64_LEAF_REL)
+    names = [n for n, _ in model.named_parameters()]
+    got = dict(_leaves(state_dict_to_flax(dict(zip(names, grads)))))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        assert w.dtype == np.float64 and got[name].shape == w.shape, name
+        err = np.linalg.norm(got[name] - w) / np.linalg.norm(w)
+        assert err <= F64_LEAF_REL, f"{name}: relative L2 error {err:.3e} > {F64_LEAF_REL}"
+
+    cfg, _ = _cfg()
+    tx = make_optimizer(cfg)
+    state = TrainState(step=0, model=model, opt_state=tx.init([p for _, p in model.named_parameters()]),
+                       generator=torch.Generator().manual_seed(0), mean_loudness=mean, std_loudness=std)
+    before = [p.detach().clone() for p in model.parameters()]
+    metrics = make_train_step(model, tx, cfg)(state, tbatch, noise=torch.tensor(noise))
+    assert float(metrics["loss"]) == float(loss) and int(metrics["update_skipped"]) == 0
+    for p, b in zip(model.parameters(), before):
+        assert p.dtype == torch.float64 and bool(torch.isfinite(p).all()) and not torch.equal(p, b)
+
