@@ -35,8 +35,28 @@ is printed):
      frames, six scales, Adam 1e-3, reverb on) on a 16-item cache of glides
      whose targets the violin bundle renders on the card: every loss finite,
      no skipped update, the loss falls, one launch of each kernel per step;
-  6. report: one JSON line {"kernels": [...]}, the card's name and power
-     limit, and last {"ok": true, "device": {...}}.
+  6. the train step as a CUDA graph at configs/config.yaml's full width:
+     from one state and the same 10 batches of the device-resident cache,
+     10 eager steps against one call of steps_per_call 10 replaying a graph
+     of U = 1 and of U = 2 steps (per-step losses and every parameter leaf
+     within 1e-6 relative; whether bitwise equal is printed), then ms per
+     step synced for both, the capture time, the graph pool and the peak
+     memory of each;
+  7. a run at a committed config: Trainer.fit at
+     pretrained/ddsp_violin_config.yaml (steps_per_call 25, batch 8, six
+     scales) with the device-resident loader for 100 steps, only its cache,
+     steps, validation and checkpoint intervals overridden: the loss falls,
+     both kernels ran inside the graph on every step; a second run,
+     preempted by SIGTERM after its second call, resumes to 100 steps and
+     ends equal to the first (1e-6 relative, the same generator state);
+  8. export and serve: export_run on that run, the exported bundle streamed
+     for 64 blocks on the card against the CPU plain stream, a StreamServer
+     answering two requests, the impulse read back with `wave` (first tap
+     within 2e-2 of 1);
+  9. report: one JSON line {"kernels": [...]} (launches by path: serving,
+     training, training_graphed (host launches plus graph replays), and
+     serving_exported), the card's name and power limit, and last
+     {"ok": true, "device": {...}}.
 
 Imports torch, numpy, the standard library and ddsp_pytorch_tpu_torch only.
 Exits nonzero when torch.cuda.is_available() is false.
@@ -48,10 +68,13 @@ import copy
 import json
 import os
 import re
+import shutil
+import signal
 import sys
 import tempfile
 import threading
 import time
+import wave
 
 import numpy as np
 import torch
@@ -59,8 +82,8 @@ import torch
 from ddsp_pytorch_tpu_torch import serve
 from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
-from ddsp_pytorch_tpu_torch.data import Datamodule
-from ddsp_pytorch_tpu_torch.export import load_bundle, make_streaming_synth
+from ddsp_pytorch_tpu_torch.data import Datamodule, Dataset, DeviceDataLoader
+from ddsp_pytorch_tpu_torch.export import export_run, load_bundle, make_streaming_synth, run_params
 from ddsp_pytorch_tpu_torch.kernel_bench import (
     card_line,
     oscillator_bound,
@@ -74,10 +97,17 @@ from ddsp_pytorch_tpu_torch.ops import kernels, multiscale_fft
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 from ddsp_pytorch_tpu_torch.profile_serving import glide
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
-from ddsp_pytorch_tpu_torch.training import Trainer
+from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer
 from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
 from ddsp_pytorch_tpu_torch.training.metrics import read_metrics
-from ddsp_pytorch_tpu_torch.training.train import loss_and_grads, make_train_step, to_device
+from ddsp_pytorch_tpu_torch.training.state import TrainState
+from ddsp_pytorch_tpu_torch.training.train import (
+    loss_and_grads,
+    make_train_multi_step_indexed,
+    make_train_step,
+    metrics_row,
+    to_device,
+)
 
 BUNDLE = "pretrained/ddsp_violin_bundle"
 SEED = 0
@@ -112,7 +142,20 @@ STEP_GRAD_REL = 2e-2
 STEP_LEAF_OF_WHOLE = 1e-2
 STEP_HARMONIC_REL = 0.1
 CONFIG = "configs/config.yaml"
+VIOLIN_CONFIG = "pretrained/ddsp_violin_config.yaml"
 N_TRAIN_STEPS = 40
+# graphed against eager steps from one state on the same batches: each
+# step's loss and every parameter leaf, max |Δ| over the leaf's largest
+# magnitude (the same kernels on the same inputs)
+GRAPHED_REL = 1e-6
+N_GRAPH_STEPS = 10
+N_TIMED_CALLS = 3  # graphed calls of N_GRAPH_STEPS steps timed
+N_TIMED_EAGER = 20
+# the violin-config run: its own steps_per_call (25), batch 8 and scales;
+# 4 calls, validation twice, a checkpoint after the second call
+N_VIOLIN_STEPS = 100
+VIOLIN_VAL_EPOCHS = 25
+VIOLIN_CHECKPOINT_STEPS = 50
 # The mean of the first 5 losses over that of the last 5 in the 40-step
 # fresh-init run: 1.66 on the first full run (NVIDIA H100 80GB HBM3,
 # 700.00 W); the check asks for 1.3.
@@ -121,10 +164,18 @@ N_TRAIN_ITEMS, N_VAL_ITEMS = 16, 4
 N_BLOCKS = 64
 N_REQUESTS = 8
 # Phase 2's shapes (rows, harmonics, samples): the serving row, the training
-# rows (16 × 375 frames), a ragged count with a K that takes the runtime-K
-# variants, the same K at the training rows, and a one-harmonic edge case.
-# Together they launch every variant and configuration of both kernels.
-KERNEL_SHAPES = ((1, 64, 512), (6000, 64, 512), (37, 100, 512), (6000, 100, 512), (5, 1, 64))
+# rows of configs/config.yaml (16 × 375 frames) and of the violin run config
+# (8 × 375, the graphed path of phase 7), a ragged count with a K that takes
+# the runtime-K variants, the same K at the training rows, and a
+# one-harmonic edge case.  Together they launch every variant and
+# configuration of both kernels.
+GRAPHED_SHAPE = (3000, 64, 512)
+KERNEL_SHAPES = ((1, 64, 512), (6000, 64, 512), GRAPHED_SHAPE, (37, 100, 512), (6000, 100, 512),
+                 (5, 1, 64))
+# The exported 100-step model's stream: GPU vs CPU within this share of the
+# stream's peak as well as STREAM_GPU_VS_CPU_ATOL (the model plays near
+# silence, where that absolute bound alone could not fail a wrong kernel).
+EXPORT_STREAM_REL_OF_PEAK = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -182,7 +233,8 @@ def oscillator_f64(phi, omega, amp, s: int) -> np.ndarray:
 
 def phase_kernels(device) -> dict:
     """Phase 2: the oscillator kernel against its plain version and the
-    float64 oracle; times at every shape.  Returns the serving-shape entry."""
+    float64 oracle; times at every shape.  Returns the entry at the graphed
+    training path's shape."""
     rng = np.random.default_rng(SEED)
     cycles_per_ms = sleep_cycles_per_ms()
     entry = None
@@ -216,7 +268,7 @@ def phase_kernels(device) -> dict:
             f"host_call_ms: kernel={call_ms:.6f} plain={plain_call_ms:.6f}",
             flush=True,
         )
-        if (rows, k, s) == (1, 64, 512):
+        if (rows, k, s) == GRAPHED_SHAPE:
             entry = {
                 "name": "oscillator_fwd",
                 "route": "cuda",
@@ -229,6 +281,7 @@ def phase_kernels(device) -> dict:
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": None,  # no single PyTorch call computes this bank
+                "rows_harmonics_samples": list(GRAPHED_SHAPE),
             }
     return entry
 
@@ -237,7 +290,7 @@ def phase_bwd_kernel(device) -> dict:
     """Phase 2, backward: the kernel against its plain version at every
     shape, timed by the forward's method; OscillatorBank's gradients
     against autograd through the plain forward at the training shape.
-    Returns the training-shape entry."""
+    Returns the entry at the graphed training path's shape."""
     rng = np.random.default_rng(SEED + 1)
     cycles_per_ms = sleep_cycles_per_ms()
     entry = None
@@ -268,7 +321,7 @@ def phase_bwd_kernel(device) -> dict:
             f"host_call_ms: kernel={call_ms:.6f} plain={plain_call_ms:.6f}",
             flush=True,
         )
-        if (rows, k, s) == (6000, 64, 512):
+        if (rows, k, s) == GRAPHED_SHAPE:
             entry = {
                 "name": "oscillator_bwd",
                 "route": "cuda",
@@ -282,6 +335,7 @@ def phase_bwd_kernel(device) -> dict:
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": None,  # no single PyTorch call computes this backward
+                "rows_harmonics_samples": list(GRAPHED_SHAPE),
             }
 
     # the autograd function (both kernels) against autograd through the
@@ -623,48 +677,44 @@ def write_cache(out_dir: str, device) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_training(device) -> tuple:
+def phase_training(device, cache: str, tmp: str) -> tuple:
     """Phase 5b: Trainer.fit at configs/config.yaml on the violin-rendered
     cache.  Returns (forward launches, backward launches) of the fit."""
-    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_") as tmp:
-        cache = os.path.join(tmp, "cache")
-        write_cache(cache, device)
-        cfg = Config.from_yaml(CONFIG)
-        cfg.apply_overrides([
-            f"preprocess.out_dir={cache}", f"train.steps={N_TRAIN_STEPS}",
-            "train.val_interval_epochs=10", "train.log_interval_epochs=10",
-            "train.checkpoint_every_steps=0", "train.metrics_flush_steps=10",
-        ])
-        dm = Datamodule(cfg)
-        dm.setup()
-        run_dir = os.path.join(tmp, "run")
-        trainer = Trainer(cfg, run_dir, device=device)
-        osc.oscillator_bank.launches = 0
-        osc.oscillator_bank_bwd.launches = 0
-        t0 = time.perf_counter()
-        state = trainer.fit(dm)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        fwd, bwd = osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches
-        steps_run = state.step
-        trainer.close()
-        losses = [v for _, v in read_metrics(run_dir, "loss")]
-        skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
-        val = read_metrics(run_dir, "loss/val")
-        window = read_metrics(run_dir, "train_window_steps_per_s")
+    cfg = Config.from_yaml(CONFIG)
+    cfg.apply_overrides([
+        f"preprocess.out_dir={cache}", f"train.steps={N_TRAIN_STEPS}",
+        "train.val_interval_epochs=10", "train.log_interval_epochs=10",
+        "train.checkpoint_every_steps=0", "train.metrics_flush_steps=10",
+    ])
+    dm = Datamodule(cfg)
+    dm.setup()
+    run_dir = os.path.join(tmp, "run_config")
+    trainer = Trainer(cfg, run_dir, device=device)
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd, bwd = osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches
+    steps_run = state.step
+    trainer.close()
+    losses = [v for _, v in read_metrics(run_dir, "loss")]
+    skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
+    val = read_metrics(run_dir, "loss/val")
+    window = read_metrics(run_dir, "train_window_steps_per_s")
 
-        # ms per step on the host clock, each step ending in a synchronize
-        # (after the counted run: these launches are not the main path's)
-        batch = next(iter(dm.train_dataloader()))
-        step = make_train_step(trainer.model, trainer.tx, cfg)
-        tb = to_device(batch, device)
-        step_ms = []
-        for _ in range(6):
-            t1 = time.perf_counter()
-            step(state, tb)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t1) * 1e3)
-        step_ms = step_ms[1:]
+    # ms per step on the host clock, each step ending in a synchronize
+    # (after the counted run: these launches are not the main path's)
+    batch = next(iter(dm.train_dataloader()))
+    step = make_train_step(trainer.model, trainer.tx, cfg)
+    tb = to_device(batch, device)
+    step_ms = []
+    for _ in range(6):
+        t1 = time.perf_counter()
+        step(state, tb)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    step_ms = step_ms[1:]
 
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     print(
@@ -689,6 +739,280 @@ def phase_training(device) -> tuple:
     return fwd, bwd
 
 
+def _leaf_rel(a: torch.nn.Module, b: torch.nn.Module) -> dict:
+    """{leaf: max |a − b| / max |b|} over two models' parameters."""
+    return {n: rel_err(x.detach(), y.detach())
+            for (n, x), y in zip(a.named_parameters(), b.parameters())}
+
+
+def phase_graphed_vs_eager(device, cache: str, card: str) -> dict:
+    """Phase 6: the train step as a CUDA graph against eager steps at
+    configs/config.yaml's full width (batch 16 x 375 frames, hidden 512,
+    K = 64, 65 bands, reverb on, six scales).  From one state and the same
+    N_GRAPH_STEPS batches of the device-resident cache: N_GRAPH_STEPS eager
+    steps, and one call of steps_per_call N_GRAPH_STEPS replaying a graph of
+    U = 1 and of U = 2 steps; per-step losses and every parameter leaf
+    within GRAPHED_REL relative.  Then ms per step, synced, for both, the
+    capture time, the graph pool and the peak memory of each.  Returns the
+    numbers for the report."""
+    cfg = Config.from_yaml(CONFIG)
+    loader = DeviceDataLoader(Dataset(os.path.join(cache, "train")), cfg.train.batch, shuffle=True,
+                              drop_last=True, seed=SEED, device=device)
+    idx2d = []
+    for epoch in range(N_GRAPH_STEPS):
+        loader.set_epoch(epoch)
+        idx2d += list(loader.index_batches())
+    idx2d = np.stack(idx2d[:N_GRAPH_STEPS])
+    base = init_params(DDSPDecoder(**_full_kwargs()), torch.Generator().manual_seed(SEED)).to(device)
+    meta = read_meta(BUNDLE)
+
+    def fresh():
+        model = copy.deepcopy(base)
+        tx = make_optimizer(cfg)
+        state = TrainState(0, model, tx.init([q for _, q in model.named_parameters()]),
+                           torch.Generator(device).manual_seed(SEED + 20),
+                           meta["mean_loudness"], meta["std_loudness"])
+        return model, tx, state
+
+    model_e, tx_e, state_e = fresh()
+    step = make_train_step(model_e, tx_e, cfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    eager = torch.stack([metrics_row(step(state_e, loader.take(i))) for i in idx2d]).cpu()
+    eager_peak = torch.cuda.max_memory_allocated(device)
+    out = {"eager_peak_bytes": eager_peak}
+    for unroll in (1, 2):
+        model_g, tx_g, state_g = fresh()
+        multi = make_train_multi_step_indexed(model_g, tx_g, cfg, N_GRAPH_STEPS, unroll)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        graphed = multi(state_g, loader.device_data, idx2d).cpu()
+        first_call_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        loss_rel = rel_err(graphed[:, 0], eager[:, 0])
+        leaf = _leaf_rel(model_g, model_e)
+        worst = max(leaf, key=leaf.get)
+        bitwise = torch.equal(graphed, eager) and all(
+            torch.equal(x, y) for x, y in zip(model_g.parameters(), model_e.parameters()))
+        same_gen = torch.equal(state_g.generator.get_state(), state_e.generator.get_state())
+        # ms per step: calls of N_GRAPH_STEPS steps, each synced (training on)
+        call_ms = []
+        for _ in range(N_TIMED_CALLS):
+            t1 = time.perf_counter()
+            multi(state_g, loader.device_data, idx2d)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t1) * 1e3)
+        step_ms = float(np.median(call_ms)) / N_GRAPH_STEPS
+        print(
+            f"graphed vs eager step (configs/config.yaml full width, batch {cfg.train.batch} x "
+            f"{cfg.n_frames} frames, {N_GRAPH_STEPS} steps, U={unroll}): per-step loss max rel "
+            f"{loss_rel:.3e}; worst leaf {worst} rel {leaf[worst]:.3e}; bitwise equal: {bitwise}; "
+            f"generator state equal: {same_gen}; capture+instantiate s={multi.capture_s:.3f} "
+            f"first call s={first_call_s:.3f} (warm-up, capture, {N_GRAPH_STEPS // unroll} replays); "
+            f"graph pool bytes={multi.pool_bytes} peak bytes={peak}; captured per graph "
+            f"{multi.captured}; graphed ms/step (median of {N_TIMED_CALLS} synced calls of "
+            f"{N_GRAPH_STEPS}) = {step_ms:.3f}; card {card}",
+            flush=True,
+        )
+        check(loss_rel <= GRAPHED_REL, f"graphed vs eager loss rel {loss_rel} (U={unroll})")
+        check(leaf[worst] <= GRAPHED_REL, f"graphed vs eager {worst} rel {leaf[worst]} (U={unroll})")
+        check(same_gen, "the graphed steps left the generator elsewhere than eager steps")
+        check(multi.captured == {"oscillator_fwd": unroll, "oscillator_bwd": unroll},
+              f"captured launches {multi.captured}")
+        out[unroll] = {"step_ms": step_ms, "capture_s": multi.capture_s, "pool_bytes": multi.pool_bytes,
+                       "peak_bytes": peak, "bitwise": bitwise}
+        del multi, model_g, state_g
+        torch.cuda.empty_cache()
+
+    eager_ms = []
+    for i in range(N_TIMED_EAGER):
+        batch = loader.take(idx2d[i % N_GRAPH_STEPS])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(state_e, batch)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+    out["eager_step_ms"] = float(np.median(eager_ms))
+    print(
+        f"eager ms/step (median of {N_TIMED_EAGER} synced steps) = {out['eager_step_ms']:.3f} "
+        f"(min {min(eager_ms):.3f} max {max(eager_ms):.3f}); peak bytes={eager_peak}; graphed "
+        f"U=1 {out[1]['step_ms']:.3f} U=2 {out[2]['step_ms']:.3f} ms/step; eager/graphed "
+        f"{out['eager_step_ms'] / out[1]['step_ms']:.3f}x; card {card}",
+        flush=True,
+    )
+    del loader, base, model_e, state_e
+    torch.cuda.empty_cache()
+    return out
+
+
+class _PreemptedTrainer(Trainer):
+    """A Trainer that sends itself SIGTERM right after its second call."""
+
+    calls = 0
+
+    def _run_multi(self, state, batches, loader):
+        rows = super()._run_multi(state, batches, loader)
+        self.calls += 1
+        if self.calls == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return rows
+
+
+def _violin_fit(cls, run_dir: str, cache: str, device):
+    cfg = Config.from_yaml(VIOLIN_CONFIG)
+    cfg.apply_overrides([
+        f"preprocess.out_dir={cache}", f"train.steps={N_VIOLIN_STEPS}",
+        f"train.val_interval_epochs={VIOLIN_VAL_EPOCHS}",
+        f"train.checkpoint_every_steps={VIOLIN_CHECKPOINT_STEPS}",
+    ])
+    dm = Datamodule(cfg, device_cache=True, device=device)
+    dm.setup()
+    trainer = cls(cfg, run_dir, device=device)
+    t0 = time.perf_counter()
+    state = trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    trainer.close()
+    return cfg, trainer, state, fit_s
+
+
+def phase_violin_run(device, cache: str, tmp: str) -> tuple:
+    """Phase 7: Trainer.fit at pretrained/ddsp_violin_config.yaml (its
+    steps_per_call 25, batch 8, six scales) with the device-resident
+    loader, for N_VIOLIN_STEPS steps on the violin-rendered cache: the loss
+    falls; the kernels ran inside the graph.  Then a second run preempted
+    by SIGTERM after its second call resumes to N_VIOLIN_STEPS and ends
+    equal to the first.  Returns ({kernel: launches on this path}, the
+    first run's directory)."""
+    run_dir = os.path.join(tmp, "run_violin")
+    osc.reset_kernel_counts()
+    cfg, trainer, state, fit_s = _violin_fit(Trainer, run_dir, cache, device)
+    shape = (cfg.train.batch * cfg.n_frames, cfg.model.kwargs["n_harmonic"], cfg.model.kwargs["block_size"])
+    check(shape == GRAPHED_SHAPE, f"the violin run's kernel shape {shape} is not phase 2's {GRAPHED_SHAPE}")
+    counts = {name: (w.launches, w.captured, w.replayed) for name, w in osc.KERNEL_WRAPPERS.items()}
+    multi = trainer._multi_step
+    losses = [v for _, v in read_metrics(run_dir, "loss")]
+    skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
+    sps = read_metrics(run_dir, "steps_per_s")
+    window = read_metrics(run_dir, "train_window_steps_per_s")
+    val = read_metrics(run_dir, "loss/val")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(
+        f"violin-config run ({VIOLIN_CONFIG}: steps_per_call {cfg.train.steps_per_call}, scan_unroll "
+        f"{cfg.train.scan_unroll}, batch {cfg.train.batch} x {cfg.n_frames} frames, scales "
+        f"{cfg.train.scales}, device cache): {state.step} steps in {fit_s:.2f} s; steps_per_s "
+        f"{[round(v, 4) for _, v in sps]}; train window {window[-1][1]:.4f} steps/s; capture+instantiate "
+        f"s={multi.capture_s:.3f}, graph pool bytes={multi.pool_bytes}, replays={multi.replays}; loss "
+        f"first5={first5:.5f} last5={last5:.5f} factor={first5 / last5:.4f}; val="
+        f"{[round(v, 5) for _, v in val]}; kernel counts (launches, captured, replayed) {counts}; "
+        f"eval_forwards={trainer.eval_forwards}",
+        flush=True,
+    )
+    print("violin loss curve: " + " ".join(f"{v:.5f}" for v in losses), flush=True)
+    check(state.step == N_VIOLIN_STEPS and len(losses) == N_VIOLIN_STEPS, "violin steps run")
+    check(all(np.isfinite(losses)) and sum(skipped) == 0, "violin run: a loss not finite or a skip")
+    check(first5 >= LOSS_FALL_FACTOR * last5,
+          f"violin run: loss did not fall by {LOSS_FALL_FACTOR}x: first5 {first5} last5 {last5}")
+    check(multi.replays == N_VIOLIN_STEPS // cfg.train.scan_unroll, f"replays {multi.replays}")
+    for name, (launches, captured, replayed) in counts.items():
+        check(replayed == N_VIOLIN_STEPS, f"{name} replayed {replayed}x in {N_VIOLIN_STEPS} graphed steps")
+    want = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+    want_gen = state.generator.get_state()
+    del trainer, state, multi
+    torch.cuda.empty_cache()
+
+    run2 = os.path.join(tmp, "run_violin_preempted")
+    _, _, stopped, _ = _violin_fit(_PreemptedTrainer, run2, cache, device)
+    stop_step = stopped.step
+    del stopped
+    _, _, resumed, _ = _violin_fit(Trainer, run2, cache, device)
+    rel = {n: rel_err(p.detach().cpu(), want[n]) for n, p in resumed.model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    bitwise = all(torch.equal(p.detach().cpu(), want[n]) for n, p in resumed.model.named_parameters())
+    same_gen = torch.equal(resumed.generator.get_state(), want_gen)
+    print(
+        f"violin run preempted by SIGTERM after its second call: stopped at step {stop_step}, resumed "
+        f"to {resumed.step}; vs the uninterrupted run: worst leaf {worst} rel {rel[worst]:.3e}, "
+        f"bitwise equal: {bitwise}, generator state equal: {same_gen}",
+        flush=True,
+    )
+    check(stop_step == 2 * cfg.train.steps_per_call, f"preempted run stopped at {stop_step}")
+    check(resumed.step == N_VIOLIN_STEPS, "resumed run did not reach its steps")
+    check(rel[worst] <= GRAPHED_REL, f"resumed vs uninterrupted {worst} rel {rel[worst]}")
+    check(same_gen, "resumed run's generator state differs")
+    del resumed
+    torch.cuda.empty_cache()
+    return {name: launches + replayed for name, (launches, _, replayed) in counts.items()}, run_dir
+
+
+def phase_export_serve(device, run_dir: str, cache: str, tmp: str) -> int:
+    """Phase 8: export_run on the violin-config run (its parameters must
+    come back bit for bit), then the exported bundle streamed on the card
+    against the CPU plain stream (64 blocks of the controls of a training
+    item, in the distribution the run trained on), served to one client for
+    two requests, and its impulse read back with `wave`.  Returns
+    oscillator_fwd's launches while serving it."""
+    out_dir = os.path.join(tmp, "export")
+    bundle = export_run(run_dir, out_dir, name="smoke", device=device)
+    exported = load_bundle(bundle, device="cpu")[0].state_dict()
+    trained = run_params(run_dir)
+    check(exported.keys() == trained.keys()
+          and all(torch.equal(exported[k], trained[k]) for k in trained),
+          "the exported parameters differ from the run's")
+    gpu = make_streaming_synth(bundle, device=device, noise_deterministic=True)
+    cpu = make_streaming_synth(bundle, device="cpu", noise_deterministic=True)
+    block = gpu.block_size
+    # the controls of the run's first training item, held over each frame
+    pitch, loud = (np.repeat(np.load(os.path.join(cache, "train", f"{name}.npy"))[:1, :N_BLOCKS], block, axis=1)
+                   for name in ("pitchs", "loudness"))
+    gpu.step_samples(pitch[:, :block], loud[:, :block])  # warm-up on a throwaway state
+    gpu.reset()
+    osc.reset_kernel_counts()
+    got = torch.cat([gpu.step_samples(pitch[:, i * block:(i + 1) * block], loud[:, i * block:(i + 1) * block])
+                     for i in range(N_BLOCKS)], dim=-1).cpu().numpy()
+    streamed = osc.oscillator_bank.launches
+    want = torch.cat([cpu.step_samples(pitch[:, i * block:(i + 1) * block], loud[:, i * block:(i + 1) * block])
+                      for i in range(N_BLOCKS)], dim=-1).numpy()
+    err = float(np.abs(got - want).max())
+    peak = float(np.abs(got).max())
+
+    server = serve.StreamServer(bundle, port=0, device=device)
+    server.start()
+    try:
+        client = serve.StreamClient(*server.address)
+        first = client.render(pitch[0, :block], loud[0, :block])
+        second = client.render(pitch[0, :block], loud[0, :block])
+        client.close()
+    finally:
+        server.stop()
+    served = osc.oscillator_bank.launches - streamed
+
+    with wave.open(os.path.join(out_dir, "ddsp_smoke_impulse.wav"), "rb") as f:
+        sr, n = f.getframerate(), f.getnframes()
+        ir = np.frombuffer(f.readframes(n), "<i2")
+    tap = float(ir[0]) / 32768.0
+    print(
+        f"exported bundle {os.path.basename(bundle)}: parameters equal to the run's; {N_BLOCKS} blocks "
+        f"of a training item's controls on the card vs the CPU: max|gpu-cpu|={err:.3e} "
+        f"peak={peak:.3e} (max|gpu-cpu| over peak {err / max(peak, 1e-30):.3e}; "
+        f"a run of {N_VIOLIN_STEPS} steps from fresh weights plays near silence) oscillator_fwd launches="
+        f"{streamed}; server: 2 requests, {served} launches, shapes {first.shape} {second.shape}; "
+        f"impulse {n} samples at {sr} Hz, first tap {tap:.5f}",
+        flush=True,
+    )
+    check(got.shape == (1, N_BLOCKS * block) and bool(np.isfinite(got).all()), "exported stream")
+    check(peak > 0, "exported stream is all zeros")
+    check(err <= STREAM_GPU_VS_CPU_ATOL, f"exported bundle gpu vs cpu {err}")
+    check(err <= EXPORT_STREAM_REL_OF_PEAK * peak,
+          f"exported bundle gpu vs cpu {err} over peak {peak}: above {EXPORT_STREAM_REL_OF_PEAK}")
+    check(streamed == N_BLOCKS and served == 2, f"oscillator_fwd launched {streamed}, {served}x")
+    for a in (first, second):
+        check(a.shape == (block,) and bool(np.isfinite(a).all()), "server response")
+    check(not np.allclose(first, second), "the server's phase did not continue across requests")
+    check(sr == gpu.sample_rate and n == gpu.sample_rate, "impulse length or rate")
+    check(abs(tap - 1.0) <= 2e-2, f"impulse dry tap {tap}")
+    return streamed + served
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -703,6 +1027,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    # build from this checkout's sources every time, so ptxas reports
+    shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     report = kernels.build()
     print(f"kernel build wall s={time.perf_counter() - t0:.2f}", flush=True)
@@ -716,12 +1042,23 @@ def main() -> int:
     serving_fwd = phase_server(device)
     check(serving_fwd > 0, "oscillator_fwd not launched on the serving path")
     phase_train_step(device)
-    train_fwd, train_bwd = phase_training(device)
-    check(train_fwd > 0 and train_bwd > 0, "a kernel was not launched on the training path")
-    fwd_entry["launches"] = train_fwd
-    fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd}
-    bwd_entry["launches"] = train_bwd
-    bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd}
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_") as tmp:
+        cache = os.path.join(tmp, "cache")
+        write_cache(cache, device)
+        train_fwd, train_bwd = phase_training(device, cache, tmp)
+        check(train_fwd > 0 and train_bwd > 0, "a kernel was not launched on the training path")
+        phase_graphed_vs_eager(device, cache, card)
+        graphed, run_dir = phase_violin_run(device, cache, tmp)
+        check(all(n > 0 for n in graphed.values()), "a kernel was not launched on the graphed path")
+        exported_fwd = phase_export_serve(device, run_dir, cache, tmp)
+    fwd_entry["launches"] = graphed["oscillator_fwd"]
+    fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
+                                     "training_graphed": graphed["oscillator_fwd"],
+                                     "serving_exported": exported_fwd}
+    bwd_entry["launches"] = graphed["oscillator_bwd"]
+    bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
+                                     "training_graphed": graphed["oscillator_bwd"],
+                                     "serving_exported": 0}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry]}), flush=True)
     print(card, flush=True)

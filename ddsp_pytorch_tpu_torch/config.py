@@ -302,7 +302,9 @@ class TrainConfig:
     grad_clip_norm: Optional[float] = None
     lr_stop: Optional[float] = None
     lr_decay_steps: Optional[int] = None
-    steps_per_call: int = 1  # the port runs 1 (ROADMAP.md)
+    # optimizer steps per call: one CUDA-graph replay per scan_unroll steps
+    # on the card (training/train.py make_train_multi_step)
+    steps_per_call: int = 1
     scan_unroll: int = 1
 
 

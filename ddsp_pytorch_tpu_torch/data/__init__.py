@@ -4,6 +4,7 @@ training path reads)."""
 from ddsp_pytorch_tpu_torch.data.dataset import (  # noqa: F401
     DataLoader,
     Datamodule,
+    DeviceDataLoader,
     Dataset,
     dict_collate,
 )

@@ -1,12 +1,14 @@
 """Cached feature dataset and loaders.
 
-Port of ddsp_pytorch_tpu/data/dataset.py:20-112 and :239-299: the Dataset
+Port of ddsp_pytorch_tpu/data/dataset.py:20-299 on one host: the Dataset
 over memory-mapped `.npy` arrays (signals, pitchs, loudness; the mfccs the
 autoencoder reads wait with it), a dict collate, a DataLoader whose per-epoch shuffle is a function
 of (seed, epoch) — the same numpy generator as the JAX loader, so the two
-give the same order — and the train/validation Datamodule.  Batches are
-numpy; the Trainer moves them to its device.  The device-resident loader
-and the multi-host shards wait (ROADMAP.md).
+give the same order — the DeviceDataLoader, which uploads the whole cache
+once and gathers batches on the device in that same order, and the
+train/validation Datamodule.  The DataLoader's batches are numpy, which
+the Trainer moves to its device; the DeviceDataLoader's are tensors on its
+device.  The multi-host shards wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ from pathlib import Path
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
+
+from ddsp_pytorch_tpu_torch import resolve_device
+from ddsp_pytorch_tpu_torch.ops.core import batch_loudness_stats, running_mean_stats
 
 
 class Dataset:
@@ -66,12 +72,15 @@ class DataLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
-    def _order(self) -> np.ndarray:
-        """This epoch's item order."""
-        order = np.arange(len(self.dataset))
+    def index_batches(self) -> Iterator[np.ndarray]:
+        """This epoch's per-batch item indices, in iteration order."""
+        n = len(self.dataset)
+        order = np.arange(n)
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(order)
-        return order
+        end = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for start in range(0, end, self.batch_size):
+            yield order[start : start + self.batch_size]
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -80,20 +89,75 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = self._order()
-        n = len(order)
-        end = (n // self.batch_size) * self.batch_size if self.drop_last else n
-        for start in range(0, end, self.batch_size):
-            idx = order[start : start + self.batch_size]
+        for idx in self.index_batches():
             yield dict_collate([self.dataset[int(i)] for i in idx])
+
+
+class DeviceDataLoader(DataLoader):
+    """The whole feature cache on `device`, uploaded once; batches are
+    gathered there by index (dataset.py:115-236).
+
+    Same (seed, epoch) order as the DataLoader.  `index_batches()` gives
+    each batch's indices (numpy), `take(idx)` the (B, ...) batch and
+    `take_stacked(idx2d)` an (n, B, ...) super-batch, each one gather per
+    array; `device_data` is the cache itself ({sig (N, T), pitch (N, F, 1),
+    loudness (N, F, 1)}), which the captured multi-step gathers from inside
+    its graph.  Iterating yields `take` of each batch."""
+
+    def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0, device="cuda"):
+        super().__init__(dataset, batch_size, shuffle, drop_last, seed)
+        self.device = resolve_device(device)
+        # one upload per array; trailing feature axes added like __getitem__
+        self._data = {
+            "sig": torch.from_numpy(np.array(dataset.signals, np.float32)).to(self.device),
+            "pitch": torch.from_numpy(np.array(dataset.pitchs, np.float32))[..., None].to(self.device),
+            "loudness": torch.from_numpy(np.array(dataset.loudness, np.float32))[..., None].to(self.device),
+        }
+
+    @property
+    def device_data(self) -> Dict[str, torch.Tensor]:
+        return self._data
+
+    def _index(self, idx) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
+
+    def take(self, idx) -> Dict[str, torch.Tensor]:
+        """The batch of items `idx` (B,)."""
+        idx = self._index(idx)
+        return {k: v.index_select(0, idx) for k, v in self._data.items()}
+
+    def take_stacked(self, idx2d) -> Dict[str, torch.Tensor]:
+        """The (n, B, ...) super-batch of items `idx2d` (n, B)."""
+        idx = self._index(idx2d)
+        return {k: v[idx] for k, v in self._data.items()}
+
+    def loudness_stats(self) -> tuple:
+        """(mean, std) equal bit for bit to ops.mean_std_loudness over this
+        loader's batches, as the host DataLoader gives them: the loudness
+        (N·F floats) comes to the host once, and each batch's float32 stats
+        are taken there, as for a host batch (a device's reductions round
+        differently), then the same host-float running mean."""
+        loud = self._data["loudness"].cpu()
+        return running_mean_stats(
+            batch_loudness_stats(loud[torch.as_tensor(idx)]).tolist() for idx in self.index_batches()
+        )
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        for idx in self.index_batches():
+            yield self.take(idx)
 
 
 class Datamodule:
     """Train/validation loader pair from a Config: `<out_dir>/train` and
-    `<out_dir>/validation` (dataset.py:239-299, one device)."""
+    `<out_dir>/validation` (dataset.py:239-299, one device).
+    `device_cache=True` makes the train loader a DeviceDataLoader on
+    `device`; validation stays on the host loader, as in the JAX package."""
 
-    def __init__(self, config):
+    def __init__(self, config, device_cache: bool = False, device="cuda"):
         self.config = config
+        self.device_cache = device_cache
+        self.device = device
         self.train_data: Optional[Dataset] = None
         self.val_data: Optional[Dataset] = None
 
@@ -103,6 +167,15 @@ class Datamodule:
         self.val_data = Dataset(out_dir / "validation")
 
     def train_dataloader(self) -> DataLoader:
+        if self.device_cache:
+            return DeviceDataLoader(
+                self.train_data,
+                batch_size=self.config.train.batch,
+                shuffle=True,
+                drop_last=True,
+                seed=self.config.train.seed,
+                device=self.device,
+            )
         return DataLoader(
             self.train_data,
             batch_size=self.config.train.batch,

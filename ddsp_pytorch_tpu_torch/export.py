@@ -1,19 +1,48 @@
-"""Bundle → model → StreamingSynth.
+"""Trained run → bundle, and bundle → model → StreamingSynth.
 
-Port of ddsp_pytorch_tpu/export/__init__.py:136-157 (`load_bundle`,
-`make_streaming_synth`).  The bundle is read through bundle.py: meta.json
-for the model and the loudness stats, params.msgpack for the weights.
+Port of ddsp_pytorch_tpu/export/__init__.py:35-157 (`export_run`,
+`_render_impulse`, `load_bundle`, `make_streaming_synth`) and of the
+repository's export.py CLI:
+
+    python -m ddsp_pytorch_tpu_torch.export --run runs/NAME [--out-dir export] \\
+        [--name NAME] [--data] [--set key.path=value ...] [--device cuda]
+
+`export_run` writes what the JAX package writes, in the same formats, so
+the port's server, the JAX package's `load_bundle` and its C++ runtime all
+serve a bundle the port exported:
+
+  ddsp_<name>_bundle/params.msgpack   the parameters (flax msgpack)
+  ddsp_<name>_bundle/config.yaml      frozen config incl. loudness stats
+  ddsp_<name>_bundle/meta.json        model name/kwargs + stats + format tag
+  ddsp_<name>_impulse.wav             the trained reverb impulse, 16-bit PCM
+  ddsp_<name>_config.yaml             frozen config copy next to the bundle
+
+A bundle is read through bundle.py: meta.json for the model and the
+loudness stats, params.msgpack for the weights.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import argparse
+import json
+import os
+import shutil
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
 
 from ddsp_pytorch_tpu_torch import resolve_device
-from ddsp_pytorch_tpu_torch.bundle import read_meta, read_params
+from ddsp_pytorch_tpu_torch.bundle import read_meta, read_params, write_params
+from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.models import load_model
 from ddsp_pytorch_tpu_torch.streaming import StreamingSynth
-from ddsp_pytorch_tpu_torch.weights import flax_to_state_dict
+from ddsp_pytorch_tpu_torch.training.state import Checkpointer
+from ddsp_pytorch_tpu_torch.utils import save_wav
+from ddsp_pytorch_tpu_torch.weights import flax_to_state_dict, state_dict_to_flax
+
+BUNDLE_FORMAT = "ddsp_pytorch_tpu.bundle.v1"
 
 
 def load_bundle(bundle_dir: str, device="cuda") -> Tuple:
@@ -39,3 +68,118 @@ def make_streaming_synth(bundle_dir: str, batch: int = 1, device="cuda", **kwarg
         device=device,
         **kwargs,
     )
+
+
+def _render_impulse(model) -> Optional[np.ndarray]:
+    """The trained reverb's impulse response (float32), if the model has a
+    reverb (export/__init__.py:35-43)."""
+    reverb = getattr(model, "reverb", None)
+    if reverb is None:
+        return None
+    with torch.no_grad():
+        return reverb.build_impulse().cpu().numpy().astype(np.float32)
+
+
+def run_params(run_dir: str) -> dict:
+    """The run's best-loss params if it saved some, else the newest full
+    checkpoint's (export/__init__.py:90-104), as a CPU state_dict."""
+    ckpt = Checkpointer(run_dir)
+    if ckpt.best_meta() is not None:
+        return torch.load(os.path.join(ckpt.best_dir, "params.pt"), map_location="cpu",
+                          weights_only=True)
+    step = ckpt.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint found under {run_dir}")
+    saved = torch.load(os.path.join(ckpt.ckpt_dir, f"{step}.pt"), map_location="cpu",
+                       weights_only=True)
+    return saved["params"]
+
+
+def export_run(
+    run_dir: str,
+    out_dir: str = "export",
+    name: Optional[str] = None,
+    overrides: Optional[list] = None,
+    device="cuda",
+) -> str:
+    """Export a training run of the port; returns the bundle directory.
+
+    `overrides`: ``key.path=value`` strings applied to the run's frozen
+    config first (Config.apply_overrides), e.g. to relocate
+    ``data.data_location``; fields that shaped the parameters must not
+    change.  The impulse is rendered on `device`."""
+    device = resolve_device(device)
+    run_dir = os.path.normpath(run_dir)
+    name = name or os.path.basename(run_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    config = Config.from_yaml(os.path.join(run_dir, "config.yaml"))
+    if overrides:
+        config.apply_overrides(overrides)
+    if config.model.name != "single-inst-decoder":
+        raise NotImplementedError(
+            f"model {config.model.name!r}: the port exports the single-inst-decoder; the "
+            "autoencoder family waits for a later slice (ROADMAP.md)"
+        )
+    model = load_model(config.model.name, config.model.kwargs)
+    model.load_state_dict(run_params(run_dir), strict=True)
+    model = model.to(device)
+
+    bundle_dir = os.path.join(out_dir, f"ddsp_{name}_bundle")
+    os.makedirs(bundle_dir, exist_ok=True)
+    write_params(bundle_dir, state_dict_to_flax(model.state_dict()))
+    config.to_yaml(os.path.join(bundle_dir, "config.yaml"))
+    config.to_yaml(os.path.join(out_dir, f"ddsp_{name}_config.yaml"))
+    meta = {
+        "format": BUNDLE_FORMAT,
+        "model": {"name": config.model.name, "kwargs": config.model.kwargs},
+        "mean_loudness": config.data.mean_loudness,
+        "std_loudness": config.data.std_loudness,
+        "sample_rate": config.preprocess.sample_rate,
+        "block_size": config.preprocess.block_size,
+    }
+    with open(os.path.join(bundle_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    impulse = _render_impulse(model)
+    if impulse is not None:
+        save_wav(os.path.join(out_dir, f"ddsp_{name}_impulse.wav"), impulse,
+                 config.preprocess.sample_rate)
+    return bundle_dir
+
+
+def copy_data(bundle_dir: str, out_dir: str) -> int:
+    """Copy the run's training audio (data.data_location, every
+    *.<data.extension> below it, the tree kept) to <out_dir>/data, as the
+    repository's export.py --data does.  Returns the number of files."""
+    config = Config.from_yaml(os.path.join(bundle_dir, "config.yaml"))
+    root = Path(config.data.data_location).resolve()
+    files = sorted(root.rglob(f"*.{config.data.extension}"))
+    for f in files:
+        dst = Path(out_dir) / "data" / f.relative_to(root)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(f, dst)
+    return len(files)
+
+
+def main(argv=None) -> str:
+    p = argparse.ArgumentParser(description="Export a training run of the port as a bundle.")
+    p.add_argument("--run", required=True)
+    p.add_argument("--out-dir", default="export")
+    p.add_argument("--name", default=None)
+    p.add_argument("--data", action="store_true",
+                   help="also copy the training wavs next to the bundle")
+    p.add_argument("--set", action="append", default=[], dest="overrides", metavar="KEY.PATH=VALUE",
+                   help="override any field of the run's frozen config before export "
+                        "(dotted path, YAML scalar value; repeatable)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    bundle = export_run(args.run, args.out_dir, name=args.name, overrides=args.overrides,
+                        device=args.device)
+    print(f"exported bundle: {bundle}")
+    if args.data:
+        n = copy_data(bundle, args.out_dir)
+        print(f"copied {n} wavs to {os.path.join(args.out_dir, 'data')}")
+    return bundle
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,7 @@ from ddsp_pytorch_tpu_torch.ops.filters import (  # noqa: F401
     amp_to_impulse_response,
     fft_convolve,
     filtered_noise,
+    uniform_noise,
 )
 from ddsp_pytorch_tpu_torch.ops.oscillator import (  # noqa: F401
     OscillatorBank,

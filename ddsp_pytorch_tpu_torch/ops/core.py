@@ -42,18 +42,30 @@ def remove_above_nyquist(
     return amplitudes * mask
 
 
+def batch_loudness_stats(loudness: torch.Tensor) -> torch.Tensor:
+    """One batch's float32 loudness mean and std (ddof=1), as a (2,) tensor
+    on the batch's device."""
+    loudness = loudness.to(torch.float32)
+    return torch.stack([loudness.mean(), loudness.std(unbiased=True)])
+
+
+def running_mean_stats(per_batch) -> tuple:
+    """The host-float running means of per-batch (mean, std) pairs, in
+    batch order (ops/core.py:101-117)."""
+    mean = 0.0
+    std = 0.0
+    for n, (m, s) in enumerate(per_batch, start=1):
+        mean += (m - mean) / n
+        std += (s - std) / n
+    return mean, std
+
+
 def mean_std_loudness(batches) -> tuple:
     """Running-mean estimate of loudness mean and std over an iterable of
     batches with a 'loudness' key (ops/core.py:101-117): the running mean of
     per-batch float32 means and of per-batch stds with ddof=1 — not the
     global std, as in the reference, because the stats are baked into
     exported models."""
-    mean = 0.0
-    std = 0.0
-    n = 0
-    for batch in batches:
-        loud = torch.as_tensor(batch["loudness"], dtype=torch.float32)
-        n += 1
-        mean += (float(loud.mean()) - mean) / n
-        std += (float(loud.std(unbiased=True)) - std) / n
-    return mean, std
+    return running_mean_stats(
+        batch_loudness_stats(torch.as_tensor(batch["loudness"])).tolist() for batch in batches
+    )

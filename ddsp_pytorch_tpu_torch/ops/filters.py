@@ -38,6 +38,15 @@ def fft_convolve(signal: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return out[..., out.shape[-1] // 2 :]
 
 
+def uniform_noise(shape, generator: Optional[torch.Generator], dtype, device) -> torch.Tensor:
+    """Uniform noise in [-1, 1) drawn from `generator`: the draw
+    `filtered_noise` makes when no noise is injected.  A caller that draws
+    the noise ahead of the step (the captured train step) calls this with
+    the same arguments, so the values and the generator's advance are the
+    same."""
+    return torch.rand(shape, generator=generator, dtype=dtype, device=device) * 2.0 - 1.0
+
+
 def filtered_noise(
     magnitudes: torch.Tensor,
     block_size: int,
@@ -54,15 +63,6 @@ def filtered_noise(
     b, f, _ = magnitudes.shape
     impulse = amp_to_impulse_response(magnitudes, block_size)
     if noise is None:
-        noise = (
-            torch.rand(
-                (b, f, block_size),
-                generator=generator,
-                dtype=magnitudes.dtype,
-                device=magnitudes.device,
-            )
-            * 2.0
-            - 1.0
-        )
+        noise = uniform_noise((b, f, block_size), generator, magnitudes.dtype, magnitudes.device)
     out = fft_convolve(noise, impulse)
     return out.reshape(b, f * block_size)

@@ -173,6 +173,17 @@ def _check_rows(phi, omega, amp, block_size, grad=None) -> int:
     return block_size
 
 
+def _count(wrapper) -> None:
+    """Count a kernel launch on its wrapper: `launches` when it ran now;
+    `captured` when the stream is capturing a CUDA graph, where the kernel
+    is recorded and runs only when the graph is replayed (the replaying
+    code adds the graph's captured launches to `replayed`)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def oscillator_bank(
     phi: torch.Tensor, omega: torch.Tensor, amp: torch.Tensor, block_size: int
 ) -> torch.Tensor:
@@ -180,7 +191,8 @@ def oscillator_bank(
     float32 and contiguous on one device → audio (R, block_size).
 
     CPU tensors run the plain version (float64 too); CUDA tensors launch
-    the kernel and count the launch in `oscillator_bank.launches`.
+    the kernel and count the launch in `oscillator_bank.launches` (in
+    `.captured` while a CUDA graph is being captured).
     """
     block_size = _check_rows(phi, omega, amp, block_size)
     if phi.device.type == "cpu":
@@ -200,11 +212,13 @@ def oscillator_bank(
         )
     if err != 0:
         raise RuntimeError(f"oscillator_fwd launch failed: cudaError {err}")
-    oscillator_bank.launches += 1
+    _count(oscillator_bank)
     return out
 
 
 oscillator_bank.launches = 0
+oscillator_bank.captured = 0
+oscillator_bank.replayed = 0
 
 
 def oscillator_bank_bwd(
@@ -219,7 +233,8 @@ def oscillator_bank_bwd(
     device → (dphi (R,), domega (R,), damp (R, K)).
 
     CPU tensors run the plain version (float64 too); CUDA tensors launch
-    the kernel and count the launch in `oscillator_bank_bwd.launches`.
+    the kernel and count the launch in `oscillator_bank_bwd.launches` (in
+    `.captured` while a CUDA graph is being captured).
     """
     block_size = _check_rows(phi, omega, amp, block_size, grad)
     if phi.device.type == "cpu":
@@ -244,11 +259,22 @@ def oscillator_bank_bwd(
         )
     if err != 0:
         raise RuntimeError(f"oscillator_bwd launch failed: cudaError {err}")
-    oscillator_bank_bwd.launches += 1
+    _count(oscillator_bank_bwd)
     return dphi, domega, damp
 
 
 oscillator_bank_bwd.launches = 0
+oscillator_bank_bwd.captured = 0
+oscillator_bank_bwd.replayed = 0
+
+
+# kernel name → its wrapper, whose launches/captured/replayed count it
+KERNEL_WRAPPERS = {"oscillator_fwd": oscillator_bank, "oscillator_bwd": oscillator_bank_bwd}
+
+
+def reset_kernel_counts() -> None:
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = wrapper.captured = wrapper.replayed = 0
 
 
 class OscillatorBank(torch.autograd.Function):

@@ -2,13 +2,17 @@
 
     python -m ddsp_pytorch_tpu_torch.train --config configs/config.yaml \\
         --name myrun [--root runs] [--steps N] [--batch B] [--lr LR] \\
-        [--set key.path=value ...] [--device cuda]
+        [--set key.path=value ...] [--device-cache] [--device cuda]
 
 Loads the YAML config, builds the model by registry name, computes the
 dataset's loudness stats and runs the one-device Trainer on the feature
-cache at preprocess.out_dir (`train/` and `validation/`).  Resumes from the
-newest checkpoint in <root>/<name>.  The device defaults to the GPU and
-there is no fallback: pass --device cpu for the plain PyTorch path.
+cache at preprocess.out_dir (`train/` and `validation/`), with the
+config's train.steps_per_call steps per call (a CUDA graph of
+train.scan_unroll steps replayed on the card).  --device-cache uploads the
+train split to the device once and gathers each batch there.  Resumes from
+the newest checkpoint in <root>/<name>; SIGTERM or SIGINT checkpoints and
+stops at the next call.  The device defaults to the GPU and there is no
+fallback: pass --device cpu for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ def main(argv=None):
         "--set", action="append", default=[], metavar="KEY.PATH=VALUE", dest="overrides",
         help="override any config field (dotted path, YAML scalar value; repeatable)",
     )
+    p.add_argument("--device-cache", action="store_true",
+                   help="keep the train split on the device (DeviceDataLoader)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
@@ -46,7 +52,7 @@ def main(argv=None):
         cfg.train.lr = args.lr
     run_dir = os.path.join(args.root, args.name)
     trainer = Trainer(cfg, run_dir, device=args.device)
-    datamodule = Datamodule(cfg)
+    datamodule = Datamodule(cfg, device_cache=args.device_cache, device=args.device)
     datamodule.setup()
     try:
         state = trainer.fit(datamodule)

@@ -17,7 +17,8 @@ step count included (torch.optim.Adam increments its step on every
 
 `update` returns the updates and a new state and changes nothing in
 place, like an optax GradientTransformation, so the caller decides whether
-to apply them.
+to apply them (training/train.py copies them into the existing tensors,
+whose addresses a captured step reuses).
 """
 
 from __future__ import annotations
@@ -34,6 +35,15 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """√(Σ_leaves Σ x²) (optax.global_norm)."""
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+
+def tree_leaves(tree) -> Tensors:
+    """The tensors of a nested dict/list tree, in its order."""
+    if isinstance(tree, dict):
+        return [leaf for value in tree.values() for leaf in tree_leaves(value)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for value in tree for leaf in tree_leaves(value)]
+    return [tree]
 
 
 def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable:
@@ -89,8 +99,11 @@ class Optimizer:
             new["nu"] = [(1 - B2) * (g * g) + B2 * v for g, v in zip(grads, state["nu"])]
             new["count"] = _int32_increment(state["count"])
             n = new["count"].float()
-            c1 = 1 - torch.pow(torch.tensor(B1, dtype=torch.float32, device=n.device), n)
-            c2 = 1 - torch.pow(torch.tensor(B2, dtype=torch.float32, device=n.device), n)
+            # a Python-float base: no host tensor to copy in, so the update
+            # can be captured in a CUDA graph (same float32 values as a
+            # float32 tensor base)
+            c1 = 1 - torch.pow(B1, n)
+            c2 = 1 - torch.pow(B2, n)
             updates = [(m / c1) / (torch.sqrt(v / c2) + EPS) for m, v in zip(new["mu"], new["nu"])]
         else:
             updates = grads

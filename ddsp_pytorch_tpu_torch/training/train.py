@@ -1,25 +1,29 @@
-"""Train step, eval step and the Trainer loop, on one device.
+"""Train step, multi-step, eval step and the Trainer loop, on one device.
 
-Port of ddsp_pytorch_tpu/training/train.py:60-134, :198-218 and the single-
-device Trainer of :220-905: the epoch loop sized to reach `steps`, loudness
+Port of ddsp_pytorch_tpu/training/train.py:60-218 and the single-device
+Trainer of :220-905: the epoch loop sized to reach `steps`, loudness
 normalized by the frozen dataset stats, the multiscale spectral loss of the
 model's signal against the target, the optimizer update behind a NaN
-guard, per-step metrics, validation every `val_interval_epochs`, the best
+guard, `steps_per_call` optimizer steps per call, per-step metrics fetched
+once per flush, validation every `val_interval_epochs`, the best
 mean-train-loss params every `log_interval_epochs`, full-state checkpoints
-every `checkpoint_every_steps` and exact resume from the newest one.
+every `checkpoint_every_steps`, exact resume from the newest one, and a
+preemption-safe `fit` (SIGTERM/SIGINT → checkpoint → return).
 
 The harmonic branch runs through `ops.OscillatorBank`, so on the card a
 step launches the hand-written forward kernel once and the backward kernel
-once.  Waiting for later slices (ROADMAP.md): steps_per_call > 1 (the
-scanned multi-step), the device-resident loader, segmented and preemption-
-safe runs, audio and figure reports, the data-parallel and time-sharded
-steps.
+once.  On the card a call of `steps_per_call` steps replays a CUDA graph
+of `scan_unroll` whole steps (forward, backward, Adam and the NaN guard,
+both kernels inside), the counterpart of the JAX package's lax.scan.
+Waiting for later slices (ROADMAP.md): audio and figure reports, the
+segmented runs, the data-parallel and time-sharded steps.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import signal
 import time
 from typing import Callable, Dict, Optional
 
@@ -29,11 +33,23 @@ import torch
 from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.models import init_params, load_model
-from ddsp_pytorch_tpu_torch.ops import mean_std_loudness
+from ddsp_pytorch_tpu_torch.ops import mean_std_loudness, uniform_noise
+from ddsp_pytorch_tpu_torch.ops.oscillator import KERNEL_WRAPPERS
 from ddsp_pytorch_tpu_torch.training.loss import spectral_loss_from_signals
 from ddsp_pytorch_tpu_torch.training.metrics import MetricsWriter
-from ddsp_pytorch_tpu_torch.training.optim import Optimizer, global_norm, make_optimizer
+from ddsp_pytorch_tpu_torch.training.optim import (
+    Optimizer,
+    global_norm,
+    make_optimizer,
+    tree_leaves,
+)
 from ddsp_pytorch_tpu_torch.training.state import Checkpointer, TrainState
+
+# the columns of a step's metrics row
+METRIC_KEYS = ("loss", "grad_norm", "update_skipped")
+# eager runs of the step bodies before a capture: they build the kernels,
+# the cuFFT plans and the cuBLAS workspaces, which capture cannot
+WARMUP_RUNS = 2
 
 
 def _normalize_loudness(batch, mean, std):
@@ -43,8 +59,40 @@ def _normalize_loudness(batch, mean, std):
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays → float32 tensors on `device`."""
+    """A batch of numpy arrays (or tensors) → float32 tensors on `device`."""
     return {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in batch.items()}
+
+
+class HostBatchStager:
+    """Host (numpy) batches → float32 tensors on a CUDA device, through one
+    pinned staging buffer per key and shape and a non-blocking copy.  The
+    next staging first waits for the previous copies (an event), so a
+    buffer is never rewritten while the device reads it.  Tensors already
+    on the device pass through."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._pinned: Dict[tuple, torch.Tensor] = {}
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def __call__(self, batch) -> Dict[str, torch.Tensor]:
+        if self._copied is not None:
+            self._copied.synchronize()
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, torch.Tensor):
+                out[k] = v.to(self.device, torch.float32)
+                continue
+            v = np.asarray(v)
+            buf = self._pinned.get((k, v.shape))
+            if buf is None:
+                buf = torch.empty(v.shape, dtype=torch.float32).pin_memory()
+                self._pinned[(k, v.shape)] = buf
+            buf.numpy()[...] = v
+            out[k] = buf.to(self.device, non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record(torch.cuda.current_stream(self.device))
+        return out
 
 
 def loss_and_grads(
@@ -69,6 +117,24 @@ def loss_and_grads(
     return loss.detach(), list(grads)
 
 
+def _update_in_place(state: TrainState, tx: Optimizer, loss, grads) -> Dict[str, torch.Tensor]:
+    """The optimizer update behind the NaN guard, written into the existing
+    parameter and optimizer-state tensors (a captured step reads and writes
+    fixed addresses).  Returns the step's metrics as 0-d device tensors."""
+    updates, opt_state = tx.update(grads, state.opt_state)
+    finite = torch.isfinite(loss)
+    with torch.no_grad():
+        for p, u in zip(state.params(), updates):
+            p.copy_(torch.where(finite, p + u, p))
+        for old, new in zip(tree_leaves(state.opt_state), tree_leaves(opt_state)):
+            old.copy_(torch.where(finite, new, old))
+    return {
+        "loss": loss,
+        "grad_norm": global_norm(grads),
+        "update_skipped": torch.logical_not(finite).to(torch.int32),
+    }
+
+
 def apply_gradient_update(state: TrainState, tx: Optimizer, loss, grads) -> Dict[str, torch.Tensor]:
     """Optimizer update behind the NaN guard (train.py:66-106), in place.
 
@@ -77,26 +143,14 @@ def apply_gradient_update(state: TrainState, tx: Optimizer, loss, grads) -> Dict
     order stays deterministic.  The choice is made on the device
     (torch.where), so the step does not wait for the loss.  Returns the
     step's metrics as 0-d device tensors."""
-    updates, opt_state = tx.update(grads, state.opt_state)
-    finite = torch.isfinite(loss)
-    with torch.no_grad():
-        for p, u in zip(state.params(), updates):
-            p.copy_(torch.where(finite, p + u, p))
-    state.opt_state = _select(finite, opt_state, state.opt_state)
+    metrics = _update_in_place(state, tx, loss, grads)
     state.step += 1
-    return {
-        "loss": loss,
-        "grad_norm": global_norm(grads),
-        "update_skipped": torch.logical_not(finite).to(torch.int32),
-    }
+    return metrics
 
 
-def _select(cond, new, old):
-    if isinstance(new, dict):
-        return {k: _select(cond, new[k], old[k]) for k in new}
-    if isinstance(new, list):
-        return [_select(cond, a, b) for a, b in zip(new, old)]
-    return torch.where(cond, new, old)
+def metrics_row(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A step's metrics as a float32 (3,) row in METRIC_KEYS order."""
+    return torch.stack([metrics[k].to(torch.float32) for k in METRIC_KEYS])
 
 
 def make_train_step(model, tx: Optimizer, config: Config) -> Callable:
@@ -114,6 +168,206 @@ def make_train_step(model, tx: Optimizer, config: Config) -> Callable:
         return apply_gradient_update(state, tx, loss, grads)
 
     return train_step
+
+
+class MultiStep:
+    """`n_steps` optimizer steps in one call (train.py:137-196).
+
+    Each step is the single train step with its noise drawn from the
+    state's generator before the step (`ops.uniform_noise`, the draw the
+    model makes itself), so a call trains exactly what `n_steps` single
+    steps train.  Returns the steps' metrics as an (n_steps, 3) float32
+    tensor on the device, rows in METRIC_KEYS order.
+
+    On the CPU the steps run one after another.  On a CUDA device the call
+    replays a CUDA graph holding `unroll` whole steps (forward, backward,
+    the optimizer update and the NaN guard, both oscillator kernels
+    inside), n_steps / unroll times.  Before each replay the steps' inputs
+    are copied into the graph's static buffers and their noise is drawn
+    eagerly into its noise buffer, so the graph holds no random draw and
+    the generator advances as in eager steps.  The graph is captured at the
+    first call, after WARMUP_RUNS eager runs of its bodies on a side stream
+    whose updates are undone; it is bound to that call's parameter,
+    optimizer-state and data tensors, and a call with others raises.
+    Nothing falls back to eager steps: a failed capture or replay raises.
+
+    Launch counts: a replay launches what the capture recorded
+    (`captured`, per kernel), and adds that to the kernel wrapper's
+    `replayed` count.
+    """
+
+    def __init__(self, model, tx: Optimizer, config: Config, n_steps: int,
+                 unroll: int = 1, indexed: bool = False):
+        if n_steps < 1 or unroll < 1:
+            raise ValueError(f"need steps_per_call ≥ 1 and scan_unroll ≥ 1, got {n_steps}, {unroll}")
+        if n_steps % unroll:
+            raise ValueError(
+                f"train.scan_unroll={unroll} must divide train.steps_per_call={n_steps}"
+            )
+        self.model = model
+        self.tx = tx
+        self.n_steps = n_steps
+        self.unroll = unroll
+        self.indexed = indexed
+        self.scales = tuple(config.train.scales)
+        self.overlap = config.train.overlap
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captured: Dict[str, int] = {}
+        self.capture_s: Optional[float] = None  # capture and instantiation
+        self.pool_bytes: Optional[int] = None  # device memory the capture reserved
+        self.replays = 0
+        self._bound = None
+
+    # ----------------------------------------------------------- one step
+    def _body(self, state: TrainState, batch, noise) -> torch.Tensor:
+        loss, grads = loss_and_grads(self.model, batch, state.mean_loudness, state.std_loudness,
+                                     self.scales, self.overlap, noise=noise)
+        return metrics_row(_update_in_place(state, self.tx, loss, grads))
+
+    def _draw_noise(self, state: TrainState, shape) -> torch.Tensor:
+        return uniform_noise(shape, state.generator, self.model.dtype, state.generator.device)
+
+    def __call__(self, state: TrainState, *inputs) -> torch.Tensor:
+        """inputs: `batches` ({key: (n_steps, B, ...)} on the device), or
+        `data, idx2d` for the indexed variant (the device-resident cache and
+        the (n_steps, B) item indices of each step's batch)."""
+        if self.indexed:
+            data, idx2d = inputs
+            idx = torch.as_tensor(np.asarray(idx2d, np.int64)).to(data["sig"].device)
+            lead, noise_shape = idx.shape[0], (idx.shape[1], data["pitch"].shape[1])
+
+            def take(j):
+                return {k: v.index_select(0, idx[j]) for k, v in data.items()}
+
+            def load(rows):
+                self._idx.copy_(idx[rows])
+        else:
+            (data,) = inputs
+            lead, noise_shape = data["sig"].shape[0], tuple(data["pitch"].shape[1:3])
+
+            def take(j):  # a fresh tensor per step on the CPU, as a single step receives
+                return {k: v[j].clone() for k, v in data.items()}
+
+            def load(rows):
+                for k, v in data.items():
+                    self._batch[k].copy_(v[rows])
+        if lead != self.n_steps:
+            raise ValueError(
+                f"super-batch has a leading axis of {lead}, expected steps_per_call={self.n_steps}"
+            )
+        noise_shape = (*noise_shape, self.model.block_size)
+        if next(self.model.parameters()).device.type == "cpu":
+            rows = []
+            for j in range(self.n_steps):
+                rows.append(self._body(state, take(j), self._draw_noise(state, noise_shape)))
+                state.step += 1
+            return torch.stack(rows)
+        return self._replay(state, data, load, noise_shape)
+
+    # ------------------------------------------------------------- graph
+    def _bind(self, state: TrainState, data, noise_shape) -> None:
+        """Allocate the static buffers at the first call; later calls must
+        bring the same state tensors, data (indexed) and shapes."""
+        tensors = state.params() + tree_leaves(state.opt_state)
+        key = (tensors, data if self.indexed else None, state.mean_loudness, state.std_loudness,
+               noise_shape)
+        if self._bound is not None:
+            bound = self._bound
+            same = (len(bound[0]) == len(tensors) and all(a is b for a, b in zip(bound[0], tensors))
+                    and (not self.indexed or all(bound[1][k] is data[k] for k in data))
+                    and bound[2:] == key[2:])
+            if not same:
+                raise RuntimeError(
+                    "MultiStep: the CUDA graph was captured for other state or data "
+                    "tensors, loudness stats or shapes; build a new MultiStep"
+                )
+            return
+        device = tensors[0].device
+        u = self.unroll
+        self._noise = torch.zeros((u, *noise_shape), dtype=self.model.dtype, device=device)
+        self._metrics = torch.zeros((u, len(METRIC_KEYS)), dtype=torch.float32, device=device)
+        if self.indexed:
+            self._data = data
+            self._idx = torch.zeros((u, noise_shape[0]), dtype=torch.int64, device=device)
+        else:
+            self._batch = {k: torch.zeros((u, *v.shape[1:]), dtype=v.dtype, device=device)
+                           for k, v in data.items()}
+        self._bound = key
+
+    def _bodies(self, state: TrainState) -> None:
+        """`unroll` steps on the static buffers: what the graph holds."""
+        for u in range(self.unroll):
+            if self.indexed:
+                batch = {k: v.index_select(0, self._idx[u]) for k, v in self._data.items()}
+            else:
+                batch = {k: v[u] for k, v in self._batch.items()}
+            self._metrics[u].copy_(self._body(state, batch, self._noise[u]))
+
+    def _capture(self, state: TrainState) -> None:
+        device = self._metrics.device
+        tensors = state.params() + tree_leaves(state.opt_state)
+        saved = [t.detach().clone() for t in tensors]
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                self._bodies(state)
+        current.wait_stream(side)
+        with torch.no_grad():  # the warm-up must not train
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        del saved
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()  # as torch.cuda.graph does, before the pool is counted
+        before = {name: w.captured for name, w in KERNEL_WRAPPERS.items()}
+        reserved = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self._bodies(state)
+        torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.captured = {name: w.captured - before[name] for name, w in KERNEL_WRAPPERS.items()}
+        self.graph = graph
+
+    def _replay(self, state: TrainState, data, load, noise_shape) -> torch.Tensor:
+        """n_steps / unroll replays; `load(rows)` copies those steps' inputs
+        into the static buffers."""
+        self._bind(state, data, noise_shape)
+        u = self.unroll
+        out = torch.empty((self.n_steps, len(METRIC_KEYS)), dtype=torch.float32,
+                          device=self._metrics.device)
+        for r in range(self.n_steps // u):
+            rows = slice(r * u, (r + 1) * u)
+            load(rows)
+            for i in range(u):  # in step order, as eager steps draw
+                self._noise[i].copy_(self._draw_noise(state, noise_shape))
+            if self.graph is None:
+                self._capture(state)
+            self.graph.replay()
+            self.replays += 1
+            for name, n in self.captured.items():
+                KERNEL_WRAPPERS[name].replayed += n
+            out[rows].copy_(self._metrics)
+            state.step += u
+        return out
+
+
+def make_train_multi_step(model, tx: Optimizer, config: Config, n_steps: int,
+                          unroll: int = 1) -> MultiStep:
+    """multi_step(state, batches) → (n_steps, 3) metrics: `n_steps` steps
+    from an (n_steps, B, ...) super-batch on the device (train.py:137-163)."""
+    return MultiStep(model, tx, config, n_steps, unroll, indexed=False)
+
+
+def make_train_multi_step_indexed(model, tx: Optimizer, config: Config, n_steps: int,
+                                  unroll: int = 1) -> MultiStep:
+    """multi_step(state, data, idx2d) → (n_steps, 3) metrics: `n_steps`
+    steps whose batches are gathered from the device-resident cache `data`
+    inside the step, from the (n_steps, B) indices (train.py:166-196)."""
+    return MultiStep(model, tx, config, n_steps, unroll, indexed=True)
 
 
 def make_eval_step(model, config: Config) -> Callable:
@@ -134,10 +388,11 @@ def make_eval_step(model, config: Config) -> Callable:
 
 
 class Trainer:
-    """The training loop for one device: logging, validation, checkpoints and
-    exact resume (train.py:220-905 without its mesh, scan and preemption
-    paths).  `eval_forwards` counts the model forwards it ran outside the
-    train steps (validation and the per-log-epoch eval)."""
+    """The training loop for one device: logging, validation, checkpoints,
+    exact resume and preemption (train.py:220-905 without its mesh paths).
+    `eval_forwards` counts the model forwards it ran outside the train
+    steps (validation and the per-log-epoch eval); `_multi_step` is the
+    last fit's MultiStep (None when steps_per_call is 1)."""
 
     def __init__(self, config: Config, run_dir: str, *, device="cuda"):
         if config.mesh.time > 1 or config.mesh.data > 1:
@@ -145,10 +400,12 @@ class Trainer:
                 f"mesh {config.mesh}: the port trains on one device; the data-parallel "
                 "and time-sharded steps wait for a later slice (ROADMAP.md)"
             )
-        if config.train.steps_per_call != 1:
-            raise NotImplementedError(
-                f"train.steps_per_call={config.train.steps_per_call}: the port runs one "
-                "step per call; the scanned multi-step waits (ROADMAP.md)"
+        self._spc = max(1, config.train.steps_per_call)
+        self._unroll = max(1, config.train.scan_unroll)
+        if self._spc % self._unroll:
+            raise ValueError(
+                f"train.scan_unroll={self._unroll} must divide "
+                f"train.steps_per_call={self._spc}"
             )
         self.config = config
         self.run_dir = run_dir
@@ -160,6 +417,11 @@ class Trainer:
         self.checkpointer = Checkpointer(run_dir, max_to_keep=config.train.keep_checkpoints)
         self._train_step = make_train_step(self.model, self.tx, config)
         self._eval_step = make_eval_step(self.model, config)
+        self._multi_step: Optional[MultiStep] = None
+        if self.device.type == "cuda":
+            self._to_device = HostBatchStager(self.device)
+        else:
+            self._to_device = lambda batch: to_device(batch, self.device)
         self.eval_forwards = 0
 
     # ------------------------------------------------------------ state
@@ -196,18 +458,65 @@ class Trainer:
             fcfg = Config.from_yaml(frozen)
             mean_l, std_l = fcfg.data.mean_loudness, fcfg.data.std_loudness
         if mean_l is None or std_l is None:
-            mean_l, std_l = mean_std_loudness(train_loader)
+            if hasattr(train_loader, "loudness_stats"):
+                mean_l, std_l = train_loader.loudness_stats()
+            else:
+                mean_l, std_l = mean_std_loudness(train_loader)
         return mean_l, std_l
+
+    # ------------------------------------------------------------ calls
+    def _run_single(self, state: TrainState, batch, loader) -> torch.Tensor:
+        """One step on a host batch or, from a device-resident loader, on
+        the batch of item indices `batch`.  Returns its (1, 3) metrics."""
+        if hasattr(loader, "take"):
+            batch = loader.take(batch)
+        return metrics_row(self._train_step(state, self._to_device(batch)))[None]
+
+    def _run_multi(self, state: TrainState, batches, loader) -> torch.Tensor:
+        """One call of steps_per_call steps on the buffered host batches or
+        item indices.  Returns their (steps_per_call, 3) metrics."""
+        if hasattr(loader, "take_stacked"):
+            return self._multi_step(state, loader.device_data, np.stack(batches))
+        stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+        return self._multi_step(state, self._to_device(stacked))
 
     # -------------------------------------------------------------- loop
     def fit(self, datamodule, total_steps: Optional[int] = None) -> TrainState:
         """Train to `total_steps` (default train.steps), resuming from the
-        newest checkpoint in the run directory."""
+        newest checkpoint in the run directory.
+
+        Preemption-safe (train.py:421-447): SIGTERM and SIGINT set a flag;
+        at the next call boundary the loop flushes the metrics, checkpoints
+        the full state and returns, and `fit` again resumes exactly.  The
+        previous handlers are restored on return."""
+        preempted = {"flag": False}
+
+        def on_signal(signum, frame):
+            preempted["flag"] = True
+
+        old_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, on_signal)
+            except ValueError:  # not the main thread
+                pass
+        try:
+            return self._fit(datamodule, total_steps, preempted)
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+
+    def _fit(self, datamodule, total_steps, preempted) -> TrainState:
         cfg = self.config
         if total_steps is None:
             total_steps = cfg.train.steps
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
+        device_indexed = hasattr(train_loader, "take_stacked")
+        if device_indexed and train_loader.device != self.device:
+            raise ValueError(
+                f"the device-resident loader is on {train_loader.device}, the trainer on {self.device}"
+            )
 
         mean_l, std_l = self._loudness_stats(train_loader)
         cfg.data.mean_loudness, cfg.data.std_loudness = mean_l, std_l
@@ -215,27 +524,32 @@ class Trainer:
 
         state, resumed = self.resume_or_init(mean_l, std_l)
         start_step = state.step if resumed else 0
+        # a captured graph is bound to this fit's state tensors
+        self._multi_step = None
+        if self._spc > 1:
+            make = make_train_multi_step_indexed if device_indexed else make_train_multi_step
+            self._multi_step = make(self.model, self.tx, cfg, self._spc, self._unroll)
         steps_per_epoch = max(1, len(train_loader))
         n_epochs = math.ceil(total_steps / steps_per_epoch)
+        start_epoch = start_step // steps_per_epoch
         meta = self.checkpointer.best_meta()
         best_loss = meta["loss"] if meta is not None else float("inf")
         sample = next(iter(train_loader))  # the batch of the per-log-epoch eval
 
-        pending = []  # (step, metrics) not yet written
+        pending = []  # (first step, (n, 3) metrics rows on the device) not yet written
         mean_loss, n_elem = 0.0, 0
         flush_every = max(1, cfg.train.metrics_flush_steps)
         last_flush = state.step
+        t_last, s_last = time.perf_counter(), state.step
 
         def flush():
             nonlocal mean_loss, n_elem, last_flush
             last_flush = state.step
             if not pending:
                 return
-            values = torch.stack(
-                [torch.stack([m["loss"].float(), m["grad_norm"].float(),
-                              m["update_skipped"].float()]) for _, m in pending]
-            ).tolist()
-            for (step, _), (loss, grad_norm, skipped) in zip(pending, values):
+            values = torch.cat([rows for _, rows in pending]).tolist()
+            steps = [first + i for first, rows in pending for i in range(rows.shape[0])]
+            for step, (loss, grad_norm, skipped) in zip(steps, values):
                 self.metrics.add_scalar("loss", loss, step)
                 self.metrics.add_scalar("grad_norm", grad_norm, step)
                 self.metrics.add_scalar("update_skipped", int(skipped), step)
@@ -243,25 +557,64 @@ class Trainer:
                 mean_loss += (loss - mean_loss) / n_elem
             pending.clear()
 
+        def run_single(batch):
+            pending.append((state.step + 1, self._run_single(state, batch, train_loader)))
+
+        def run_multi(batches):
+            pending.append((state.step + 1, self._run_multi(state, batches, train_loader)))
+
+        def housekeeping(prev_step) -> bool:
+            """Flush, checkpoint and throughput; True: stop now."""
+            nonlocal t_last, s_last
+            if state.step - last_flush >= flush_every:
+                flush()
+            if preempted["flag"]:
+                flush()
+                self.checkpointer.save(state)
+                return True
+            every = cfg.train.checkpoint_every_steps
+            if every > 0 and state.step // every > prev_step // every:
+                self.checkpointer.save(state)
+            if state.step - s_last >= 100:
+                now = time.perf_counter()
+                self.metrics.add_scalar("steps_per_s", (state.step - s_last) / max(now - t_last, 1e-9),
+                                        state.step)
+                t_last, s_last = now, state.step
+            return state.step >= total_steps
+
         t_start = time.perf_counter()
-        for epoch in range(start_step // steps_per_epoch, n_epochs):
+        buf = []  # batches (or index arrays) awaiting a full call
+        for epoch in range(start_epoch, n_epochs):
             train_loader.set_epoch(epoch)
             # a resume mid-epoch skips the batches already trained, so the
             # step → batch mapping matches an uninterrupted run
-            skip = start_step % steps_per_epoch if epoch == start_step // steps_per_epoch else 0
-            for batch_index, batch in enumerate(train_loader):
+            skip = start_step % steps_per_epoch if epoch == start_epoch else 0
+            source = train_loader.index_batches() if device_indexed else train_loader
+            stop = False
+            for batch_index, batch in enumerate(source):
                 if batch_index < skip:
                     continue
                 prev_step = state.step
-                metrics = self._train_step(state, to_device(batch, self.device))
-                pending.append((state.step, metrics))
-                if state.step - last_flush >= flush_every:
-                    flush()
-                every = cfg.train.checkpoint_every_steps
-                if every > 0 and state.step // every > prev_step // every:
-                    self.checkpointer.save(state)
-                if state.step >= total_steps:
+                if (self._multi_step is not None and state.step + self._spc <= total_steps
+                        and not preempted["flag"]):
+                    buf.append(batch)
+                    if len(buf) < self._spc:
+                        continue
+                    run_multi(buf)
+                    buf.clear()
+                else:
+                    for b in buf:  # switching to single steps: drain in order
+                        run_single(b)
+                    buf.clear()
+                    run_single(batch)
+                stop = housekeeping(prev_step)
+                if stop:
                     break
+            # buf carries across epochs: with steps_per_call above the
+            # epoch's steps a call fills over several epochs, so validation
+            # may lag the data stream by up to steps_per_call − 1 batches
+            if stop and preempted["flag"]:
+                return state
             if state.step - last_flush >= flush_every:
                 flush()
             if cfg.train.val_interval_epochs > 0 and epoch % cfg.train.val_interval_epochs == 0:
@@ -275,6 +628,17 @@ class Trainer:
                 self._log_eval(state, sample)
             if state.step >= total_steps:
                 break
+
+        if buf and not preempted["flag"] and state.step < total_steps:
+            # the final partial call: the epochs are spent, so the leftover
+            # batches run as single steps
+            prev_step = state.step
+            for b in buf:
+                run_single(b)
+                if state.step >= total_steps:
+                    break
+            buf.clear()
+            housekeeping(prev_step)
 
         flush()
         if state.step > start_step:
@@ -291,7 +655,7 @@ class Trainer:
     def _eval(self, state, batch, seed: int):
         self.eval_forwards += 1
         generator = torch.Generator(self.device).manual_seed(seed)
-        return self._eval_step(state, to_device(batch, self.device), generator)
+        return self._eval_step(state, self._to_device(batch), generator)
 
     def _run_validation(self, state, val_loader) -> None:
         losses = [float(self._eval(state, batch, 0)["loss"]) for batch in val_loader]

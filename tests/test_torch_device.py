@@ -17,7 +17,7 @@ import torch
 
 from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.config import Config
-from ddsp_pytorch_tpu_torch.export import load_bundle, make_streaming_synth
+from ddsp_pytorch_tpu_torch.export import export_run, load_bundle, make_streaming_synth
 from ddsp_pytorch_tpu_torch.models import DDSPDecoder, init_params
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 from ddsp_pytorch_tpu_torch.serve import StreamServer
@@ -50,8 +50,9 @@ def cuda():
         lambda: make_streaming_synth(BUNDLE, device="cuda:0"),
         lambda: load_bundle(BUNDLE),
         lambda: StreamServer(BUNDLE, port=0),
+        lambda: export_run("a-run-directory"),
     ],
-    ids=["make_streaming_synth", "explicit-cuda0", "load_bundle", "StreamServer"],
+    ids=["make_streaming_synth", "explicit-cuda0", "load_bundle", "StreamServer", "export_run"],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -222,3 +223,143 @@ def test_cuda_wrappers_take_float32_only(cuda):
         osc.oscillator_bank(phi, omega, amp, 64)
     with pytest.raises(TypeError):
         osc.oscillator_bank_bwd(phi, omega, amp, g, 64)
+
+
+TINY = dict(hidden_size=32, n_harmonic=8, n_bands=9, sample_rate=16000, block_size=128, has_reverb=True)
+TINY_FRAMES = 16
+# graphed against eager steps on the card, each parameter leaf and each
+# step's loss relative to its own magnitude: the same kernels on the same
+# inputs
+GRAPHED_REL = 1e-6
+
+
+def _tiny_config(**train):
+    return Config.from_dict({
+        "preprocess": {"sample_rate": 16000, "signal_length": TINY_FRAMES * 128, "block_size": 128},
+        "model": {"name": "single-inst-decoder", "kwargs": dict(TINY)},
+        "train": {"scales": [512, 128], "overlap": 0.75, "batch": 2, "lr": 1e-3, **train},
+    })
+
+
+def _tiny_data(device, n_items=6, seed=11):
+    rng = np.random.default_rng(seed)
+    t = np.arange(TINY_FRAMES * 128) / 16000
+    f0 = rng.uniform(150, 400, (n_items, 1))
+    return {
+        "pitch": torch.tensor(np.repeat(f0, TINY_FRAMES, 1)[..., None].astype(np.float32), device=device),
+        "loudness": torch.tensor(rng.standard_normal((n_items, TINY_FRAMES, 1)).astype(np.float32), device=device),
+        "sig": torch.tensor((0.3 * np.sin(2 * np.pi * f0 * t)).astype(np.float32), device=device),
+    }
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [1, 2])
+def test_graphed_steps_equal_eager_steps_on_cuda(cuda, unroll):
+    """4 steps as CUDA-graph replays of `unroll` captured steps against 4
+    eager steps from the same state, batches and generator: the same
+    per-step losses and parameters (GRAPHED_REL), the same generator state,
+    the warm-up leaving no trace; the launches counted on capture and
+    replay."""
+    from ddsp_pytorch_tpu_torch.training import make_optimizer
+    from ddsp_pytorch_tpu_torch.training.state import TrainState
+    from ddsp_pytorch_tpu_torch.training.train import (
+        WARMUP_RUNS, make_train_multi_step_indexed, make_train_step, metrics_row,
+    )
+
+    cfg = _tiny_config()
+    data = _tiny_data(cuda)
+    idx2d = np.random.default_rng(3).integers(0, 6, (4, 2))
+    base = init_params(DDSPDecoder(**TINY), torch.Generator().manual_seed(0)).to(cuda)
+
+    def fresh():
+        model = copy.deepcopy(base)
+        tx = make_optimizer(cfg)
+        state = TrainState(0, model, tx.init([p for _, p in model.named_parameters()]),
+                           torch.Generator(cuda).manual_seed(5), -1.0, 1.5)
+        return model, tx, state
+
+    model_e, tx_e, state_e = fresh()
+    step = make_train_step(model_e, tx_e, cfg)
+    eager = torch.stack([
+        metrics_row(step(state_e, {k: v.index_select(0, torch.as_tensor(i, device=cuda))
+                                   for k, v in data.items()}))
+        for i in idx2d
+    ])
+    model_g, tx_g, state_g = fresh()
+    multi = make_train_multi_step_indexed(model_g, tx_g, cfg, 4, unroll)
+    osc.reset_kernel_counts()
+    graphed = multi(state_g, data, idx2d)
+    torch.cuda.synchronize()
+    assert state_g.step == state_e.step == 4
+    assert _rel(graphed[:, 0], eager[:, 0]) <= GRAPHED_REL
+    for (name, a), b in zip(model_g.named_parameters(), model_e.parameters()):
+        assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
+    assert torch.equal(state_g.generator.get_state(), state_e.generator.get_state())
+    assert multi.captured == {"oscillator_fwd": unroll, "oscillator_bwd": unroll}
+    assert multi.replays == 4 // unroll
+    for wrapper in (osc.oscillator_bank, osc.oscillator_bank_bwd):
+        assert (wrapper.launches, wrapper.captured, wrapper.replayed) == (WARMUP_RUNS * unroll, unroll, 4)
+    more = multi(state_g, data, idx2d)  # the next call replays the same graph
+    assert bool(torch.isfinite(more).all()) and multi.replays == 8 // unroll
+    with pytest.raises(RuntimeError, match="captured for other"):
+        multi(fresh()[2], data, idx2d)
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_equals_eager_trainer_on_cuda(cuda, tmp_path):
+    """Trainer.fit with steps_per_call 4 (graphed; with the device cache,
+    and with the host loader's staged super-batches) against
+    steps_per_call 1 (eager, host loader) on the card: the same losses and
+    parameters (GRAPHED_REL), the same generator state."""
+    from ddsp_pytorch_tpu_torch.data import Datamodule
+    from ddsp_pytorch_tpu_torch.training.metrics import read_metrics
+
+    cache = tmp_path / "cache"
+    data = {k: v.cpu().numpy()[..., 0] if k != "sig" else v.cpu().numpy() for k, v in _tiny_data(cuda).items()}
+    for part in ("train", "validation"):
+        (cache / part).mkdir(parents=True)
+        for name, key in (("signals", "sig"), ("pitchs", "pitch"), ("loudness", "loudness")):
+            np.save(cache / part / f"{name}.npy", data[key])
+
+    def fit(name, device_cache, **train):
+        cfg = _tiny_config(steps=10, val_interval_epochs=2, checkpoint_every_steps=0, **train)
+        cfg.preprocess.out_dir = str(cache)
+        dm = Datamodule(cfg, device_cache=device_cache, device=cuda)
+        dm.setup()
+        trainer = Trainer(cfg, str(tmp_path / name), device=cuda)
+        state = trainer.fit(dm)
+        trainer.close()
+        return trainer, state, [v for _, v in read_metrics(str(tmp_path / name), "loss")]
+
+    _, eager, eager_losses = fit("eager", False)
+    for device_cache in (True, False):
+        trainer, graphed, graphed_losses = fit(f"graphed_{device_cache}", device_cache,
+                                               steps_per_call=4, scan_unroll=2)
+        assert trainer._multi_step.indexed == device_cache
+        assert trainer._multi_step.replays == 4  # 8 steps in 2 calls; the last 2 run single
+        assert graphed.step == eager.step == 10
+        np.testing.assert_allclose(graphed_losses, eager_losses, rtol=GRAPHED_REL)
+        for (name, a), b in zip(graphed.model.named_parameters(), eager.params()):
+            assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
+        assert torch.equal(graphed.generator.get_state(), eager.generator.get_state())
+
+
+@pytest.mark.cuda
+def test_host_batch_stager_on_cuda(cuda):
+    """The pinned staging path gives what a pageable copy gives, reusing
+    one buffer per key and shape."""
+    from ddsp_pytorch_tpu_torch.training.train import HostBatchStager, to_device
+
+    stager = HostBatchStager(cuda)
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        batch = {"sig": rng.standard_normal((2, 256)).astype(np.float32),
+                 "pitch": rng.standard_normal((2, 4, 1))}
+        got, want = stager(batch), to_device(batch, cuda)
+        for k in batch:
+            assert got[k].dtype == torch.float32 and torch.equal(got[k], want[k])
+    assert len(stager._pinned) == 2
