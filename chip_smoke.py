@@ -9,12 +9,15 @@ is printed):
   1. card: name and power limit, torch version, build of every hand-written
      kernel from the sources in this checkout (one nvcc per source, all
      started together); each kernel function's registers and spill bytes
-     from `-Xptxas -v`, and no spill in the K = 64 variants;
+     from `-Xptxas -v`, no spill in the K = 64 variants nor in the probes,
+     and the fma probe's FFMA count in its SASS (the chain not folded);
   2. kernels: every variant of each kernel (K = 64 template or runtime K,
      few- or many-row configuration) against its plain PyTorch version on
      the card at the serving shape and at larger shapes (the forward also
      against a float64 numpy oracle), with its time, the plain version's
-     time, the bound and the share of the bound; OscillatorBank's gradients
+     time, the bound and the share of the bound, at the pool's shapes too
+     (R = 2, 256, 1024, 2048); both roofline probes against their plain versions
+     in float32 and float64; OscillatorBank's gradients
      (both kernels) against autograd through the plain forward at the
      training shape;
   3. streaming: make_streaming_synth on the full-width violin bundle streams
@@ -53,9 +56,30 @@ is printed):
      for 64 blocks on the card against the CPU plain stream, a StreamServer
      answering two requests, the impulse read back with `wave` (first tap
      within 2e-2 of 1);
-  9. report: one JSON line {"kernels": [...]} (launches by path: serving,
-     training, training_graphed (host launches plus graph replays), and
-     serving_exported), the card's name and power limit, and last
+  9. roofline: bench_roofline.run, the counterpart of the TPU script's
+     measure_vpu_rates_pallas + add_vpu_model: the fma and sin probe
+     kernels at each block size, their rates (FMA/s, FP32 TFLOP/s against
+     67, sinf/s) at the fastest, the SM clock and power polled during 2 s
+     of the fma probe, and each oscillator kernel's share of its
+     instruction-mix bound at R = 1, 2, 1024, 2048, 3000 and 6000 from
+     phase 2's times;
+ 10. pool: a VoicePool of 3 violin voices on the card (deterministic
+     noise) against three independent batch-1 streams and against the same
+     pool on the CPU; a released slot streams like a fresh one; the
+     in-stream reverb against the offline fft_convolve of the same dry
+     stream; a StreamServer(voices=4) answering 4 concurrent clients; then
+     the voice ramp (V = 1 … 2048, profile_serving.RAMP_VOICES; dry, and
+     with the reverb): per-block p50/p99 of VoicePool.step and voices per
+     card, the largest V below the first that misses the budget;
+ 11. autoencoder: pretrained/ddsp_violin_ae_bundle through
+     make_stream_session on the card against the CPU, on a 220–440 Hz
+     harmonic input (audible, and its render p50/p99), then through
+     StreamServer at voices = 1 and voices = 4 with 4 concurrent clients
+     (pooled equals unpooled with deterministic noise);
+ 12. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+     path: serving, training, training_graphed (host launches plus graph
+     replays), serving_exported, serving_pool, serving_autoencoder and, for
+     the probes, roofline), the card's name and power limit, and last
      {"ok": true, "device": {...}}.
 
 Imports torch, numpy, the standard library and ddsp_pytorch_tpu_torch only.
@@ -79,11 +103,17 @@ import wave
 import numpy as np
 import torch
 
-from ddsp_pytorch_tpu_torch import serve
+from ddsp_pytorch_tpu_torch import bench_roofline, serve
 from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import Datamodule, Dataset, DeviceDataLoader
-from ddsp_pytorch_tpu_torch.export import export_run, load_bundle, make_streaming_synth, run_params
+from ddsp_pytorch_tpu_torch.export import (
+    export_run,
+    load_bundle,
+    make_stream_session,
+    make_streaming_synth,
+    run_params,
+)
 from ddsp_pytorch_tpu_torch.kernel_bench import (
     card_line,
     oscillator_bound,
@@ -93,10 +123,11 @@ from ddsp_pytorch_tpu_torch.kernel_bench import (
     time_ms,
 )
 from ddsp_pytorch_tpu_torch.models import DDSPDecoder, init_params
-from ddsp_pytorch_tpu_torch.ops import kernels, multiscale_fft
+from ddsp_pytorch_tpu_torch.ops import fft_convolve, kernels, multiscale_fft, roofline
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
-from ddsp_pytorch_tpu_torch.profile_serving import glide
+from ddsp_pytorch_tpu_torch.profile_serving import RAMP_VOICES, glide, voice_ramp, voices_per_card_text
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
+from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
 from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer
 from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
 from ddsp_pytorch_tpu_torch.training.metrics import read_metrics
@@ -166,16 +197,41 @@ N_REQUESTS = 8
 # Phase 2's shapes (rows, harmonics, samples): the serving row, the training
 # rows of configs/config.yaml (16 × 375 frames) and of the violin run config
 # (8 × 375, the graphed path of phase 7), a ragged count with a K that takes
-# the runtime-K variants, the same K at the training rows, and a
-# one-harmonic edge case.  Together they launch every variant and
-# configuration of both kernels.
+# the runtime-K variants, the same K at the training rows, a one-harmonic
+# edge case, and the pool's rows (phases 10-11: 2 voices, and the voice
+# ramp's 256, 1024 and 2048, the last two past the forward's many-row
+# switch).  Phase 9 reads its oscillator times from here.
+# Together they launch every variant and configuration of both kernels at
+# the main paths' shapes.
 GRAPHED_SHAPE = (3000, 64, 512)
 KERNEL_SHAPES = ((1, 64, 512), (6000, 64, 512), GRAPHED_SHAPE, (37, 100, 512), (6000, 100, 512),
-                 (5, 1, 64))
+                 (5, 1, 64), (2, 64, 512), (256, 64, 512), (1024, 64, 512), (2048, 64, 512))
 # The exported 100-step model's stream: GPU vs CPU within this share of the
 # stream's peak as well as STREAM_GPU_VS_CPU_ATOL (the model plays near
 # silence, where that absolute bound alone could not fail a wrong kernel).
 EXPORT_STREAM_REL_OF_PEAK = 1e-3
+AE_BUNDLE = "pretrained/ddsp_violin_ae_bundle"
+# Probes against their plain versions: the fma chain bit for bit (c rounds
+# to 1 on the script's input, so one rounding of c·s − p equals two); the
+# sin chain within 1e-6 (torch's sin kernel against the kernel's sinf, 4
+# nested calls); both within 1e-6 of the same chains in float64.
+PROBE_SIN_ATOL = 1e-6
+PROBE_VS_F64_ATOL = 1e-6
+# The fma probe's SASS keeps its chain: 2·256 FFMAs, less the last
+# iteration's update of s, which nothing reads.
+PROBE_MIN_FFMA = 2 * roofline.FMA_DEPTH - 1
+N_POOL_VOICES, N_POOL_BLOCKS = 3, 32
+# a released slot against a fresh one: the same kernels on the same inputs
+RELEASED_SLOT_ATOL = 1e-6
+# the in-stream reverb (1 s IR, 94 partitions) against the offline FFT
+# convolution of the same dry stream: the JAX suite's bound
+# (tests/test_partitioned_conv.py:35), and 1e-3 of the wet stream's peak
+REVERB_VS_OFFLINE_ATOL = 2e-4
+RAMP_BLOCKS, RAMP_REVERB_BLOCKS = 200, 100
+N_SERVER_VOICES = 4
+# pooled (batch 4) against unpooled (batch 1) sessions on the card: cuBLAS
+# may take other GEMM kernels at the two batch sizes
+POOLED_VS_UNPOOLED_ATOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -205,16 +261,30 @@ def ptxas_report(log: str) -> dict:
 
 def check_spills(name: str, log: str) -> None:
     """Print each kernel function's ptxas line; the K = 64 instantiations
-    (the main path's, template argument 64) must not spill."""
+    (the main path's, template argument 64) and the probes must not spill.
+    For the probes, also each function's FFMA count in its SASS: the fma
+    probe's chain must not be folded."""
     report = ptxas_report(log)
-    fixed = [f for f in report if f"ILi{osc.KERNEL_FIXED_K}E" in f]
-    check(bool(fixed), f"no K={osc.KERNEL_FIXED_K} variant of {name} in the ptxas report")
+    probes = name == "roofline_probe"
+    if probes:
+        checked = list(report)
+        ffma = {fn: len(re.findall(r"\bFFMA\b", text)) for fn, text in kernels.sass(name).items()}
+    else:
+        checked = [f for f in report if f"ILi{osc.KERNEL_FIXED_K}E" in f]
+        ffma = {}
+    check(bool(checked), f"no checked variant of {name} in the ptxas report")
     for fn, (stores, loads, regs) in sorted(report.items()):
-        m = re.search(r"\d(oscillator_\w+?_kernelI\w*?E)Ev", fn)
+        m = re.search(r"\d((?:oscillator|roofline)_\w+?_kernel(?:I\w*?E)?)", fn)
+        extra = f" sass_ffma={ffma[fn]}" if fn in ffma else ""
         print(f"ptxas {name} {m.group(1) if m else fn}: registers={regs} "
-              f"spill_stores={stores} B spill_loads={loads} B", flush=True)
-    for fn in fixed:
+              f"spill_stores={stores} B spill_loads={loads} B{extra}", flush=True)
+    for fn in checked:
         check(report[fn][0] == 0 and report[fn][1] == 0, f"{fn} spills: {report[fn]}")
+    if probes:
+        fma_fn = [fn for fn in ffma if "roofline_fma_kernel" in fn]
+        check(len(fma_fn) == 1, f"fma probe not found in the SASS: {sorted(ffma)}")
+        check(ffma[fma_fn[0]] >= PROBE_MIN_FFMA,
+              f"fma probe has {ffma[fma_fn[0]]} FFMA in its SASS, fewer than {PROBE_MIN_FFMA}: folded")
 
 
 def rel_err(got, want) -> float:
@@ -231,9 +301,10 @@ def oscillator_f64(phi, omega, amp, s: int) -> np.ndarray:
     return out
 
 
-def phase_kernels(device) -> dict:
+def phase_kernels(device, kernel_ms: dict) -> dict:
     """Phase 2: the oscillator kernel against its plain version and the
-    float64 oracle; times at every shape.  Returns the entry at the graphed
+    float64 oracle; times at every shape, also put in `kernel_ms` (keyed
+    as bench_roofline keys them).  Returns the entry at the graphed
     training path's shape."""
     rng = np.random.default_rng(SEED)
     cycles_per_ms = sleep_cycles_per_ms()
@@ -258,6 +329,7 @@ def phase_kernels(device) -> dict:
             lambda: osc.oscillator_bank_plain(*args, s), max(1, min(20, 1000 // (4 * k + 8))),
             cycles_per_ms,
         )
+        kernel_ms["oscillator_fwd", rows, k, s] = ms
         bound_ms, bound_by = oscillator_bound(rows, k, s)
         print(
             f"oscillator_fwd R={rows} K={k} S={s} [{osc.kernel_variant(k)}]: "
@@ -286,11 +358,12 @@ def phase_kernels(device) -> dict:
     return entry
 
 
-def phase_bwd_kernel(device) -> dict:
+def phase_bwd_kernel(device, kernel_ms: dict) -> dict:
     """Phase 2, backward: the kernel against its plain version at every
-    shape, timed by the forward's method; OscillatorBank's gradients
-    against autograd through the plain forward at the training shape.
-    Returns the entry at the graphed training path's shape."""
+    shape, timed by the forward's method (into `kernel_ms`);
+    OscillatorBank's gradients against autograd through the plain forward
+    at the training shape.  Returns the entry at the graphed training
+    path's shape."""
     rng = np.random.default_rng(SEED + 1)
     cycles_per_ms = sleep_cycles_per_ms()
     entry = None
@@ -312,6 +385,7 @@ def phase_bwd_kernel(device) -> dict:
             lambda: osc.oscillator_bank_bwd_plain(*args, s), max(1, min(20, 1000 // (8 * k + 8))),
             cycles_per_ms,
         )
+        kernel_ms["oscillator_bwd", rows, k, s] = ms
         bound_ms, bound_by = oscillator_bwd_bound(rows, k, s)
         print(
             f"oscillator_bwd R={rows} K={k} S={s} [{osc.kernel_variant(k)}]: "
@@ -1013,6 +1087,288 @@ def phase_export_serve(device, run_dir: str, cache: str, tmp: str) -> int:
     return streamed + served
 
 
+def phase_probe_kernels(device) -> dict:
+    """Phase 2, the roofline probes: each kernel against its plain version
+    on the script's input (256 tiles of 32 × 512) in float32, and both
+    against the same chain in float64; the plain version's time.  Returns
+    {kernel: (max |kernel − plain|, plain ms)}."""
+    x = roofline.probe_input(seed=SEED, device=device)
+    cycles_per_ms = sleep_cycles_per_ms()
+    out = {}
+    for name, fn, plain, atol in (("roofline_fma", roofline.fma_chain, roofline.fma_chain_plain, 0.0),
+                                  ("roofline_sin", roofline.sin_chain, roofline.sin_chain_plain,
+                                   PROBE_SIN_ATOL)):
+        got = fn(x)
+        want = plain(x)
+        want64 = plain(x.double())
+        torch.cuda.synchronize()
+        check(got.shape == x.shape and bool(torch.isfinite(got).all()), f"{name} output")
+        err = float((got - want).abs().max())
+        err64 = float((got.double() - want64).abs().max())
+        plain_err64 = float((want.double() - want64).abs().max())
+        # the plain chain is ~1000 elementwise launches a call
+        plain_ms, _ = time_ms(lambda: plain(x), 2, cycles_per_ms, warmup=1)
+        print(f"{name} ({x.numel()} elements): max|kernel-plain|={err:.3e} max|kernel-f64|={err64:.3e} "
+              f"max|plain-f64|={plain_err64:.3e} scale={float(want64.abs().max()):.4f} "
+              f"plain_ms={plain_ms:.6f}", flush=True)
+        check(err <= atol, f"{name} kernel vs plain {err}")
+        check(err64 <= PROBE_VS_F64_ATOL, f"{name} kernel vs float64 {err64}")
+        out[name] = (err, plain_ms)
+    return out
+
+
+def phase_roofline(device, card: str, probe_checks: dict, kernel_ms: dict) -> list:
+    """Phase 9: the roofline entry point (bench_roofline.run) with the probe
+    counts set to 0 just before it; the rates, the SM clock and power under
+    the fma probe, and each oscillator kernel's instruction-mix share from
+    phase 2's times.  Returns the probes' JSON entries."""
+    roofline.reset_kernel_counts()
+    result = bench_roofline.run(device, kernel_ms=kernel_ms)
+    launches = {name: w.launches for name, w in roofline.KERNEL_WRAPPERS.items()}
+    rates = result["rates"]
+    clocks = rates["clocks_under_fma_load"]
+    check(len(clocks["samples"]) > 0, f"no nvidia-smi sample inside the fma probe's load: {clocks}")
+    sweep = "; ".join(f"{kind} probe by threads a block: " + ", ".join(
+        f"{t}: {1e3 * ms:.3f} us" for t, ms in rates[f"{kind}_ms_by_threads"].items())
+        for kind in ("fma", "sin"))
+    print(f"roofline (card {card}): {sweep}", flush=True)
+    print(f"roofline (card {card}): fma probe {rates['fma_ms']:.6f} ms at {rates['fma_threads']} threads = "
+          f"{rates['fma_elems_per_s']:.4e} FMA/s = {rates['fma_tflops']:.3f} FP32 TFLOP/s "
+          f"({100 * rates['fma_share_of_fp32_peak']:.1f} % of {rates['fp32_peak_tflops']:.0f}); sin probe "
+          f"{rates['sin_ms']:.6f} ms at {rates['sin_threads']} threads = {rates['sin_elems_per_s']:.4e} "
+          f"sinf/s; launches {launches}; under {clocks['window_s']:.2f} s of the fma probe, "
+          f"{len(clocks['samples'])} nvidia-smi samples: SM clock {clocks['sm_mhz_min']:.0f}-"
+          f"{clocks['sm_mhz_max']:.0f} MHz (max {clocks['sm_mhz_limit']:.0f}), power "
+          f"{clocks['power_w_min']:.2f}-{clocks['power_w_max']:.2f} W", flush=True)
+    for row in result["oscillator"]:
+        print(f"  {row['kernel']} R={row['rows']} K={row['k']} S={row['s']}: {1e3 * row['ms']:.3f} us, "
+              f"instruction-mix ideal {1e3 * row['instruction_mix_ms']:.3f} us "
+              f"(share {row['share_of_instruction_mix']:.3f}), FP32 bound {1e3 * row['bound_ms']:.3f} us "
+              f"(share {row['share_of_bound']:.3f})", flush=True)
+    check(all(n > 0 for n in launches.values()), f"a probe was not launched on the roofline path: {launches}")
+    check(rates["fma_elems_per_s"] > 0 and rates["sin_elems_per_s"] > 0, "probe rates")
+    n = rates["elements"]
+    entries = []
+    for name, line, ms, (bound_ms, bound_by) in (
+            ("roofline_fma", 229, rates["fma_ms"], bench_roofline.fma_probe_bound(n)),
+            ("roofline_sin", 244, rates["sin_ms"], bench_roofline.sin_probe_bound(n))):
+        err, plain_ms = probe_checks[name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ddsp_pytorch_tpu_torch/ops/kernels/roofline_probe.cu",
+            "replaces": f"scripts/bench_roofline.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes these chains
+            "launches_by_path": {"roofline": launches[name]},
+        })
+    return entries
+
+
+def _violin_requests(rng, slots) -> dict:
+    return {s: (rng.uniform(196.0, 1568.0, (1, 1)).astype(np.float32),
+                rng.uniform(-9.0, -6.0, (1, 1)).astype(np.float32)) for s in slots}
+
+
+def _pool_vs_streams(device) -> None:
+    """Phase 10a-b: N_POOL_VOICES violin voices in one pool on the card
+    against as many independent batch-1 streams on the card and against
+    the same pool on the CPU; then a released slot against a fresh one."""
+    pool = VoicePool(make_streaming_synth(BUNDLE, batch=N_POOL_VOICES, device=device,
+                                          noise_deterministic=True))
+    cpu = VoicePool(make_streaming_synth(BUNDLE, batch=N_POOL_VOICES, device="cpu",
+                                         noise_deterministic=True))
+    streams = [make_streaming_synth(BUNDLE, device=device, noise_deterministic=True)
+               for _ in range(N_POOL_VOICES)]
+    slots = [pool.acquire() for _ in range(N_POOL_VOICES)]
+    check(slots == [cpu.acquire() for _ in range(N_POOL_VOICES)], "pool slots")
+    rng = np.random.default_rng(SEED + 30)
+    err_streams = err_cpu = peak = 0.0
+    first = None
+    for i in range(N_POOL_BLOCKS):
+        reqs = _violin_requests(rng, slots)
+        got, want = pool.step(reqs), cpu.step(reqs)
+        first = first or (reqs, got)
+        for s, synth in zip(slots, streams):
+            alone = synth.step(reqs[s][0][None], reqs[s][1][None])[0].cpu().numpy()
+            check(got[s].shape == (synth.block_size,) and bool(np.isfinite(got[s]).all()), "pooled row")
+            err_streams = max(err_streams, float(np.abs(got[s] - alone).max()))
+            err_cpu = max(err_cpu, float(np.abs(got[s] - want[s]).max()))
+            peak = max(peak, float(np.abs(got[s]).max()))
+    pool.release(slots[1])
+    again = pool.acquire()
+    released = float(np.abs(pool.step({again: first[0][slots[1]]})[again] - first[1][slots[1]]).max())
+    print(f"pool of {N_POOL_VOICES} violin voices, {N_POOL_BLOCKS} blocks: max|pooled-independent|="
+          f"{err_streams:.3e} max|gpu-cpu|={err_cpu:.3e} peak={peak:.4f}; released slot {slots[1]} "
+          f"reacquired as {again}: max|Δ| against a fresh slot's first block={released:.3e}", flush=True)
+    check(peak > 1e-3, f"pooled audio silent (peak {peak})")
+    for what, err in (("independent streams", err_streams), ("the CPU pool", err_cpu)):
+        check(err <= STREAM_GPU_VS_CPU_ATOL and err <= EXPORT_STREAM_REL_OF_PEAK * peak,
+              f"pool vs {what}: {err} (peak {peak})")
+    check(again == slots[1] and released <= RELEASED_SLOT_ATOL, f"released slot {again}: {released}")
+
+
+def _reverb_vs_offline(device) -> None:
+    """Phase 10c: StreamingSynth(include_reverb=True) on the card against the
+    offline fft_convolve of the same dry stream with the model's impulse."""
+    wet = make_streaming_synth(BUNDLE, batch=2, device=device, noise_deterministic=True,
+                               include_reverb=True)
+    dry = make_streaming_synth(BUNDLE, batch=2, device=device, noise_deterministic=True)
+    block = wet.block_size
+    pitch, loud = glide(N_POOL_BLOCKS, block)
+    pitch, loud = np.concatenate([pitch, pitch[:, ::-1]]), np.concatenate([loud, loud])
+    wets, drys = [], []
+    for i in range(N_POOL_BLOCKS):
+        sl = slice(i * block, (i + 1) * block)
+        wets.append(wet.step_samples(pitch[:, sl], loud[:, sl]))
+        drys.append(dry.step_samples(pitch[:, sl], loud[:, sl]))
+    got, d = torch.cat(wets, -1), torch.cat(drys, -1)
+    with torch.no_grad():
+        ir = wet.model.reverb.build_impulse()
+    n = d.shape[-1]
+    ir = ir[:n] if ir.shape[-1] >= n else torch.nn.functional.pad(ir, (0, n - ir.shape[-1]))
+    want = fft_convolve(d, ir[None])
+    err = float((got - want).abs().max())
+    peak = float(got.abs().max())
+    heard = float((want - d).abs().max())
+    print(f"in-stream reverb ({wet._pir.spectra.shape[0]} partitions of {wet._pir.spectra.shape[1]} bins), "
+          f"{N_POOL_BLOCKS} blocks x 2 voices on the card: max|streamed-offline|={err:.3e} peak={peak:.4f} "
+          f"max|wet-dry|={heard:.4f}", flush=True)
+    check(bool(torch.isfinite(got).all()) and heard > 1e-3, "reverb output")
+    check(err <= REVERB_VS_OFFLINE_ATOL and err <= EXPORT_STREAM_REL_OF_PEAK * peak,
+          f"in-stream reverb vs offline {err} (peak {peak})")
+
+
+def _serve_clients(bundle: str, voices: int, n_clients: int, device, n_requests: int,
+                   audio_in=None):
+    """n_clients concurrent clients of a StreamServer(voices) with
+    deterministic noise, each rendering n_requests blocks of one glide (and,
+    for an autoencoder bundle, `audio_in`).  Returns (their streams, the
+    server's kernel launches)."""
+    server = serve.StreamServer(bundle, port=0, voices=voices, device=device, noise_deterministic=True)
+    server.start()
+    try:
+        block = server.block_size
+        pitch, loud = glide(n_requests, block)
+        results = {}
+
+        def run(i):
+            c = serve.StreamClient(*server.address)
+            try:
+                extra = (lambda k: (audio_in[k * block:(k + 1) * block],)) if c.needs_audio else (lambda k: ())
+                results[i] = np.concatenate([c.render(pitch[0, k * block:(k + 1) * block],
+                                                      loud[0, k * block:(k + 1) * block], *extra(k))
+                                             for k in range(n_requests)])
+            finally:
+                c.close()
+
+        before = osc.oscillator_bank.launches
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        launches = osc.oscillator_bank.launches - before
+        check(sorted(results) == list(range(n_clients)), f"a client of the voices={voices} server did not finish")
+        return [results[i] for i in range(n_clients)], launches
+    finally:
+        server.stop()
+
+
+def phase_pool(device, card: str) -> tuple:
+    """Phase 10, with oscillator_fwd's count set to 0 just before it.
+    Returns (its launches, the ramps)."""
+    osc.reset_kernel_counts()
+    _pool_vs_streams(device)
+    _reverb_vs_offline(device)
+    streams, served = _serve_clients(BUNDLE, N_SERVER_VOICES, N_SERVER_VOICES, device, N_REQUESTS)
+    for a in streams:
+        check(a.shape == (N_REQUESTS * 512,) and bool(np.isfinite(a).all()), "pooled server response")
+        check(float(np.abs(a - streams[0]).max()) <= POOLED_VS_UNPOOLED_ATOL,
+              "pooled sessions of one input differ")
+    print(f"StreamServer(voices={N_SERVER_VOICES}): {N_SERVER_VOICES} concurrent clients x {N_REQUESTS} "
+          f"requests answered; oscillator_fwd launches={served} (one per batched dispatch)", flush=True)
+    check(0 < served <= N_SERVER_VOICES * N_REQUESTS + 1, f"pooled server launches {served}")
+    ramps = {}
+    for reverb, blocks in ((False, RAMP_BLOCKS), (True, RAMP_REVERB_BLOCKS)):
+        ramp = voice_ramp(BUNDLE, RAMP_VOICES, blocks=blocks, include_reverb=reverb, device=device)
+        ramps["reverb" if reverb else "dry"] = ramp
+        for row in ramp["rows"]:
+            check(row["oscillator_fwd_launches"] == blocks and row["peak"] > 1e-3,
+                  f"ramp V={row['voices']}: {row['oscillator_fwd_launches']} launches, peak {row['peak']}")
+        print(f"voice ramp ({'in-stream reverb' if reverb else 'dry, as the pooled server serves'}; "
+              f"{blocks} blocks a V, one frame a block, VoicePool.step on the host clock with the audio "
+              f"pull; budget {ramp['budget_ms']:.4f} ms; card {card}): " + "; ".join(
+                  f"V={r['voices']} p50={r['block_ms_p50']:.4f} p99={r['block_ms_p99']:.4f} "
+                  f"max={r['block_ms_max']:.4f} ms x{r['x_realtime_aggregate']:.1f} realtime "
+                  f"(traced: device busy {r['device_busy_ms_per_block']:.4f} of "
+                  f"{r['traced_block_ms']:.4f} ms a block, {r['kernel_launches_per_block']:.0f} launches)"
+                  for r in ramp["rows"]) + f"; voices per card {voices_per_card_text(ramp)}", flush=True)
+    torch.cuda.empty_cache()
+    return osc.oscillator_bank.launches, ramps
+
+
+def phase_autoencoder(device, card: str) -> int:
+    """Phase 11, with oscillator_fwd's count set to 0 just before it: the AE
+    bundle through make_stream_session on the card against the CPU, then
+    through StreamServer at voices = 1 and N_SERVER_VOICES.  Returns its
+    launches."""
+    osc.reset_kernel_counts()
+    gpu = make_stream_session(AE_BUNDLE, device=device, noise_deterministic=True)
+    cpu = make_stream_session(AE_BUNDLE, device="cpu", noise_deterministic=True)
+    block, sr = gpu.block_size, gpu.sample_rate
+    n = N_BLOCKS * block
+    t = np.arange(n) / sr
+    f0 = 220.0 * 2.0 ** (t / t[-1])  # a 220 → 440 Hz glide
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    audio_in = sum(0.3 / h * np.sin(h * phase) for h in range(1, 6)).astype(np.float32)
+    pitch, loud = f0.astype(np.float32), np.full(n, -7.0, np.float32)
+
+    def sl(i):
+        return slice(i * block, (i + 1) * block)
+
+    warm = make_stream_session(AE_BUNDLE, device=device, noise_deterministic=True)
+    for i in range(4):  # warm-up on a throwaway session
+        warm.step_samples(pitch[sl(i)], loud[sl(i)], audio_in[sl(i)])
+    render_ms, outs = [], []
+    for i in range(N_BLOCKS):
+        t0 = time.perf_counter()
+        outs.append(gpu.step_samples(pitch[sl(i)], loud[sl(i)], audio_in[sl(i)]))
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+    got = np.concatenate(outs)
+    want = np.concatenate([cpu.step_samples(pitch[sl(i)], loud[sl(i)], audio_in[sl(i)]) for i in range(N_BLOCKS)])
+    err, peak = float(np.abs(got - want).max()), float(np.abs(got).max())
+    p50, p99 = np.percentile(render_ms[1:], [50, 99])
+    print(f"autoencoder session ({AE_BUNDLE}, {N_BLOCKS} blocks of a 220-440 Hz harmonic input): "
+          f"max|gpu-cpu|={err:.3e} peak={peak:.4f} first block silent={bool(np.all(got[:block] == 0))}; "
+          f"render_ms (host MFCC, step and pull) p50={p50:.4f} p99={p99:.4f} max={max(render_ms[1:]):.4f} "
+          f"budget_ms={1e3 * block / sr:.4f}; card {card}", flush=True)
+    check(bool(np.isfinite(got).all()) and np.all(got[:block] == 0), "AE session output")
+    check(peak > 1e-3, f"AE session silent (peak {peak})")
+    check(err <= STREAM_GPU_VS_CPU_ATOL and err <= EXPORT_STREAM_REL_OF_PEAK * peak,
+          f"AE session gpu vs cpu {err} (peak {peak})")
+
+    n_req = 8
+    served = {}
+    for voices in (1, N_SERVER_VOICES):
+        streams, launches = _serve_clients(AE_BUNDLE, voices, N_SERVER_VOICES, device, n_req, audio_in)
+        served[voices] = (streams, launches)
+    want = served[1][0][0]
+    err = max(float(np.abs(a - want).max()) for streams, _ in served.values() for a in streams)
+    print(f"autoencoder StreamServer: {N_SERVER_VOICES} concurrent clients x {n_req} requests at voices=1 "
+          f"(launches {served[1][1]}) and voices={N_SERVER_VOICES} (launches {served[N_SERVER_VOICES][1]}): "
+          f"max|pooled or unpooled - first session|={err:.3e} peak={float(np.abs(want).max()):.4f}", flush=True)
+    check(float(np.abs(want).max()) > 1e-3 and np.all(want[:block] == 0), "served AE stream")
+    check(err <= POOLED_VS_UNPOOLED_ATOL, f"AE pooled vs unpooled {err}")
+    check(served[1][1] > 0 and served[N_SERVER_VOICES][1] > 0, "AE server launches")
+    return osc.oscillator_bank.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1036,8 +1392,10 @@ def main() -> int:
         print(f"built {name} in {secs:.2f} s", flush=True)
         check_spills(name, log)
 
-    fwd_entry = phase_kernels(device)
-    bwd_entry = phase_bwd_kernel(device)
+    kernel_ms = {}
+    fwd_entry = phase_kernels(device, kernel_ms)
+    bwd_entry = phase_bwd_kernel(device, kernel_ms)
+    probe_checks = phase_probe_kernels(device)
     phase_streaming(device)
     serving_fwd = phase_server(device)
     check(serving_fwd > 0, "oscillator_fwd not launched on the serving path")
@@ -1051,16 +1409,22 @@ def main() -> int:
         graphed, run_dir = phase_violin_run(device, cache, tmp)
         check(all(n > 0 for n in graphed.values()), "a kernel was not launched on the graphed path")
         exported_fwd = phase_export_serve(device, run_dir, cache, tmp)
+    probe_entries = phase_roofline(device, card, probe_checks, kernel_ms)
+    pool_fwd, _ = phase_pool(device, card)
+    check(pool_fwd > 0, "oscillator_fwd not launched on the pooled serving path")
+    ae_fwd = phase_autoencoder(device, card)
+    check(ae_fwd > 0, "oscillator_fwd not launched on the autoencoder serving path")
     fwd_entry["launches"] = graphed["oscillator_fwd"]
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
-                                     "serving_exported": exported_fwd}
+                                     "serving_exported": exported_fwd, "serving_pool": pool_fwd,
+                                     "serving_autoencoder": ae_fwd}
     bwd_entry["launches"] = graphed["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
-                                     "serving_exported": 0}
+                                     "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0}
 
-    print(json.dumps({"kernels": [fwd_entry, bwd_entry]}), flush=True)
+    print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

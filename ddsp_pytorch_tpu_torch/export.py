@@ -1,8 +1,9 @@
 """Trained run → bundle, and bundle → model → StreamingSynth.
 
-Port of ddsp_pytorch_tpu/export/__init__.py:35-157 (`export_run`,
-`_render_impulse`, `load_bundle`, `make_streaming_synth`) and of the
-repository's export.py CLI:
+Port of ddsp_pytorch_tpu/export/__init__.py:35-210 (`export_run`,
+`_render_impulse`, `load_bundle`, `make_streaming_synth`,
+`make_stream_session`, `make_streaming_mfcc`) and of the repository's
+export.py CLI:
 
     python -m ddsp_pytorch_tpu_torch.export --run runs/NAME [--out-dir export] \\
         [--name NAME] [--data] [--set key.path=value ...] [--device cuda]
@@ -18,7 +19,9 @@ serve a bundle the port exported:
   ddsp_<name>_config.yaml             frozen config copy next to the bundle
 
 A bundle is read through bundle.py: meta.json for the model and the
-loudness stats, params.msgpack for the weights.
+loudness stats, params.msgpack for the weights, and config.yaml for the
+autoencoder's MFCC geometry.  Both model families load and stream;
+`export_run` exports the single-inst-decoder only.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.bundle import read_meta, read_params, write_params
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.models import load_model
-from ddsp_pytorch_tpu_torch.streaming import StreamingSynth
+from ddsp_pytorch_tpu_torch.streaming import AutoencoderStreamSession, StreamingSynth, StreamingMFCC
 from ddsp_pytorch_tpu_torch.training.state import Checkpointer
 from ddsp_pytorch_tpu_torch.utils import save_wav
 from ddsp_pytorch_tpu_torch.weights import flax_to_state_dict, state_dict_to_flax
@@ -56,7 +59,7 @@ def load_bundle(bundle_dir: str, device="cuda") -> Tuple:
 
 def make_streaming_synth(bundle_dir: str, batch: int = 1, device="cuda", **kwargs):
     """Bundle → ready StreamingSynth on `device` (kwargs: seed,
-    noise_deterministic)."""
+    noise_deterministic, include_reverb)."""
     model, meta = load_bundle(bundle_dir, device=device)
     mean = meta.get("mean_loudness")
     std = meta.get("std_loudness")
@@ -67,6 +70,43 @@ def make_streaming_synth(bundle_dir: str, batch: int = 1, device="cuda", **kwarg
         batch=batch,
         device=device,
         **kwargs,
+    )
+
+
+def make_stream_session(bundle_dir: str, seed: int = 0, device="cuda", **kwargs):
+    """Bundle → a sample-rate streaming session for either model family
+    (export/__init__.py:160-177).
+
+    A decoder bundle gives the StreamingSynth itself (needs_audio False,
+    `step_samples(pitch, loudness)`); an mfcc-autoencoder bundle gives an
+    AutoencoderStreamSession (needs_audio True, `step_samples(pitch,
+    loudness, audio)`, one block of output latency).  This is the one
+    constructor a host program loads."""
+    synth = make_streaming_synth(bundle_dir, seed=seed, device=device, **kwargs)
+    if not synth.autoencoder:
+        return synth
+    return AutoencoderStreamSession(synth, make_streaming_mfcc(bundle_dir), seed=seed)
+
+
+def make_streaming_mfcc(bundle_dir: str) -> StreamingMFCC:
+    """Bundle → the causal batch-1 StreamingMFCC of its preprocess geometry
+    (export/__init__.py:180-210), the live feature extractor of an
+    autoencoder stream.
+
+    Streamed and training features agree exactly only where the bundle was
+    preprocessed with a fixed preprocess.mfcc_ref_db; with None the
+    training features used the anti-causal global-maximum floor and the
+    live extractor runs without a floor."""
+    pc = Config.from_yaml(os.path.join(bundle_dir, "config.yaml")).preprocess
+    return StreamingMFCC(
+        pc.sample_rate,
+        n_mfcc=pc.n_mfcc,
+        n_fft=pc.mfcc_n_fft,
+        hop_length=pc.block_size,
+        fmin=pc.mfcc_fmin,
+        fmax=pc.mfcc_fmax,
+        n_mels=pc.n_mels,
+        ref_db=pc.mfcc_ref_db,
     )
 
 
@@ -117,8 +157,8 @@ def export_run(
         config.apply_overrides(overrides)
     if config.model.name != "single-inst-decoder":
         raise NotImplementedError(
-            f"model {config.model.name!r}: the port exports the single-inst-decoder; the "
-            "autoencoder family waits for a later slice (ROADMAP.md)"
+            f"model {config.model.name!r}: the port exports the single-inst-decoder only; "
+            "exporting the mfcc-autoencoder waits for its training (ROADMAP.md §1)"
         )
     model = load_model(config.model.name, config.model.kwargs)
     model.load_state_dict(run_params(run_dir), strict=True)

@@ -25,6 +25,7 @@ import json
 import math
 import os
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -44,6 +45,43 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def clocks_under_load(fn, seconds: float) -> dict:
+    """The card's SM clock and power draw while fn() runs back to back on it
+    for `seconds`: a thread polls nvidia-smi during the window, and only
+    the samples taken wholly inside it, after a settling quarter second,
+    are kept.  Returns each sample (SM MHz, max SM MHz, power W,
+    temperature C) and the range of the SM clock and power."""
+    query = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits"]
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            out = subprocess.run(query, capture_output=True, text=True, timeout=60, check=True)
+            samples.append((t0, time.perf_counter(), out.stdout.strip().splitlines()[0]))
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    while time.perf_counter() - start < seconds:
+        fn()  # the launch queue fills and the host waits on it: the card stays busy
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    stop.set()
+    poller.join()
+    rows = [[float(v) for v in line.split(",")] for t0, t1, line in samples
+            if t0 >= start + 0.25 and t1 <= end]
+    if not rows:
+        return {"samples": [], "window_s": end - start}
+    sm, power = [r[0] for r in rows], [r[2] for r in rows]
+    return {"samples": rows, "window_s": end - start,
+            "sm_mhz_min": min(sm), "sm_mhz_max": max(sm), "sm_mhz_limit": rows[0][1],
+            "power_w_min": min(power), "power_w_max": max(power)}
 
 
 def sleep_cycles_per_ms() -> float:
@@ -86,7 +124,9 @@ def time_ms(fn, iters: int, cycles_per_ms: float, warmup: int = 3):
     return start.elapsed_time(end) / iters, host_ms / iters
 
 
-def _bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of `nbytes` over the HBM rate and
+    `flops` over the FP32 rate, and which of the two it is."""
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -95,14 +135,14 @@ def oscillator_bound(rows: int, k: int, s: int):
     """(bound_ms, bound_by) of the forward: each input read once, each
     output written once; two FMAs (4 flops) per harmonic per sample (the
     sincosf per sample is not counted)."""
-    return _bound(4 * rows * (2 + k) + 4 * rows * s, 4 * rows * s * k)
+    return bound(4 * rows * (2 + k) + 4 * rows * s, 4 * rows * s * k)
 
 
 def oscillator_bwd_bound(rows: int, k: int, s: int):
     """(bound_ms, bound_by) of the backward: reads phi, omega, amp and the
     (R, S) cotangent once, writes dphi, domega, damp once; two recurrences,
     the dA product and the dθ FMA, 8 flops per harmonic per sample."""
-    return _bound(4 * rows * (s + 2 * k + 4), 8 * rows * s * k)
+    return bound(4 * rows * (s + 2 * k + 4), 8 * rows * s * k)
 
 
 def oscillator_inputs(rng, rows: int, k: int, sample_rate: float = 48000.0):

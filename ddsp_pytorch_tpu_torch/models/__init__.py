@@ -1,18 +1,18 @@
 """L1+L2 — synthesizer modules and models (torch.nn).
 
-Registry parity with ddsp_pytorch_tpu/models/__init__.py.  Only the
-"single-inst-decoder" is ported so far; "mfcc-autoencoder" waits for a
-later slice (ROADMAP.md §1).
+Registry parity with ddsp_pytorch_tpu/models/__init__.py: the
+"single-inst-decoder" and the "mfcc-autoencoder".
 """
 
 from ddsp_pytorch_tpu_torch.models.decoder import DDSPDecoder, GRUDecoder, init_params  # noqa: F401
+from ddsp_pytorch_tpu_torch.models.encoder import DDSPAutoencoder, MFCCEncoder  # noqa: F401
 from ddsp_pytorch_tpu_torch.models.modules import (  # noqa: F401
     FilteredNoise,
     HarmonicSynth,
     Reverb,
 )
 
-MODEL_REGISTRY = {"single-inst-decoder": DDSPDecoder}
+MODEL_REGISTRY = {"single-inst-decoder": DDSPDecoder, "mfcc-autoencoder": DDSPAutoencoder}
 
 
 def load_model(name: str, kwargs: dict):

@@ -87,14 +87,18 @@ class GRU(nn.Module):
 
 
 class GRUDecoder(nn.Module):
-    """f0 and loudness MLPs → GRU → skip-concat of raw f0/loudness → output
-    MLP (decoder.py:101-143)."""
+    """f0 and loudness MLPs (and a z MLP when z_dim is set) → GRU →
+    skip-concat of raw f0/loudness → output MLP (decoder.py:101-143)."""
 
-    def __init__(self, hidden_size: int):
+    def __init__(self, hidden_size: int, z_dim: Optional[int] = None):
         super().__init__()
+        self.z_dim = z_dim
         self.f0_mlp = MLP(1, hidden_size)
         self.loudness_mlp = MLP(1, hidden_size)
-        self.gru = GRU(2 * hidden_size, hidden_size)
+        if z_dim is not None:
+            self.z_mlp = MLP(z_dim, hidden_size)
+        n_parts = 2 if z_dim is None else 3
+        self.gru = GRU(n_parts * hidden_size, hidden_size)
         self.out_mlp = MLP(hidden_size + 2, hidden_size)
 
     def forward(
@@ -102,9 +106,16 @@ class GRUDecoder(nn.Module):
         f0: torch.Tensor,
         loudness: torch.Tensor,
         gru_state: Optional[torch.Tensor] = None,
+        z: Optional[torch.Tensor] = None,
     ):
-        """f0, loudness (B, F, 1) → (hidden (B, F, H), GRU state (B, H))."""
-        hidden = torch.cat([self.f0_mlp(f0), self.loudness_mlp(loudness)], dim=-1)
+        """f0, loudness (B, F, 1) [and z (B, F, z_dim)] → (hidden (B, F, H),
+        GRU state (B, H))."""
+        parts = [self.f0_mlp(f0), self.loudness_mlp(loudness)]
+        if self.z_dim is not None:
+            if z is None:
+                raise ValueError("z_dim is set but no z was given")
+            parts.append(self.z_mlp(z))
+        hidden = torch.cat(parts, dim=-1)
         gru_out, state = self.gru(hidden, gru_state)
         hidden = torch.cat([gru_out, f0, loudness], dim=-1)
         return self.out_mlp(hidden), state

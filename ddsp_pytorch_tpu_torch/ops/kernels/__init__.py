@@ -8,7 +8,8 @@ changed.  Several kernels build in parallel: one nvcc process per source,
 all started together.
 
 Wrappers that validate tensors, allocate outputs and count launches live
-beside each kernel's plain PyTorch version (ops/oscillator.py).
+beside each kernel's plain PyTorch version (ops/oscillator.py,
+ops/roofline.py).
 """
 
 from __future__ import annotations
@@ -40,13 +41,20 @@ KERNELS = {
         # block_size, stream
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
+    "roofline_probe": (
+        "roofline_probe.cu",
+        "ddsp_roofline_probe",
+        # x, out, n, kind (0 fma, 1 sin), threads a block, stream
+        [_P, _P, _I, _I, _I, _P],
+    ),
 }
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
-]  # no --use_fast_math: the oscillator needs the accurate sincosf
+]  # no --use_fast_math: the oscillator needs the accurate sincosf (and the
+#    sin probe measures that accurate routine's rate)
 
 _lock = threading.Lock()
 _loaded = {}
@@ -101,6 +109,22 @@ def build(names=None) -> dict:
         os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
         report[name] = (time.perf_counter() - t0, log)
     return report
+
+
+def sass(name: str) -> dict:
+    """{kernel function: its SASS} of kernel `name`'s built library, from
+    `cuobjdump -sass` (in the CUDA toolkit beside nvcc)."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", library_path(name)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    functions, current = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            current = line.split("Function : ", 1)[1].strip()
+            functions[current] = []
+        elif current is not None:
+            functions[current].append(line)
+    return {fn: "\n".join(lines) for fn, lines in functions.items()}
 
 
 def launcher(name: str):

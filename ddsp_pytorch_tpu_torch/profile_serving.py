@@ -1,27 +1,47 @@
-"""Where a served block's time goes on the GPU.
+"""Where a served block's time goes on the GPU, and how many voices a card
+serves.
 
     python -m ddsp_pytorch_tpu_torch.profile_serving \\
         [--bundle pretrained/ddsp_violin_bundle] [--blocks 64] [--out FILE]
+    python -m ddsp_pytorch_tpu_torch.profile_serving \\
+        --voices 1,8,64,256,512,768,1024,1536,2048 [--blocks 200] [--reverb] [--out FILE]
 
-Streams `--blocks` blocks of a pitch glide through make_streaming_synth on
-CUDA twice after a warm-up: once untraced (per-block render time on the
-host clock, each block ending in torch.cuda.synchronize()), then under
-torch.profiler.  From the trace it reports the device-busy time (the union
-of kernel intervals) against the traced wall time, the kernels launched
-per block, and every kernel ranked by device time.  Prints one JSON object
-and writes it to --out if given.  Needs a CUDA card.
+Without --voices: streams `--blocks` blocks of a pitch glide through
+make_streaming_synth on CUDA twice after a warm-up: once untraced
+(per-block render time on the host clock, each block ending in
+torch.cuda.synchronize()), then under torch.profiler.  From the trace it
+reports the device-busy time (the union of kernel intervals) against the
+traced wall time, the kernels launched per block, and every kernel ranked
+by device time.
+
+With --voices: the voice ramp, the counterpart of scripts/voice_ramp.py.
+For each V, a VoicePool of V slots, all active, at the bundle's width,
+dispatched one frame a block as the pooled server dispatches it; each
+block's `VoicePool.step` is timed on the host clock, the device→host pull
+of the audio included (the step returns host audio).  It reports per-block
+p50/p99/max, the aggregate × realtime (V × block time over p50), and
+voices per card: the largest V below the first V whose p99 is not under
+the block's 512 / 48 000 = 10.67 ms (a failure at a small V counts).  Where
+no V fails, the top of the grid is only a lower bound, and the result says
+so.  (The JAX script runs 8 frames a step against a two-block budget; this
+ramp runs the server's one frame a block against one block.)
+--reverb adds the in-stream reverb.
+
+Prints one JSON object with the card's name and power limit and writes it
+to --out if given.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
+
+from ddsp_pytorch_tpu_torch.kernel_bench import card_line
 
 
 def glide(n_blocks: int, block: int):
@@ -45,6 +65,112 @@ def _stream(synth, pitch, loud, n_blocks):
     return times
 
 
+# the ramp's grid: steps of at most 2× up to the forward kernel's many-row
+# switch (528 rows), then of 1.5× or less, past where the host-bound pool
+# runs out of budget
+RAMP_VOICES = (1, 8, 64, 256, 512, 768, 1024, 1536, 2048)
+RAMP_WARMUP = 8  # blocks before the timed ones (cuBLAS handles, cuFFT plans)
+RAMP_TRACED = 20  # blocks traced after the timed ones
+
+
+def voice_ramp(bundle: str, voices, blocks: int = 200, include_reverb: bool = False,
+               device="cuda") -> dict:
+    """The voice ramp (module docstring) at each V in `voices`.  On a card,
+    RAMP_TRACED more blocks run under torch.profiler after the timed ones,
+    for the device-busy time and the kernel launches a block."""
+    from ddsp_pytorch_tpu_torch.export import make_streaming_synth
+    from ddsp_pytorch_tpu_torch.ops import oscillator as osc
+    from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
+
+    on_card = torch.device(device).type == "cuda"
+    rows = []
+    budget_ms = None
+    for v in sorted(voices):
+        pool = VoicePool(make_streaming_synth(bundle, batch=v, device=device,
+                                              include_reverb=include_reverb))
+        budget_ms = 1e3 * pool.block_size / pool.sample_rate
+        slots = [pool.acquire() for _ in range(v)]
+        rng = np.random.default_rng(v)
+        f0 = rng.uniform(196.0, 1568.0, v).astype(np.float32)
+        loud = rng.uniform(-9.0, -6.0, v).astype(np.float32)
+
+        def requests(i):
+            # a slow vibrato per voice, one frame a block
+            mod = np.float32(1.0 + 0.01 * np.sin(0.3 * i))
+            return {s: (np.full((1, 1), f0[j] * mod, np.float32), np.full((1, 1), loud[j], np.float32))
+                    for j, s in enumerate(slots)}
+
+        for i in range(RAMP_WARMUP):
+            pool.step(requests(i))
+        launches = osc.oscillator_bank.launches
+        times = []
+        for i in range(blocks):
+            reqs = requests(RAMP_WARMUP + i)
+            t0 = time.perf_counter()
+            out = pool.step(reqs)
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = osc.oscillator_bank.launches - launches
+        traced = {}
+        if on_card:
+            with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+                t0 = time.perf_counter()
+                for i in range(RAMP_TRACED):
+                    pool.step(requests(RAMP_WARMUP + blocks + i))
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kernels, busy_ms = _device_kernels(prof)
+            traced = {"traced_block_ms": wall_ms / RAMP_TRACED,
+                      "device_busy_ms_per_block": busy_ms / RAMP_TRACED,
+                      "device_idle_share": 1.0 - busy_ms / wall_ms,
+                      "kernel_launches_per_block": len(kernels) / RAMP_TRACED}
+        peak = max(float(np.abs(a).max()) for a in out.values())
+        if len(out) != v or not all(a.shape == (pool.block_size,) and np.isfinite(a).all()
+                                    for a in out.values()):
+            raise RuntimeError(f"voice ramp: bad output at V={v}")
+        p50, p99 = (float(x) for x in np.percentile(times, [50, 99]))
+        rows.append({
+            "voices": v, "block_ms_p50": p50, "block_ms_p99": p99, "block_ms_max": float(max(times)),
+            "per_voice_ms_p50": p50 / v, "x_realtime_aggregate": v * budget_ms / p50,
+            "realtime_ok_p99": p99 < budget_ms, "oscillator_fwd_launches": launches, "peak": peak,
+            **traced,
+        })
+        print(json.dumps(rows[-1]), flush=True)
+        del pool, out
+        if on_card:
+            torch.cuda.empty_cache()
+    return {"budget_ms": budget_ms, "blocks": blocks, "include_reverb": include_reverb,
+            "rows": rows, **voices_per_card(rows)}
+
+
+def voices_per_card(rows) -> dict:
+    """The ramp's reading from its rows (ascending V): the largest V below
+    the first V whose p99 failed the budget, that V, and whether no V
+    failed (then the top of the grid is only a lower bound)."""
+    first_failed = next((r["voices"] for r in rows if not r["realtime_ok_p99"]), None)
+    passed = [r["voices"] for r in rows if first_failed is None or r["voices"] < first_failed]
+    return {"voices_per_card": passed[-1] if passed else 0,
+            "first_failed_voices": first_failed,
+            "voices_per_card_is_lower_bound": first_failed is None}
+
+
+def voices_per_card_text(ramp: dict) -> str:
+    """The ramp's voices per card as it reads: '≥ V' where no V failed."""
+    v = ramp["voices_per_card"]
+    if ramp["voices_per_card_is_lower_bound"]:
+        return f"≥ {v} (no V on the grid failed)"
+    return f"{v} (first failure at V={ramp['first_failed_voices']})"
+
+
+_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+
+def _device_kernels(prof):
+    """(the trace's device kernel events, their busy time in ms: the union
+    of their intervals)."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    return kernels, busy_us / 1e3
+
+
 def _union_us(intervals):
     total, end = 0.0, -np.inf
     for s, e in sorted(intervals):
@@ -60,13 +186,24 @@ def main(argv=None) -> dict:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--bundle", default="pretrained/ddsp_violin_bundle")
-    p.add_argument("--blocks", type=int, default=64)
+    p.add_argument("--blocks", type=int, default=None,
+                   help="blocks streamed (default 64; 200 a V in the voice ramp)")
+    p.add_argument("--voices", default=None,
+                   help="comma-separated voice counts: run the voice ramp (the grid chip_smoke.py "
+                        "runs: " + ",".join(map(str, RAMP_VOICES)) + ")")
+    p.add_argument("--reverb", action="store_true", help="voice ramp with the in-stream reverb")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.voices:
+        result = {"card": card_line(), "torch": torch.__version__, "bundle": args.bundle,
+                  **voice_ramp(args.bundle, [int(x) for x in args.voices.split(",") if x],
+                               blocks=args.blocks or 200, include_reverb=args.reverb)}
+        return _emit(result, args.out)
+    args.blocks = args.blocks or 64
 
     synth = make_streaming_synth(args.bundle, device="cuda")
     pitch, loud = glide(args.blocks, synth.block_size)
@@ -75,23 +212,17 @@ def main(argv=None) -> dict:
     untraced = _stream(synth, pitch, loud, args.blocks)
 
     synth.reset()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=_ACTIVITIES) as prof:
         t0 = time.perf_counter()
         _stream(synth, pitch, loud, args.blocks)
         traced_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, busy_ms = _device_kernels(prof)
     by_name = defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
-    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
     result = {
-        "card": card,
+        "card": card_line(),
         "torch": torch.__version__,
         "bundle": args.bundle,
         "blocks": args.blocks,
@@ -110,10 +241,14 @@ def main(argv=None) -> dict:
             for name, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])
         ],
     }
+    return _emit(result, args.out)
+
+
+def _emit(result: dict, out) -> dict:
     text = json.dumps(result, indent=1)
     print(text)
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             f.write(text)
     return result
 

@@ -1,9 +1,11 @@
 """L6a — stateful block-streaming inference.
 
-Port of ddsp_pytorch_tpu/streaming/__init__.py:29-303 for the decoder
-family.  A StreamState carries the GRU hidden state, the oscillator phase
-and the noise generator's state; each `step` renders one or more blocks
-and streamed output equals offline output (tests/test_torch_streaming.py).
+Port of ddsp_pytorch_tpu/streaming/__init__.py:29-386 for both model
+families.  A StreamState carries the GRU hidden state, the oscillator phase
+and the noise generator's state, plus the in-stream reverb's delay line
+and the encoder GRU's carry where those exist; each `step` renders one or
+more blocks and streamed output equals offline output
+(tests/test_torch_streaming.py, tests/test_torch_autoencoder.py).
 
 `step_stateless` is pure, as the JAX step is (it splits a key,
 streaming/__init__.py:125-128): the noise generator's state travels by
@@ -12,21 +14,28 @@ step builds a generator from it, draws, and returns the advanced bytes in
 the new state.  The state passed in is never mutated, so replaying a state
 repeats its audio and two holders of one state draw the same noise.
 
-Differences from the JAX version, by design:
-  * the noise is torch.Generator's stream, not jax.random's;
-  * steps run under torch.inference_mode();
-  * in-stream reverb and the masked VoicePool step are not ported yet
-    (ROADMAP.md §1).
+`step_stateless_masked` is the VoicePool's step (`:170-188`, `:245-259`):
+every row renders, but a row whose `active` is False keeps its GRU, phase,
+reverb and encoder carries bit for bit.  The noise generator is the
+batch's: it advances on every dispatch and draws (B, F, S) for all rows.
+
+Differences from the JAX version, by design: the noise is
+torch.Generator's stream, not jax.random's; steps run under
+torch.inference_mode().
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ddsp_pytorch_tpu_torch import resolve_device
+from ddsp_pytorch_tpu_torch.models.encoder import DDSPAutoencoder
+from ddsp_pytorch_tpu_torch.ops import partitioned_conv as pconv
+from ddsp_pytorch_tpu_torch.streaming.mfcc import StreamingMFCC  # noqa: F401
 
 
 @dataclass
@@ -34,17 +43,32 @@ class StreamState:
     gru: torch.Tensor  # (B, hidden) decoder GRU carry
     phase: torch.Tensor  # (B,) oscillator phase carry, radians in [0, 2π)
     noise_state: torch.Tensor  # uint8 state of the noise torch.Generator
+    reverb: Optional[pconv.ConvState] = None  # in-stream reverb's delay line
+    enc_gru: Optional[torch.Tensor] = None  # (B, hidden) encoder GRU carry (autoencoder)
+
+
+def _keep(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Rows of `new` where `active`, rows of `old` elsewhere."""
+    return torch.where(active.reshape(active.shape + (1,) * (new.dim() - 1)), new, old)
 
 
 class StreamingSynth:
-    """Block-streaming synthesizer around a DDSPDecoder with loaded weights.
+    """Block-streaming synthesizer around a DDSPDecoder or DDSPAutoencoder
+    with loaded weights.
 
-    `step(f0_frames, loudness_frames)` takes frame-rate controls (B, F, 1)
-    and returns (B, F·block_size) audio on the synth's device;
+    `step(f0_frames, loudness_frames[, mfcc_frames])` takes frame-rate
+    controls (B, F, 1) (and, for the autoencoder, MFCC frames (B, F,
+    n_mfcc)) and returns (B, F·block_size) audio on the synth's device;
     `step_samples(pitch, loudness)` takes sample-rate controls (B, n) and
     decimates them by block_size.  Loudness is normalized with the bundle's
     stats (streaming/__init__.py:127).
+
+    include_reverb=True applies the model's trained reverb in the stream:
+    its 1 s impulse (`Reverb.build_impulse`) as a partitioned convolution
+    (ops/partitioned_conv.py), whose delay line travels in the state.
     """
+
+    needs_audio = False  # AutoencoderStreamSession's is True
 
     def __init__(
         self,
@@ -54,6 +78,7 @@ class StreamingSynth:
         batch: int = 1,
         seed: int = 0,
         noise_deterministic: bool = False,  # zero noise: harmonic-only output
+        include_reverb: bool = False,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -63,18 +88,33 @@ class StreamingSynth:
         self.mean_loudness = float(mean_loudness)
         self.std_loudness = float(std_loudness)
         self.noise_deterministic = bool(noise_deterministic)
+        self.autoencoder = isinstance(model, DDSPAutoencoder)
         self._batch = int(batch)
+        self._pir = None
+        if include_reverb:
+            reverb = getattr(self.model, "reverb", None)
+            if reverb is None:
+                raise ValueError("include_reverb=True but the model has no reverb")
+            with torch.no_grad():
+                self._pir = pconv.partition_ir(reverb.build_impulse(), self.block_size)
         self.state = self.fresh_state(seed)
+
+    @property
+    def batch(self) -> int:
+        return self._batch
 
     def fresh_state(self, seed: int = 0) -> StreamState:
         """A new independent stream state (per-session state for servers
         that share this synth)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
+        carry = (self._batch, self.model.hidden_size)
         return StreamState(
-            gru=torch.zeros((self._batch, self.model.hidden_size), device=self.device),
+            gru=torch.zeros(carry, device=self.device),
             phase=torch.zeros((self._batch,), device=self.device),
             noise_state=gen.get_state(),
+            reverb=None if self._pir is None else pconv.init_state(self._pir, (self._batch,)),
+            enc_gru=torch.zeros(carry, device=self.device) if self.autoencoder else None,
         )
 
     def reset(self, seed: int = 0) -> None:
@@ -86,10 +126,10 @@ class StreamingSynth:
         # a copy: numpy inputs may be read-only views (np.frombuffer)
         return torch.tensor(np.asarray(x, np.float32), device=self.device)
 
-    def step_stateless(self, state: StreamState, f0_frames, loudness_frames):
-        """(state, controls (B, F, 1)) → (audio (B, F·S), new state).
-
-        Pure: `state` is left as it was."""
+    def _step(self, state: StreamState, f0_frames, loudness_frames, active=None, mfcc_frames=None):
+        if self.autoencoder and mfcc_frames is None:
+            raise ValueError("mfcc-autoencoder stream: pass mfcc frames (B, F, n_mfcc), "
+                             "e.g. from streaming/mfcc.py StreamingMFCC")
         f0 = self._as_f32(f0_frames)
         loudness = self._as_f32(loudness_frames)
         with torch.inference_mode():
@@ -107,14 +147,47 @@ class StreamingSynth:
                     - 1.0
                 )
                 noise_state = gen.get_state()
-            audio, gru, phase = self.model.streaming_step(
-                f0, loudness, state.gru, state.phase, noise
-            )
-        return audio, StreamState(gru=gru, phase=phase, noise_state=noise_state)
+            enc_gru = state.enc_gru
+            if self.autoencoder:
+                audio, enc_gru, gru, phase = self.model.streaming_step(
+                    f0, loudness, self._as_f32(mfcc_frames), state.enc_gru, state.gru, state.phase,
+                    noise,
+                )
+            else:
+                audio, gru, phase = self.model.streaming_step(
+                    f0, loudness, state.gru, state.phase, noise
+                )
+            reverb = state.reverb
+            if self._pir is not None:
+                audio, reverb = pconv.streaming_convolve(self._pir, state.reverb, audio)
+            if active is not None:
+                gru = _keep(active, gru, state.gru)
+                phase = _keep(active, phase, state.phase)
+                if enc_gru is not None:
+                    enc_gru = _keep(active, enc_gru, state.enc_gru)
+                if reverb is not None:
+                    reverb = pconv.ConvState(*(_keep(active, n, o) for n, o in zip(reverb, state.reverb)))
+        return audio, StreamState(gru=gru, phase=phase, noise_state=noise_state, reverb=reverb,
+                                  enc_gru=enc_gru)
 
-    def step(self, f0_frames, loudness_frames) -> torch.Tensor:
+    def step_stateless(self, state: StreamState, f0_frames, loudness_frames, mfcc_frames=None):
+        """(state, controls (B, F, 1)[, mfcc frames]) → (audio (B, F·S), new
+        state).  Pure: `state` is left as it was."""
+        return self._step(state, f0_frames, loudness_frames, mfcc_frames=mfcc_frames)
+
+    def step_stateless_masked(self, state: StreamState, f0_frames, loudness_frames, active,
+                              mfcc_frames=None):
+        """As step_stateless, but only the rows whose `active` (B,) is True
+        advance: the others keep their carries bit for bit, and their output
+        rows mean nothing.  The noise generator advances regardless."""
+        active = torch.as_tensor(np.asarray(active, bool), device=self.device)
+        if active.shape != (self._batch,):
+            raise ValueError(f"active must be ({self._batch},), got {tuple(active.shape)}")
+        return self._step(state, f0_frames, loudness_frames, active, mfcc_frames)
+
+    def step(self, f0_frames, loudness_frames, mfcc_frames=None) -> torch.Tensor:
         """Frame-rate controls (B, F, 1) → (B, F·block_size) audio."""
-        audio, self.state = self.step_stateless(self.state, f0_frames, loudness_frames)
+        audio, self.state = self.step_stateless(self.state, f0_frames, loudness_frames, mfcc_frames)
         return audio
 
     def step_samples(self, pitch, loudness) -> torch.Tensor:
@@ -131,3 +204,64 @@ class StreamingSynth:
         return self.step(
             pitch[:, :: self.block_size, None], loudness[:, :: self.block_size, None]
         )
+
+
+class AutoencoderStreamSession:
+    """Sample-rate streaming session for mfcc-autoencoder bundles
+    (streaming/__init__.py:306-386).
+
+    A (shared) StreamingSynth and a per-session causal MFCC extractor behind
+    the decoder's sample-rate contract, with exactly ONE block of output
+    latency: MFCC frame 0's reflect pad needs one sample beyond block 0, so
+    the output FIFO starts with a silent block and every response is the
+    previous block's render.
+
+    The render is pluggable: `step_fn(f0 (r, 1), loudness (r, 1), mfcc
+    (r, n_mfcc)) → (r·block,) host audio`.  The default owns a private
+    StreamState and calls `synth.step_stateless`; the server passes a
+    lock-scoped dispatch (voices = 1) or a VoicePool dispatch (voices > 1),
+    so the FIFOs and their one-block alignment live here only.  Not
+    thread-safe; callers serialize.
+    """
+
+    needs_audio = True
+
+    def __init__(self, synth: StreamingSynth, extractor, seed: int = 0, step_fn=None):
+        self.synth = synth
+        self.block_size = synth.block_size
+        self.sample_rate = synth.sample_rate
+        self._sm = extractor
+        if step_fn is None:
+            self.state = synth.fresh_state(seed=seed)
+            step_fn = self._default_step
+        self._step_fn = step_fn
+        self._frames = np.zeros((0, extractor.n_mfcc), np.float32)
+        self._ctrl = np.zeros((0, 2), np.float32)  # (f0, loudness) frames
+        self._out = np.zeros(self.block_size, np.float32)
+
+    def _default_step(self, f0, loud, mfcc) -> np.ndarray:
+        audio, self.state = self.synth.step_stateless(
+            self.state, f0[None], loud[None], mfcc_frames=mfcc[None]
+        )
+        return audio[0].cpu().numpy()
+
+    def step_samples(self, pitch, loudness, audio) -> np.ndarray:
+        """(n,) sample-rate pitch, loudness and input audio → (n,) output
+        audio, one block late; n must be a multiple of block_size."""
+        pitch = np.asarray(pitch, np.float32).reshape(-1)
+        loudness = np.asarray(loudness, np.float32).reshape(-1)
+        audio = np.asarray(audio, np.float32).reshape(-1)
+        n = len(pitch)
+        if n % self.block_size or len(loudness) != n or len(audio) != n:
+            raise ValueError(f"need equal-length inputs, n % block_size({self.block_size}) == 0")
+        self._frames = np.concatenate([self._frames, self._sm.push(audio[None])[0]])
+        ctrl = np.stack([pitch[:: self.block_size], loudness[:: self.block_size]], axis=1)
+        self._ctrl = np.concatenate([self._ctrl, ctrl])
+        r = min(len(self._frames), len(self._ctrl))
+        if r:
+            rendered = self._step_fn(self._ctrl[:r, :1], self._ctrl[:r, 1:], self._frames[:r])
+            self._frames = self._frames[r:]
+            self._ctrl = self._ctrl[r:]
+            self._out = np.concatenate([self._out, np.asarray(rendered, np.float32).reshape(-1)])
+        out, self._out = self._out[:n], self._out[n:]
+        return out

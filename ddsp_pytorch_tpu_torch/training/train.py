@@ -395,6 +395,12 @@ class Trainer:
     last fit's MultiStep (None when steps_per_call is 1)."""
 
     def __init__(self, config: Config, run_dir: str, *, device="cuda"):
+        if config.model.name != "single-inst-decoder":
+            raise NotImplementedError(
+                f"model {config.model.name!r}: the port trains the single-inst-decoder only; "
+                "training the mfcc-autoencoder (batches with mfcc) is not ported yet "
+                "(ROADMAP.md §1)"
+            )
         if config.mesh.time > 1 or config.mesh.data > 1:
             raise NotImplementedError(
                 f"mesh {config.mesh}: the port trains on one device; the data-parallel "

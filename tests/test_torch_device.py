@@ -17,15 +17,17 @@ import torch
 
 from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.config import Config
-from ddsp_pytorch_tpu_torch.export import export_run, load_bundle, make_streaming_synth
+from ddsp_pytorch_tpu_torch.export import export_run, load_bundle, make_stream_session, make_streaming_synth
 from ddsp_pytorch_tpu_torch.models import DDSPDecoder, init_params
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
+from ddsp_pytorch_tpu_torch.ops import roofline
 from ddsp_pytorch_tpu_torch.serve import StreamServer
 from ddsp_pytorch_tpu_torch.training import Trainer
 from ddsp_pytorch_tpu_torch.training.train import loss_and_grads
 
 BUNDLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "pretrained", "ddsp_violin_bundle")
+AE_BUNDLE = os.path.join(os.path.dirname(BUNDLE), "ddsp_violin_ae_bundle")
 
 
 @pytest.fixture
@@ -51,8 +53,12 @@ def cuda():
         lambda: load_bundle(BUNDLE),
         lambda: StreamServer(BUNDLE, port=0),
         lambda: export_run("a-run-directory"),
+        lambda: make_stream_session(AE_BUNDLE),
+        lambda: StreamServer(BUNDLE, port=0, voices=4),
+        lambda: StreamServer(AE_BUNDLE, port=0),
     ],
-    ids=["make_streaming_synth", "explicit-cuda0", "load_bundle", "StreamServer", "export_run"],
+    ids=["make_streaming_synth", "explicit-cuda0", "load_bundle", "StreamServer", "export_run",
+         "make_stream_session", "StreamServer-pool", "StreamServer-autoencoder"],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -363,3 +369,68 @@ def test_host_batch_stager_on_cuda(cuda):
         for k in batch:
             assert got[k].dtype == torch.float32 and torch.equal(got[k], want[k])
     assert len(stager._pinned) == 2
+
+
+def test_measurement_entry_points_need_a_card(no_cuda):
+    from ddsp_pytorch_tpu_torch import bench_roofline, profile_serving
+
+    for main, argv in ((bench_roofline.main, []), (profile_serving.main, ["--voices", "1,8"])):
+        with pytest.raises(SystemExit, match="CUDA"):
+            main(argv)
+
+
+@pytest.mark.cuda
+def test_roofline_probes_match_plain_on_cuda(cuda):
+    """Both probe kernels against their plain versions on the script's
+    input: the fma chain bit for bit (c rounds to 1, so one rounding of
+    c·s − p equals two), the sin chain within 1e-6 (sinf from two
+    libraries); each launch counted once; every block size the sweep
+    times gives the default's output bit for bit."""
+    x = roofline.probe_input(device=cuda)
+    for fn, plain, atol in ((roofline.fma_chain, roofline.fma_chain_plain, 0.0),
+                            (roofline.sin_chain, roofline.sin_chain_plain, 1e-6)):
+        before = fn.launches
+        got = fn(x)
+        assert fn.launches == before + 1
+        want = plain(x)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= atol
+        for threads in roofline.BLOCK_SIZES:
+            assert torch.equal(fn(x, threads=threads), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("include_reverb", [False, True], ids=["dry", "reverb"])
+def test_voice_pool_on_cuda_matches_cpu(cuda, include_reverb):
+    """A pool of 3 violin voices on the card against the same pool on the
+    CPU (deterministic noise): 1e-4, and 1e-3 of the peak, as chip_smoke.py."""
+    from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
+
+    pools = [VoicePool(make_streaming_synth(BUNDLE, batch=3, device=d, noise_deterministic=True,
+                                            include_reverb=include_reverb)) for d in (cuda, "cpu")]
+    slots = [[p.acquire() for _ in range(3)] for p in pools]
+    assert slots[0] == slots[1]
+    rng = np.random.default_rng(9)
+    before = osc.oscillator_bank.launches
+    err = peak = 0.0
+    for _ in range(8):
+        reqs = {s: (rng.uniform(200, 800, (1, 1)).astype(np.float32),
+                    rng.uniform(-9, -6, (1, 1)).astype(np.float32)) for s in slots[0]}
+        got, want = (p.step(reqs) for p in pools)
+        err = max(err, max(float(np.abs(got[s] - want[s]).max()) for s in reqs))
+        peak = max(peak, max(float(np.abs(got[s]).max()) for s in reqs))
+    assert osc.oscillator_bank.launches == before + 8
+    assert err <= 1e-4 and err <= 1e-3 * peak
+
+
+@pytest.mark.cuda
+def test_autoencoder_session_on_cuda_matches_cpu(cuda):
+    sessions = [make_stream_session(AE_BUNDLE, device=d, noise_deterministic=True) for d in (cuda, "cpu")]
+    t = np.arange(8 * 512) / 48000
+    x = (0.3 * np.sin(2 * np.pi * 330.0 * t)).astype(np.float32)
+    pitch, loud = np.full(512, 330.0, np.float32), np.full(512, -7.0, np.float32)
+    outs = [[s.step_samples(pitch, loud, x[i * 512:(i + 1) * 512]) for i in range(8)] for s in sessions]
+    got, want = np.concatenate(outs[0]), np.concatenate(outs[1])
+    peak = float(np.abs(got).max())
+    assert peak > 1e-3
+    assert float(np.abs(got - want).max()) <= min(1e-4, 1e-3 * peak)

@@ -17,7 +17,7 @@ from ddsp_pytorch_tpu.models.decoder import MLP as JaxMLP
 from ddsp_pytorch_tpu.models.decoder import DDSPDecoder as JaxDecoder
 from ddsp_pytorch_tpu.models.modules import Reverb as JaxReverb
 from ddsp_pytorch_tpu.streaming import init_stream_state
-from ddsp_pytorch_tpu_torch.models import DDSPDecoder, load_model
+from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder, DDSPDecoder, load_model
 from ddsp_pytorch_tpu_torch.models.decoder import GRU, MLP
 from ddsp_pytorch_tpu_torch.models.modules import Reverb
 from ddsp_pytorch_tpu_torch.weights import flax_to_state_dict
@@ -164,9 +164,10 @@ def test_mlp_layer_norm_epsilon():
 def test_load_model_registry():
     model = load_model("single-inst-decoder", dict(KW, use_pallas="auto"))
     assert isinstance(model, DDSPDecoder) and model.has_reverb
-    for name in ("mfcc-autoencoder", "no-such-model"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            load_model(name, {})
+    ae = load_model("mfcc-autoencoder", dict(KW, use_pallas="auto"))
+    assert isinstance(ae, DDSPAutoencoder) and ae.decoder.z_dim == 16
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        load_model("no-such-model", {})
 
 
 def _gru_frame_sliced(gru, x):
