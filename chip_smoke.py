@@ -76,11 +76,29 @@ is printed):
      harmonic input (audible, and its render p50/p99), then through
      StreamServer at voices = 1 and voices = 4 with 4 concurrent clients
      (pooled equals unpooled with deterministic noise);
- 12. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 12. autoencoder training (the path that made pretrained/ddsp_violin_ae_bundle):
+     train_pretrained.render_corpus renders the synthetic violin corpus on
+     the card (2 × 24 notes of 4 s at 48 kHz, MFCCs at the 0 dB
+     reference; one forward-kernel launch a partition), its first note
+     checked against the CPU plain render (audio 1e-4 of the peak, pitch
+     bitwise, loudness and MFCCs); Trainer.fit at
+     pretrained/ddsp_violin_ae_config.yaml (steps_per_call 25, batch 8,
+     device cache) for 100 steps, only its cache, steps and intervals
+     overridden: losses finite and falling, both kernels replayed inside
+     the graph on every step, the loss at steps 0 and 100 printed beside
+     pretrained/violin_ae_loss.json's; 10 AE steps graphed against 10
+     eager at configs/autoencoder.yaml's batch 16 (1e-6 relative), ms per
+     step, graph pool and peak memory of each; export_run on the 100-step
+     run (parameters bit for bit), the bundle streamed through
+     make_stream_session on the card against the CPU and served by a
+     StreamServer; the train_pretrained CLI for 25 steps into a temporary
+     --out; preprocess_folder (YIN) on two wav files written from the
+     corpus, one at 44.1 kHz, on the card against the CPU;
+ 13. report: one JSON line {"kernels": [...]} (all four kernels; launches by
      path: serving, training, training_graphed (host launches plus graph
-     replays), serving_exported, serving_pool, serving_autoencoder and, for
-     the probes, roofline), the card's name and power limit, and last
-     {"ok": true, "device": {...}}.
+     replays), serving_exported, serving_pool, serving_autoencoder,
+     synthetic, training_autoencoder and, for the probes, roofline), the
+     card's name and power limit, and last {"ok": true, "device": {...}}.
 
 Imports torch, numpy, the standard library and ddsp_pytorch_tpu_torch only.
 Exits nonzero when torch.cuda.is_available() is false.
@@ -103,10 +121,11 @@ import wave
 import numpy as np
 import torch
 
-from ddsp_pytorch_tpu_torch import bench_roofline, serve
+from ddsp_pytorch_tpu_torch import bench_roofline, serve, train_pretrained
 from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
-from ddsp_pytorch_tpu_torch.data import Datamodule, Dataset, DeviceDataLoader
+from ddsp_pytorch_tpu_torch.data import Datamodule, Dataset, DeviceDataLoader, make_synthetic_dataset
+from ddsp_pytorch_tpu_torch.data.preprocess import preprocess_folder
 from ddsp_pytorch_tpu_torch.export import (
     export_run,
     load_bundle,
@@ -122,7 +141,7 @@ from ddsp_pytorch_tpu_torch.kernel_bench import (
     sleep_cycles_per_ms,
     time_ms,
 )
-from ddsp_pytorch_tpu_torch.models import DDSPDecoder, init_params
+from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder, DDSPDecoder, init_params
 from ddsp_pytorch_tpu_torch.ops import fft_convolve, kernels, multiscale_fft, roofline
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 from ddsp_pytorch_tpu_torch.profile_serving import RAMP_VOICES, glide, voice_ramp, voices_per_card_text
@@ -139,6 +158,7 @@ from ddsp_pytorch_tpu_torch.training.train import (
     metrics_row,
     to_device,
 )
+from ddsp_pytorch_tpu_torch.utils import resample_poly, save_wav
 
 BUNDLE = "pretrained/ddsp_violin_bundle"
 SEED = 0
@@ -232,6 +252,25 @@ N_SERVER_VOICES = 4
 # pooled (batch 4) against unpooled (batch 1) sessions on the card: cuBLAS
 # may take other GEMM kernels at the two batch sizes
 POOLED_VS_UNPOOLED_ATOL = 1e-4
+AE_CONFIG = "configs/autoencoder.yaml"
+AE_VIOLIN_CONFIG = "pretrained/ddsp_violin_ae_config.yaml"
+JAX_AE_LOSS = "pretrained/violin_ae_loss.json"  # the JAX run that made the AE bundle
+AE_ITEMS = 24  # notes a partition, as scripts/train_pretrained.py renders
+N_AE_STEPS = 100
+AE_INTERVAL_EPOCHS = 10  # validation and best-params epochs of the 100-step run (3 steps an epoch)
+AE_CHECKPOINT_STEPS = 50
+N_CLI_STEPS = 25  # one graphed call of the train_pretrained CLI
+# the card's corpus against the CPU plain render of its first note: audio
+# within 1e-4 of the peak (the forward kernel against its plain version,
+# K = 48); loudness 1e-3 and MFCCs 1e-3 of their peak (cuFFT against
+# pocketfft on the same audio, tests/test_torch_synthetic.py)
+CORPUS_REL_OF_PEAK = 1e-4
+LOUDNESS_ATOL = 1e-3
+MFCC_REL_OF_PEAK = 1e-3
+# YIN on the card against the CPU: f0 within 1e-3 relative on all but 1 % of
+# the frames (a path may take another bin where costs tie within the two
+# FFT libraries' rounding, in near-silent frames)
+PITCH_RTOL, PITCH_FRAMES_AGREE = 1e-3, 0.99
 
 
 def check(cond: bool, msg: str) -> None:
@@ -285,6 +324,11 @@ def check_spills(name: str, log: str) -> None:
         check(len(fma_fn) == 1, f"fma probe not found in the SASS: {sorted(ffma)}")
         check(ffma[fma_fn[0]] >= PROBE_MIN_FFMA,
               f"fma probe has {ffma[fma_fn[0]]} FFMA in its SASS, fewer than {PROBE_MIN_FFMA}: folded")
+        sin = bench_roofline.sin_probe_sass(torch.device("cuda", 0))
+        print(f"sass roofline_sin_kernel fast path: {sin['fp32_per_element']} FP32 instructions an element, "
+              f"{sin['fp32_per_sinf']:.3f} a sinf (less the chain's {roofline.SIN_OTHER_PER_ELEMENT} adds and "
+              f"folds); opcodes {sin['fast_path_opcodes']}", flush=True)
+        check(sin["fp32_per_sinf"] > 1, f"sin probe fast path {sin}")
 
 
 def rel_err(got, want) -> float:
@@ -1149,9 +1193,14 @@ def phase_roofline(device, card: str, probe_checks: dict, kernel_ms: dict) -> li
     check(rates["fma_elems_per_s"] > 0 and rates["sin_elems_per_s"] > 0, "probe rates")
     n = rates["elements"]
     entries = []
+    print(f"roofline (card {card}): sin probe bound {1e3 * rates['sin_bound_ms']:.3f} us "
+          f"({rates['sin_bound_by']}: {rates['sin_sass']['fp32_per_element']} FP32 instructions an element "
+          f"on {rates['sin_sass']['sms']} SMs x {bench_roofline.LANES_PER_SM} lanes at "
+          f"{clocks['sm_mhz_max']:.0f} MHz); the probe reaches {100 * rates['sin_share_of_bound']:.1f} % of it",
+          flush=True)
     for name, line, ms, (bound_ms, bound_by) in (
             ("roofline_fma", 229, rates["fma_ms"], bench_roofline.fma_probe_bound(n)),
-            ("roofline_sin", 244, rates["sin_ms"], bench_roofline.sin_probe_bound(n))):
+            ("roofline_sin", 244, rates["sin_ms"], (rates["sin_bound_ms"], rates["sin_bound_by"]))):
         err, plain_ms = probe_checks[name]
         entries.append({
             "name": name,
@@ -1369,6 +1418,279 @@ def phase_autoencoder(device, card: str) -> int:
     return osc.oscillator_bank.launches
 
 
+def phase_ae_corpus(device, tmp: str) -> tuple:
+    """Phase 12a, with the kernel counts set to 0 just before it: the violin
+    AE corpus rendered on the card by train_pretrained.render_corpus; its
+    first note against the CPU plain render of the same draws.  Returns
+    (the cache directory, oscillator_fwd's launches)."""
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    cache = train_pretrained.render_corpus(tmp, "violin", True, AE_ITEMS, device)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = osc.oscillator_bank.launches
+    train = {n: np.load(os.path.join(cache, "train", f"{n}.npy")) for n in ("signals", "pitchs", "loudness", "mfccs")}
+    # the first note of the train partition: the first draws of the seed
+    cpu = make_synthetic_dataset(
+        os.path.join(tmp, "corpus_cpu"), n_items=1, sample_rate=train_pretrained.SAMPLE_RATE,
+        signal_length=train_pretrained.SIGNAL_LENGTH, block_size=train_pretrained.BLOCK_SIZE,
+        n_harmonic=train_pretrained.CORPUS_HARMONICS, instrument="violin", mfcc_ref_db=0.0,
+        seed=train_pretrained.corpus_seed("violin"), partitions=("train",), device="cpu")
+    peak = float(np.abs(cpu["signals"][0]).max())
+    sig_err = float(np.abs(train["signals"][0] - cpu["signals"][0]).max())
+    loud_err = float(np.abs(train["loudness"][0] - cpu["loudness"][0]).max())
+    mf_peak = float(np.abs(cpu["mfccs"][0]).max())
+    mf_err = float(np.abs(train["mfccs"][0] - cpu["mfccs"][0]).max())
+    print(f"AE corpus ({AE_ITEMS} x 2 violin notes of {train_pretrained.SIGNAL_LENGTH} samples at "
+          f"{train_pretrained.SAMPLE_RATE} Hz, {train_pretrained.CORPUS_HARMONICS} harmonics, rows "
+          f"{AE_ITEMS * train_pretrained.SIGNAL_LENGTH // train_pretrained.BLOCK_SIZE} a partition) rendered "
+          f"on the card in {render_s:.3f} s, oscillator_fwd launches={launches}; shapes "
+          f"{ {n: a.shape for n, a in train.items()} }; first note vs the CPU plain render: "
+          f"max|signal|={sig_err:.3e} (peak {peak:.4f}, {sig_err / peak:.3e} of it), pitch bitwise "
+          f"{bool(np.array_equal(train['pitchs'][0], cpu['pitchs'][0]))}, max|loudness|={loud_err:.3e}, "
+          f"max|mfcc|={mf_err:.3e} (peak {mf_peak:.2f})", flush=True)
+    check(launches == 2, f"the corpus took {launches} forward launches, not one a partition")
+    check(train["signals"].shape == (AE_ITEMS, train_pretrained.SIGNAL_LENGTH)
+          and train["mfccs"].shape == (AE_ITEMS, train_pretrained.SIGNAL_LENGTH // train_pretrained.BLOCK_SIZE + 1, 30)
+          and all(bool(np.isfinite(a).all()) for a in train.values()), "AE corpus arrays")
+    check(np.array_equal(train["pitchs"][0], cpu["pitchs"][0]), "corpus pitch differs from the CPU's")
+    check(sig_err <= CORPUS_REL_OF_PEAK * peak, f"corpus audio vs CPU {sig_err} (peak {peak})")
+    check(loud_err <= LOUDNESS_ATOL and mf_err <= MFCC_REL_OF_PEAK * mf_peak,
+          f"corpus features vs CPU: loudness {loud_err}, mfcc {mf_err}")
+    return cache, launches
+
+
+def phase_ae_run(device, cache: str, tmp: str) -> tuple:
+    """Phase 12b, with the kernel counts set to 0 just before it: Trainer.fit
+    at pretrained/ddsp_violin_ae_config.yaml for N_AE_STEPS steps (its cache,
+    steps and intervals overridden).  Returns ({kernel: launches on this
+    path}, the run directory)."""
+    cfg = Config.from_yaml(AE_VIOLIN_CONFIG)
+    cfg.apply_overrides([
+        f"preprocess.out_dir={cache}", f"train.steps={N_AE_STEPS}",
+        f"train.val_interval_epochs={AE_INTERVAL_EPOCHS}", f"train.log_interval_epochs={AE_INTERVAL_EPOCHS}",
+        f"train.checkpoint_every_steps={AE_CHECKPOINT_STEPS}",
+    ])
+    run_dir = os.path.join(tmp, "run_violin_ae")
+    dm = Datamodule(cfg, device_cache=True, device=device)
+    dm.setup()
+    trainer = Trainer(cfg, run_dir, device=device)
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    trainer.close()
+    counts = {name: (w.launches, w.captured, w.replayed) for name, w in osc.KERNEL_WRAPPERS.items()}
+    multi = trainer._multi_step
+    losses = [v for _, v in read_metrics(run_dir, "loss")]
+    skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
+    sps = read_metrics(run_dir, "steps_per_s")
+    window = read_metrics(run_dir, "train_window_steps_per_s")
+    val = read_metrics(run_dir, "loss/val")
+    with open(JAX_AE_LOSS) as f:
+        jax_curve = json.load(f)["loss_curve_every_100"]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(
+        f"violin AE run ({AE_VIOLIN_CONFIG}: steps_per_call {cfg.train.steps_per_call}, scan_unroll "
+        f"{cfg.train.scan_unroll}, batch {cfg.train.batch} x {cfg.n_frames} frames, device cache): {state.step} "
+        f"steps in {fit_s:.2f} s; steps_per_s {[round(v, 4) for _, v in sps]}; train window "
+        f"{window[-1][1]:.4f} steps/s; capture+instantiate s={multi.capture_s:.3f}, graph pool bytes="
+        f"{multi.pool_bytes}, replays={multi.replays}; loss first5={first5:.5f} last5={last5:.5f} factor="
+        f"{first5 / last5:.4f}; val={[round(v, 5) for _, v in val]}; kernel counts (launches, captured, "
+        f"replayed) {counts}; eval_forwards={trainer.eval_forwards}", flush=True)
+    print(f"violin AE loss at step 1: {losses[0]:.5f} and step {N_AE_STEPS}: {losses[N_AE_STEPS - 1]:.5f} "
+          f"(the JAX run of {JAX_AE_LOSS}, other initial weights: {jax_curve[0]:.5f} and {jax_curve[1]:.5f}); "
+          "curve: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    check(state.step == N_AE_STEPS and len(losses) == N_AE_STEPS, "AE steps run")
+    check(all(np.isfinite(losses)) and sum(skipped) == 0, "AE run: a loss not finite or a skip")
+    check(first5 >= LOSS_FALL_FACTOR * last5,
+          f"AE run: loss did not fall by {LOSS_FALL_FACTOR}x: first5 {first5} last5 {last5}")
+    check(multi.replays == N_AE_STEPS // cfg.train.scan_unroll, f"AE replays {multi.replays}")
+    for name, (_, captured, replayed) in counts.items():
+        check(captured == cfg.train.scan_unroll and replayed == N_AE_STEPS,
+              f"{name} captured {captured}, replayed {replayed}x in {N_AE_STEPS} graphed AE steps")
+    del trainer, state, multi, dm
+    torch.cuda.empty_cache()
+    return {name: launches + replayed for name, (launches, _, replayed) in counts.items()}, run_dir
+
+
+def phase_ae_graphed_vs_eager(device, cache: str, card: str) -> None:
+    """Phase 12c: the AE train step as a CUDA graph (U = 1) against eager
+    steps at configs/autoencoder.yaml's full width (batch 16 x 375 frames),
+    from one state on the same N_GRAPH_STEPS batches of the device-resident
+    corpus: per-step losses and every leaf within GRAPHED_REL; ms per step,
+    synced, for both; the graph pool and the peak memory of each."""
+    cfg = Config.from_yaml(AE_CONFIG)
+    loader = DeviceDataLoader(Dataset(os.path.join(cache, "train")), cfg.train.batch, shuffle=True,
+                              drop_last=True, seed=SEED, device=device)
+    idx2d = []
+    for epoch in range(N_GRAPH_STEPS):
+        loader.set_epoch(epoch)
+        idx2d += list(loader.index_batches())
+    idx2d = np.stack(idx2d[:N_GRAPH_STEPS])
+    base = init_params(DDSPAutoencoder(**cfg.model.kwargs), torch.Generator().manual_seed(SEED)).to(device)
+    mean, std = loader.loudness_stats()
+
+    def fresh():
+        model = copy.deepcopy(base)
+        tx = make_optimizer(cfg)
+        state = TrainState(0, model, tx.init([q for _, q in model.named_parameters()]),
+                           torch.Generator(device).manual_seed(SEED + 20), mean, std)
+        return model, tx, state
+
+    model_e, tx_e, state_e = fresh()
+    step = make_train_step(model_e, tx_e, cfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    eager = torch.stack([metrics_row(step(state_e, loader.take(i))) for i in idx2d]).cpu()
+    eager_peak = torch.cuda.max_memory_allocated(device)
+    model_g, tx_g, state_g = fresh()
+    multi = make_train_multi_step_indexed(model_g, tx_g, cfg, N_GRAPH_STEPS, 1)
+    torch.cuda.reset_peak_memory_stats(device)
+    graphed = multi(state_g, loader.device_data, idx2d).cpu()
+    peak = torch.cuda.max_memory_allocated(device)
+    loss_rel = rel_err(graphed[:, 0], eager[:, 0])
+    leaf = _leaf_rel(model_g, model_e)
+    worst = max(leaf, key=leaf.get)
+    bitwise = torch.equal(graphed, eager) and all(
+        torch.equal(x, y) for x, y in zip(model_g.parameters(), model_e.parameters()))
+    call_ms = []
+    for _ in range(N_TIMED_CALLS):
+        t1 = time.perf_counter()
+        multi(state_g, loader.device_data, idx2d)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t1) * 1e3)
+    graphed_ms = float(np.median(call_ms)) / N_GRAPH_STEPS
+    eager_ms = []
+    for i in range(N_TIMED_EAGER):
+        batch = loader.take(idx2d[i % N_GRAPH_STEPS])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(state_e, batch)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+    print(
+        f"AE graphed vs eager step ({AE_CONFIG} full width, batch {cfg.train.batch} x {cfg.n_frames} frames, "
+        f"{N_GRAPH_STEPS} steps, U=1): per-step loss max rel {loss_rel:.3e}; worst leaf {worst} rel "
+        f"{leaf[worst]:.3e}; bitwise equal: {bitwise}; capture+instantiate s={multi.capture_s:.3f}; graph pool "
+        f"bytes={multi.pool_bytes} peak bytes={peak} (eager peak {eager_peak}); captured per graph "
+        f"{multi.captured}; graphed ms/step (median of {N_TIMED_CALLS} synced calls of {N_GRAPH_STEPS}) = "
+        f"{graphed_ms:.3f}; eager ms/step (median of {N_TIMED_EAGER} synced steps) = "
+        f"{float(np.median(eager_ms)):.3f} (min {min(eager_ms):.3f} max {max(eager_ms):.3f}); card {card}",
+        flush=True)
+    check(loss_rel <= GRAPHED_REL, f"AE graphed vs eager loss rel {loss_rel}")
+    check(leaf[worst] <= GRAPHED_REL, f"AE graphed vs eager {worst} rel {leaf[worst]}")
+    check(multi.captured == {"oscillator_fwd": 1, "oscillator_bwd": 1}, f"AE captured {multi.captured}")
+    del multi, model_g, state_g, model_e, state_e, base, loader
+    torch.cuda.empty_cache()
+
+
+def phase_ae_export_serve(device, run_dir: str, cache: str, tmp: str) -> int:
+    """Phase 12d: export_run on the AE run (its parameters bit for bit), the
+    bundle through make_stream_session on the card against the CPU on a
+    validation note of the corpus, and one StreamServer client's requests.
+    Then the train_pretrained CLI for N_CLI_STEPS steps on the same corpus,
+    into a temporary --out.  Returns oscillator_fwd's launches while
+    serving the bundle."""
+    out_dir = os.path.join(tmp, "export_ae")
+    bundle = export_run(run_dir, out_dir, name="smoke_ae", device=device)
+    exported = load_bundle(bundle, device="cpu")[0].state_dict()
+    trained = run_params(run_dir)
+    check(exported.keys() == trained.keys() and all(torch.equal(exported[k], trained[k]) for k in trained),
+          "the exported AE parameters differ from the run's")
+    gpu = make_stream_session(bundle, device=device, noise_deterministic=True)
+    cpu = make_stream_session(bundle, device="cpu", noise_deterministic=True)
+    block = gpu.block_size
+    val = {n: np.load(os.path.join(cache, "validation", f"{n}.npy"))[0] for n in ("signals", "pitchs", "loudness")}
+    # N_BLOCKS frames from the middle of the note (past its attack), its
+    # controls and its audio
+    start = (val["pitchs"].shape[0] - N_BLOCKS) // 2
+    pitch, loud = (np.repeat(val[k][start:start + N_BLOCKS], block) for k in ("pitchs", "loudness"))
+    audio = val["signals"][start * block:(start + N_BLOCKS) * block]
+
+    def sl(i):
+        return slice(i * block, (i + 1) * block)
+
+    osc.reset_kernel_counts()
+    got = np.concatenate([gpu.step_samples(pitch[sl(i)], loud[sl(i)], audio[sl(i)]) for i in range(N_BLOCKS)])
+    streamed = osc.oscillator_bank.launches
+    want = np.concatenate([cpu.step_samples(pitch[sl(i)], loud[sl(i)], audio[sl(i)]) for i in range(N_BLOCKS)])
+    err, peak = float(np.abs(got - want).max()), float(np.abs(got).max())
+    server = serve.StreamServer(bundle, port=0, device=device)
+    server.start()
+    try:
+        client = serve.StreamClient(*server.address)
+        served_audio = [client.render(pitch[sl(i)], loud[sl(i)], audio[sl(i)]) for i in range(4)]
+        client.close()
+    finally:
+        server.stop()
+    served = osc.oscillator_bank.launches - streamed
+    print(f"exported AE bundle {os.path.basename(bundle)}: parameters equal to the run's; {N_BLOCKS} blocks from "
+          f"the middle of a validation note through make_stream_session on the card vs the CPU: max|gpu-cpu|={err:.3e} "
+          f"peak={peak:.3e}; first block silent {bool(np.all(got[:block] == 0))}; oscillator_fwd launches="
+          f"{streamed}; server: 4 requests, {served} launches, peak "
+          f"{max(float(np.abs(a).max()) for a in served_audio):.3e}", flush=True)
+    check(bool(np.isfinite(got).all()) and np.all(got[:block] == 0) and peak > 0, "exported AE stream")
+    check(err <= STREAM_GPU_VS_CPU_ATOL and err <= EXPORT_STREAM_REL_OF_PEAK * peak,
+          f"exported AE bundle gpu vs cpu {err} (peak {peak})")
+    check(streamed >= N_BLOCKS - 1 and served > 0, f"AE stream launches {streamed}, {served}")
+    for a in served_audio:
+        check(a.shape == (block,) and bool(np.isfinite(a).all()), "AE server response")
+
+    cli_out = os.path.join(tmp, "train_pretrained_out")
+    t0 = time.perf_counter()
+    cli_bundle = train_pretrained.main(["--model", "mfcc-autoencoder", "--instrument", "violin",
+                                        "--steps", str(N_CLI_STEPS), "--root", tmp, "--out", cli_out,
+                                        "--device", "cuda"])
+    files = sorted(os.listdir(cli_out))
+    print(f"train_pretrained CLI ({N_CLI_STEPS} steps on the rendered corpus) in "
+          f"{time.perf_counter() - t0:.2f} s: wrote {files} under a temporary --out", flush=True)
+    check(files == ["ddsp_violin_ae_bundle", "ddsp_violin_ae_config.yaml", "ddsp_violin_ae_impulse.wav",
+                    "violin_ae_loss.json"] and cli_bundle == os.path.join(cli_out, "ddsp_violin_ae_bundle"),
+          f"train_pretrained outputs {files}")
+    torch.cuda.empty_cache()
+    return streamed + served
+
+
+def phase_ae_preprocess(device, cache: str, tmp: str) -> None:
+    """Phase 12e: preprocess_folder (YIN) at the AE config on two wav files
+    written from the corpus, one at 44.1 kHz (resampled on load), on the
+    card against the CPU plain path."""
+    sr = train_pretrained.SAMPLE_RATE
+    notes = np.load(os.path.join(cache, "validation", "signals.npy"))[:2]
+    os.makedirs(os.path.join(tmp, "wavs", "train"))
+    save_wav(os.path.join(tmp, "wavs", "train", "a.wav"), notes[0], sr)
+    save_wav(os.path.join(tmp, "wavs", "train", "b.wav"), resample_poly(notes[1], 147, 160), 44100)
+    out = {}
+    for side in ("cuda", "cpu"):
+        cfg = Config.from_yaml(AE_VIOLIN_CONFIG)
+        cfg.apply_overrides([f"preprocess.out_dir={os.path.join(tmp, 'pre_' + side)}",
+                             f"data.data_location={os.path.join(tmp, 'wavs')}"])
+        t0 = time.perf_counter()
+        preprocess_folder(cfg.data.data_location, "train", cfg, device=device if side == "cuda" else "cpu")
+        secs = time.perf_counter() - t0
+        out[side] = {n: np.load(os.path.join(cfg.preprocess.out_dir, "train", f"{n}.npy"))
+                     for n in ("signals", "pitchs", "loudness", "mfccs")}
+        print(f"preprocess (pitch_tracker {cfg.preprocess.pitch_tracker}) of 2 files on the {side}: {secs:.3f} s",
+              flush=True)
+    gpu, cpu = out["cuda"], out["cpu"]
+    agree = float(np.mean(np.abs(gpu["pitchs"] / cpu["pitchs"] - 1.0) <= PITCH_RTOL))
+    loud_err = float(np.abs(gpu["loudness"] - cpu["loudness"]).max())
+    mf_peak = float(np.abs(cpu["mfccs"]).max())
+    mf_err = float(np.abs(gpu["mfccs"] - cpu["mfccs"]).max())
+    print(f"preprocess on the card vs the CPU: shapes { {n: a.shape for n, a in gpu.items()} }; signals equal "
+          f"{bool(np.array_equal(gpu['signals'], cpu['signals']))}; f0 within {PITCH_RTOL} on {100 * agree:.2f} % "
+          f"of frames (max rel {float(np.abs(gpu['pitchs'] / cpu['pitchs'] - 1).max()):.3e}; median f0 "
+          f"{float(np.median(gpu['pitchs'])):.2f} Hz); max|loudness|={loud_err:.3e}; max|mfcc|={mf_err:.3e} "
+          f"(peak {mf_peak:.2f})", flush=True)
+    check(gpu["signals"].shape == (2, train_pretrained.SIGNAL_LENGTH)
+          and np.array_equal(gpu["signals"], cpu["signals"]), "preprocess signals")
+    check(all(bool(np.isfinite(a).all()) for a in gpu.values()), "preprocess arrays not finite")
+    check(agree >= PITCH_FRAMES_AGREE, f"YIN on the card agrees with the CPU on {agree} of frames")
+    check(loud_err <= LOUDNESS_ATOL and mf_err <= MFCC_REL_OF_PEAK * mf_peak,
+          f"preprocess features vs CPU: loudness {loud_err}, mfcc {mf_err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1414,15 +1736,25 @@ def main() -> int:
     check(pool_fwd > 0, "oscillator_fwd not launched on the pooled serving path")
     ae_fwd = phase_autoencoder(device, card)
     check(ae_fwd > 0, "oscillator_fwd not launched on the autoencoder serving path")
-    fwd_entry["launches"] = graphed["oscillator_fwd"]
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_ae_") as tmp:
+        ae_cache, synthetic_fwd = phase_ae_corpus(device, tmp)
+        ae_train, ae_run_dir = phase_ae_run(device, ae_cache, tmp)
+        check(all(n > 0 for n in ae_train.values()), "a kernel was not launched on the AE training path")
+        phase_ae_graphed_vs_eager(device, ae_cache, card)
+        phase_ae_export_serve(device, ae_run_dir, ae_cache, tmp)
+        phase_ae_preprocess(device, ae_cache, tmp)
+    # launches: this slice's main path, the autoencoder trained in the graph
+    fwd_entry["launches"] = ae_train["oscillator_fwd"]
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
                                      "serving_exported": exported_fwd, "serving_pool": pool_fwd,
-                                     "serving_autoencoder": ae_fwd}
-    bwd_entry["launches"] = graphed["oscillator_bwd"]
+                                     "serving_autoencoder": ae_fwd, "synthetic": synthetic_fwd,
+                                     "training_autoencoder": ae_train["oscillator_fwd"]}
+    bwd_entry["launches"] = ae_train["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
-                                     "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0}
+                                     "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0,
+                                     "synthetic": 0, "training_autoencoder": ae_train["oscillator_bwd"]}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)

@@ -1,16 +1,21 @@
 """ddsp_pytorch_tpu_torch — the PyTorch/CUDA port of ddsp_pytorch_tpu.
 
 The JAX package `ddsp_pytorch_tpu` is the reference; this package restates
-its serving path in PyTorch for an NVIDIA Hopper GPU:
+it in PyTorch for an NVIDIA Hopper GPU, slice by slice (ROADMAP.md):
 
-  bundle.py     flax msgpack + meta.json bundle reader (stdlib + numpy)
-  weights.py    flax parameter tree → this package's state_dict
-  ops/          L0 DSP core: oscillator bank (hand-written CUDA kernel on
-                CUDA tensors, plain PyTorch on CPU tensors), FIR noise, FFTs
-  models/       L1+L2 HarmonicSynth / FilteredNoise / Reverb, GRU decoder
-  streaming/    L6a exact-state block streaming
-  export.py     bundle → model → StreamingSynth
+  bundle.py     flax msgpack + meta.json bundle reader and writer
+  weights.py    flax parameter tree ↔ this package's state_dict
+  ops/          L0 DSP core: oscillator bank (hand-written CUDA kernels on
+                CUDA tensors, plain PyTorch on CPU tensors), FIR noise,
+                FFTs, MFCCs, loudness, YIN pitch
+  models/       L1+L2 HarmonicSynth / FilteredNoise / Reverb, GRU decoder,
+                MFCC encoder and autoencoder
+  data/         feature cache loaders, synthetic corpus, preprocessing
+  training/     loss, optimizer, checkpoints, the Trainer (CUDA graphs)
+  streaming/    L6a exact-state block streaming, the VoicePool
+  export.py     trained run → bundle → model → stream session
   serve.py      socket server, wire-compatible with ddsp_pytorch_tpu.serve
+  train.py, preprocess.py, train_pretrained.py: the CLIs
 
 It imports torch, numpy and the standard library only — never jax, flax,
 msgpack, yaml or ddsp_pytorch_tpu.  Entry points take an explicit `device`

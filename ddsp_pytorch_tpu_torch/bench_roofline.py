@@ -12,11 +12,12 @@ and `add_vpu_model` (`:211-331`).  Two parts:
     at every block size of roofline.BLOCK_SIZES (each checked equal to the
     default's output); the fastest is the probe's rate.  FMA/s = elements ×
     (2·256 + 3) / time, FP32 TFLOP/s = 2 × FMA/s against the published 67
-    TFLOP/s, sinf/s = elements × 32 / time; each beside its own bound (the
-    fma probe's is its operations; the sin probe's, with a sinf counted as
-    one FP32 instruction, the least it could cost, is its bytes).  Then the
-    fma probe runs for CLOCK_WINDOW_S while a thread polls nvidia-smi: the
-    SM clock and power draw under its load (67 TFLOP/s is 132 SMs × 128
+    TFLOP/s, sinf/s = elements × 32 / time; each beside its own bound.  The
+    fma probe's is its operations.  The sin probe's is its FP32
+    instructions, counted on the fast path of its SASS (`cuobjdump`; each
+    accurate sinf is ~17 of them), over the SMs' FP32 lanes at the highest
+    SM clock polled below.  The fma probe runs for CLOCK_WINDOW_S while a
+    thread polls nvidia-smi: the SM clock and power draw under its load (67 TFLOP/s is 132 SMs × 128
     lanes × 2 flops at 1.98 GHz);
   * for each oscillator kernel at the main path's shapes (R = 1 and 2, the
     served rows of one and two voices; 1024 and 2048, pools of the voice
@@ -37,13 +38,16 @@ the probes.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import re
 
 import numpy as np
 import torch
 
 from ddsp_pytorch_tpu_torch.kernel_bench import (
     PEAK_FP32_FLOPS,
+    PEAK_HBM_BYTES,
     bound,
     card_line,
     clocks_under_load,
@@ -58,6 +62,14 @@ from ddsp_pytorch_tpu_torch.ops import roofline
 OSCILLATOR_SHAPES = ((1, 64, 512), (2, 64, 512), (1024, 64, 512), (2048, 64, 512),
                      (3000, 64, 512), (6000, 64, 512))
 PROBE_ITERS = 50
+# FP32 lanes an SM of an H100 (67 TFLOP/s = 132 SMs × 128 × 2 × 1.98 GHz)
+LANES_PER_SM = 128
+# SASS opcodes counted as FP32 instructions: arithmetic, compare and select,
+# and the float ↔ int conversions of sinf's range reduction
+FP32_OPCODES = frozenset({"FADD", "FMUL", "FFMA", "FSEL", "FSET", "FSETP", "FMNMX", "FRND", "F2I", "I2F",
+                          "I2FP"})
+# one SASS instruction: /*addr*/, an optional predicate, the opcode, operands
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 CLOCK_WINDOW_S = 2.0  # seconds of fma probes while nvidia-smi is polled
 
 
@@ -67,10 +79,64 @@ def fma_probe_bound(n: int):
     return bound(8 * n, 2 * roofline.FMA_PER_ELEMENT * n)
 
 
-def sin_probe_bound(n: int):
-    """(bound_ms, bound_by) of the sin probe: each sinf counted as one FP32
-    instruction (2 flops at the FMA rate), with the adds and the fold."""
-    return bound(8 * n, 2 * (roofline.SIN_PER_ELEMENT + roofline.SIN_OTHER_PER_ELEMENT) * n)
+def sass_fast_path(text: str) -> collections.Counter:
+    """Opcode counts (the mnemonic before its first '.') of a kernel
+    function's SASS (`kernels.sass`) along its fast path: every
+    instruction, except those a forward conditional branch skips over when
+    the skipped region holds a loop (a backward branch).  In the sin probe
+    each accurate sinf has such a region, its Payne-Hanek reduction for
+    |x| ≥ 105615, which the probe's inputs (all below 2) never take."""
+    ins = [(int(m.group(1), 16), bool(m.group(2)), m.group(3).split(".")[0], m.group(4))
+           for m in _SASS_LINE.finditer(text)]
+    index = {addr: i for i, (addr, _, _, _) in enumerate(ins)}
+
+    def target(i):
+        m = re.search(r"0x([0-9a-f]+)", ins[i][3])
+        return int(m.group(1), 16) if m and ins[i][2] == "BRA" else None
+
+    counts = collections.Counter()
+    i = 0
+    while i < len(ins):
+        addr, predicated, op, _ = ins[i]
+        to = target(i)
+        if predicated and to is not None and to > addr and to in index:
+            j = index[to]
+            if any(target(k) is not None and target(k) <= ins[k][0] for k in range(i + 1, j)):
+                i = j
+                continue
+        counts[op] += 1
+        i += 1
+    return counts
+
+
+def fp32_instructions(counts: collections.Counter) -> int:
+    """The FP32 instructions among SASS opcode counts (FP32_OPCODES)."""
+    return sum(n for op, n in counts.items() if op in FP32_OPCODES)
+
+
+def sin_probe_bound(n: int, fp32_per_element: int, sms: int, sm_mhz: float):
+    """(bound_ms, bound_by) of the sin probe on n elements: the larger of its
+    8 bytes an element over the HBM rate and its FP32 instructions
+    (`fp32_per_element`, counted on the fast path of its SASS) over the
+    card's FP32 issue rate, sms × LANES_PER_SM lanes at `sm_mhz`."""
+    t_bytes = 8 * n / PEAK_HBM_BYTES
+    t_ops = fp32_per_element * n / (sms * LANES_PER_SM * sm_mhz * 1e6)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sin_probe_sass(device) -> dict:
+    """The sin probe's fast-path SASS counts: its FP32 instructions an
+    element and, less the chain's own adds and folds, a sinf."""
+    from ddsp_pytorch_tpu_torch.ops import kernels
+
+    text = [t for fn, t in kernels.sass("roofline_probe").items() if "roofline_sin_kernel" in fn]
+    if len(text) != 1:
+        raise RuntimeError("the sin probe's function was not found in the SASS")
+    counts = sass_fast_path(text[0])
+    fp32 = fp32_instructions(counts)
+    return {"fast_path_opcodes": dict(counts), "fp32_per_element": fp32,
+            "fp32_per_sinf": (fp32 - roofline.SIN_OTHER_PER_ELEMENT) / roofline.SIN_PER_ELEMENT,
+            "sms": torch.cuda.get_device_properties(device).multi_processor_count}
 
 
 def _sweep(probe, x, cycles_per_ms: float) -> dict:
@@ -99,7 +165,10 @@ def measure_probe_rates(device, cycles_per_ms: float) -> dict:
     fma_per_s = n * roofline.FMA_PER_ELEMENT / (fma_ms * 1e-3)
     sin_per_s = n * roofline.SIN_PER_ELEMENT / (sin_ms * 1e-3)
     fma_bound_ms, _ = fma_probe_bound(n)
-    sin_bound_ms, _ = sin_probe_bound(n)
+    sin_sass = sin_probe_sass(device)
+    # the highest SM clock seen under load: the fastest the card ran
+    sin_bound_ms, sin_bound_by = sin_probe_bound(n, sin_sass["fp32_per_element"], sin_sass["sms"],
+                                                 clocks["sm_mhz_max"])
     return {
         "elements": n,
         "fma_ops_per_elem": roofline.FMA_PER_ELEMENT,
@@ -115,6 +184,9 @@ def measure_probe_rates(device, cycles_per_ms: float) -> dict:
         "sin_threads": sin_threads,
         "sin_ms": sin_ms,
         "sin_bound_ms": sin_bound_ms,
+        "sin_bound_by": sin_bound_by,
+        "sin_share_of_bound": sin_bound_ms / sin_ms,
+        "sin_sass": sin_sass,
         "sin_elems_per_s": sin_per_s,
         "fp32_peak_tflops": PEAK_FP32_FLOPS / 1e12,
         "clocks_under_fma_load": clocks,

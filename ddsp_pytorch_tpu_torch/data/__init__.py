@@ -1,5 +1,5 @@
-"""Feature cache and loaders (port of ddsp_pytorch_tpu.data, the part the
-training path reads)."""
+"""Feature cache, loaders, the synthetic corpus and preprocessing (port of
+ddsp_pytorch_tpu.data without the sigmund, nsynth and fixture ingestion)."""
 
 from ddsp_pytorch_tpu_torch.data.dataset import (  # noqa: F401
     DataLoader,
@@ -8,3 +8,5 @@ from ddsp_pytorch_tpu_torch.data.dataset import (  # noqa: F401
     Dataset,
     dict_collate,
 )
+from ddsp_pytorch_tpu_torch.data.preprocess import preprocess_folder  # noqa: F401
+from ddsp_pytorch_tpu_torch.data.synthetic import INSTRUMENTS, make_synthetic_dataset  # noqa: F401

@@ -1,12 +1,13 @@
 """Cached feature dataset and loaders.
 
 Port of ddsp_pytorch_tpu/data/dataset.py:20-299 on one host: the Dataset
-over memory-mapped `.npy` arrays (signals, pitchs, loudness; the mfccs the
-autoencoder reads wait with it), a dict collate, a DataLoader whose per-epoch shuffle is a function
-of (seed, epoch) — the same numpy generator as the JAX loader, so the two
-give the same order — the DeviceDataLoader, which uploads the whole cache
-once and gathers batches on the device in that same order, and the
-train/validation Datamodule.  The DataLoader's batches are numpy, which
+over memory-mapped `.npy` arrays (signals, pitchs, loudness, and the mfccs
+the autoencoder reads where the cache has them), a dict collate, a
+DataLoader whose per-epoch shuffle is a function of (seed, epoch) — the
+same numpy generator as the JAX loader, so the two give the same order —
+the DeviceDataLoader, which uploads the whole cache once and gathers
+batches on the device in that same order, and the train/validation
+Datamodule.  The DataLoader's batches are numpy, which
 the Trainer moves to its device; the DeviceDataLoader's are tensors on its
 device.  The multi-host shards wait (ROADMAP.md).
 """
@@ -24,24 +25,32 @@ from ddsp_pytorch_tpu_torch.ops.core import batch_loudness_stats, running_mean_s
 
 
 class Dataset:
-    """Feature cache written by the JAX package's preprocessing
-    (`<out_dir>/{signals,pitchs,loudness[,mfccs]}.npy`)."""
+    """Feature cache written by preprocessing or the synthetic corpus, of
+    this package or the JAX package
+    (`<out_dir>/{signals,pitchs,loudness[,mfccs]}.npy`).  Items carry
+    `mfcc` where the cache has mfccs.npy (dataset.py:28-45)."""
 
     def __init__(self, out_dir):
         out_dir = Path(out_dir)
         self.signals = np.load(out_dir / "signals.npy", mmap_mode="r")
         self.pitchs = np.load(out_dir / "pitchs.npy", mmap_mode="r")
         self.loudness = np.load(out_dir / "loudness.npy", mmap_mode="r")
+        mfcc_path = out_dir / "mfccs.npy"
+        self.mfccs = np.load(mfcc_path, mmap_mode="r") if mfcc_path.exists() else None
 
     def __len__(self) -> int:
         return self.signals.shape[0]
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        return {
+        item = {
             "sig": np.asarray(self.signals[idx], np.float32),
             "pitch": np.asarray(self.pitchs[idx], np.float32)[:, None],
             "loudness": np.asarray(self.loudness[idx], np.float32)[:, None],
         }
+        if self.mfccs is not None:
+            # the cache holds F + 1 frames (a centered STFT); the model takes F
+            item["mfcc"] = np.asarray(self.mfccs[idx], np.float32)[:-1]
+        return item
 
 
 def dict_collate(records) -> Dict[str, np.ndarray]:
@@ -101,8 +110,9 @@ class DeviceDataLoader(DataLoader):
     each batch's indices (numpy), `take(idx)` the (B, ...) batch and
     `take_stacked(idx2d)` an (n, B, ...) super-batch, each one gather per
     array; `device_data` is the cache itself ({sig (N, T), pitch (N, F, 1),
-    loudness (N, F, 1)}), which the captured multi-step gathers from inside
-    its graph.  Iterating yields `take` of each batch."""
+    loudness (N, F, 1)}, and mfcc (N, F, n_mfcc) where the cache has it,
+    its last frame dropped once, at upload), which the captured multi-step
+    gathers from inside its graph.  Iterating yields `take` of each batch."""
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, device="cuda"):
@@ -114,6 +124,8 @@ class DeviceDataLoader(DataLoader):
             "pitch": torch.from_numpy(np.array(dataset.pitchs, np.float32))[..., None].to(self.device),
             "loudness": torch.from_numpy(np.array(dataset.loudness, np.float32))[..., None].to(self.device),
         }
+        if dataset.mfccs is not None:
+            self._data["mfcc"] = torch.from_numpy(np.array(dataset.mfccs[:, :-1], np.float32)).to(self.device)
 
     @property
     def device_data(self) -> Dict[str, torch.Tensor]:

@@ -20,8 +20,8 @@ serve a bundle the port exported:
 
 A bundle is read through bundle.py: meta.json for the model and the
 loudness stats, params.msgpack for the weights, and config.yaml for the
-autoencoder's MFCC geometry.  Both model families load and stream;
-`export_run` exports the single-inst-decoder only.
+autoencoder's MFCC geometry.  Both model families export, load and
+stream.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import argparse
 import json
 import os
 import shutil
+import warnings
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -46,6 +47,15 @@ from ddsp_pytorch_tpu_torch.utils import save_wav
 from ddsp_pytorch_tpu_torch.weights import flax_to_state_dict, state_dict_to_flax
 
 BUNDLE_FORMAT = "ddsp_pytorch_tpu.bundle.v1"
+# export/__init__.py:66-81: the autoencoder's training MFCCs and the live
+# extractor agree only with a fixed dB reference
+MFCC_REF_DB_WARNING = (
+    "exporting an mfcc-autoencoder trained with preprocess.mfcc_ref_db=None: training MFCCs "
+    "used librosa's anti-causal global-max dB floor, but the live StreamingMFCC is causal and "
+    "floorless, so streamed features will diverge from training features on quiet mel bins. "
+    "Retrain with a fixed mfcc_ref_db (configs/autoencoder.yaml sets 0.0) for exact "
+    "train==stream agreement."
+)
 
 
 def load_bundle(bundle_dir: str, device="cuda") -> Tuple:
@@ -147,7 +157,9 @@ def export_run(
     `overrides`: ``key.path=value`` strings applied to the run's frozen
     config first (Config.apply_overrides), e.g. to relocate
     ``data.data_location``; fields that shaped the parameters must not
-    change.  The impulse is rendered on `device`."""
+    change.  The impulse is rendered on `device`.  An mfcc-autoencoder
+    trained with preprocess.mfcc_ref_db None exports with a warning, as in
+    the JAX package: its stream's features differ from its training's."""
     device = resolve_device(device)
     run_dir = os.path.normpath(run_dir)
     name = name or os.path.basename(run_dir)
@@ -155,11 +167,8 @@ def export_run(
     config = Config.from_yaml(os.path.join(run_dir, "config.yaml"))
     if overrides:
         config.apply_overrides(overrides)
-    if config.model.name != "single-inst-decoder":
-        raise NotImplementedError(
-            f"model {config.model.name!r}: the port exports the single-inst-decoder only; "
-            "exporting the mfcc-autoencoder waits for its training (ROADMAP.md §1)"
-        )
+    if config.model.name == "mfcc-autoencoder" and config.preprocess.mfcc_ref_db is None:
+        warnings.warn(MFCC_REF_DB_WARNING, stacklevel=2)
     model = load_model(config.model.name, config.model.kwargs)
     model.load_state_dict(run_params(run_dir), strict=True)
     model = model.to(device)

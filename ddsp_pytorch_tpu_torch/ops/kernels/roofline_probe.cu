@@ -22,9 +22,9 @@
 // What bounds it on an H100: the fma probe does 2*256 + 3 FMAs an element
 // against 8 bytes moved (~130 flop/byte, far above the card's FP32 ridge
 // of ~20): operations.  The sin probe does 32 sinf and 22 other FP32
-// instructions an element; each accurate sinf is some 20 instructions on
-// its fast path, so it too is bound by operations in practice, though its
-// formal bound (a sinf counted as one instruction) is its bytes.  Each
+// instructions an element; each accurate sinf is ~17 FP32 instructions on
+// its fast path (573 an element in the sm_90a SASS, counted by
+// bench_roofline.sin_probe_sass), so it too is bound by operations.  Each
 // thread's two FMA chains are dependent, so the rate comes from the warps
 // in flight (up to 64 an SM hide the FMA's few cycles of latency), not
 // from ILP within a thread.

@@ -13,8 +13,12 @@ each step ending in torch.cuda.synchronize()), then under torch.profiler.
 From the trace it reports the device-busy time (the union of kernel
 intervals) against the traced wall time, the kernels launched per step, the
 kernels ranked by device time, and, from one separately traced forward and
-backward of the GRU alone at the same shapes, how many of a step's launches
-the 375-frame GRU loop makes.
+backward of each GRU alone at the same shapes (the decoder's; for the
+mfcc-autoencoder, `configs/autoencoder.yaml` or
+`pretrained/ddsp_violin_ae_config.yaml`, the encoder's too), how many of a
+step's launches and what share of its device time each 375-frame GRU loop
+takes.  The autoencoder's batch carries the MFCCs of its targets
+(preprocess geometry and dB reference of the config).
 
 It also times the eager step fed from host (numpy) batches, as the Trainer
 feeds it without the device-resident loader: through a pageable copy
@@ -116,20 +120,22 @@ def _traced(run, n_steps: int) -> dict:
     }
 
 
-def _gru_launches(gru, batch_size: int, frames: int, device) -> int:
-    """Device launches of one forward and backward of the GRU alone at the
-    step's shapes.  Its autograd graph dies with this frame: a graph kept
-    alive keeps the parameters' gradient accumulators on this stream, which
-    a captured step's backward would then have to join (an error under
-    capture)."""
-    x = torch.randn(batch_size, frames, 2 * gru.hidden_size, device=device)
+def _gru_alone(gru, batch_size: int, frames: int, device) -> dict:
+    """Device launches and device ms (the union of its kernels' intervals)
+    of one forward and backward of the GRU alone at the step's shapes.  Its
+    autograd graph dies with this frame: a graph kept alive keeps the
+    parameters' gradient accumulators on this stream, which a captured
+    step's backward would then have to join (an error under capture)."""
+    x = torch.randn(batch_size, frames, gru.weight_ih.shape[1], device=device)
     gru(x)[0].sum().backward()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         gru(x)[0].sum().backward()
         torch.cuda.synchronize()
-    return len(_cuda_kernels(prof))
+    kernels = _cuda_kernels(prof)
+    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    return {"launches": len(kernels), "device_ms": busy_us / 1e3}
 
 
 def _synced_ms(run, n: int) -> list:
@@ -176,6 +182,7 @@ def main(argv=None) -> dict:
     from ddsp_pytorch_tpu_torch.config import Config
     from ddsp_pytorch_tpu_torch.models import init_params, load_model
     from ddsp_pytorch_tpu_torch.ops import oscillator as osc
+    from ddsp_pytorch_tpu_torch.ops.spectral import mfcc
     from ddsp_pytorch_tpu_torch.training import make_optimizer, make_train_step
     from ddsp_pytorch_tpu_torch.training.state import TrainState
     from ddsp_pytorch_tpu_torch.training.train import make_train_multi_step
@@ -212,6 +219,12 @@ def main(argv=None) -> dict:
         "loudness": torch.tensor(loud[..., None], device=device),
         "sig": torch.tensor(_sine_render(pitch, block, sr), device=device),
     }
+    autoencoder = cfg.model.name == "mfcc-autoencoder"
+    if autoencoder:
+        pc = cfg.preprocess
+        batch["mfcc"] = mfcc(batch["sig"], sr, n_mfcc=pc.n_mfcc, n_fft=pc.mfcc_n_fft, hop_length=block,
+                             fmin=pc.mfcc_fmin, fmax=pc.mfcc_fmax, n_mels=pc.n_mels,
+                             ref_db=pc.mfcc_ref_db)[:, :frames].contiguous()
 
     def run_eager(n):
         for _ in range(n):
@@ -227,26 +240,31 @@ def main(argv=None) -> dict:
     osc_launches = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
 
     host_feeds = _host_feeds(step, state, batch, device)
-    gru_launches = _gru_launches(model.decoder.gru, batch_size, frames, device)
+    grus = {"decoder": model.decoder.gru}
+    if autoencoder:
+        grus["encoder"] = model.encoder.GRU_0
+    gru = {name: _gru_alone(g, batch_size, frames, device) for name, g in grus.items()}
+    for g in gru.values():
+        g["share_of_launches"] = g["launches"] / eager["kernel_launches_per_step"]
+        g["share_of_device_ms"] = g["device_ms"] / eager["device_busy_ms_per_step"]
     model.zero_grad(set_to_none=True)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    per_step = eager["kernel_launches_per_step"]
     result = {
         "card": card,
         "torch": torch.__version__,
         "config": args.config,
+        "model": cfg.model.name,
         "batch": batch_size,
         "frames": frames,
         "steps": args.steps,
         "untraced_step_ms": _stats(untraced),
         "peak_memory_bytes": eager_peak,
         **{k: v for k, v in eager.items() if k != "kernels_by_device_time"},
-        "gru_fwd_bwd_launches": gru_launches,
-        "gru_share_of_launches": gru_launches / per_step,
+        "gru_fwd_bwd_alone": gru,
         "oscillator_launches_per_step": {
             "oscillator_fwd": osc_launches[0] / args.steps,
             "oscillator_bwd": osc_launches[1] / args.steps,

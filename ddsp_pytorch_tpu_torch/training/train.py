@@ -10,9 +10,12 @@ mean-train-loss params every `log_interval_epochs`, full-state checkpoints
 every `checkpoint_every_steps`, exact resume from the newest one, and a
 preemption-safe `fit` (SIGTERM/SIGINT → checkpoint → return).
 
-The harmonic branch runs through `ops.OscillatorBank`, so on the card a
-step launches the hand-written forward kernel once and the backward kernel
-once.  On the card a call of `steps_per_call` steps replays a CUDA graph
+Both model families train: the single-inst-decoder, and the
+mfcc-autoencoder, whose batches carry `mfcc` (B, F, n_mfcc) beside the
+decoder's keys; every step, gather and static buffer below is generic over
+the batch's keys.  The harmonic branch runs through `ops.OscillatorBank`,
+so on the card a step launches the hand-written forward kernel once and the
+backward kernel once.  On the card a call of `steps_per_call` steps replays a CUDA graph
 of `scan_unroll` whole steps (forward, backward, Adam and the NaN guard,
 both kernels inside), the counterpart of the JAX package's lax.scan.
 Waiting for later slices (ROADMAP.md): audio and figure reports, the
@@ -171,7 +174,8 @@ def make_train_step(model, tx: Optimizer, config: Config) -> Callable:
 
 
 class MultiStep:
-    """`n_steps` optimizer steps in one call (train.py:137-196).
+    """`n_steps` optimizer steps in one call (train.py:137-196), on batches
+of any keys (the autoencoder's carry `mfcc`).
 
     Each step is the single train step with its noise drawn from the
     state's generator before the step (`ops.uniform_noise`, the draw the
@@ -395,12 +399,6 @@ class Trainer:
     last fit's MultiStep (None when steps_per_call is 1)."""
 
     def __init__(self, config: Config, run_dir: str, *, device="cuda"):
-        if config.model.name != "single-inst-decoder":
-            raise NotImplementedError(
-                f"model {config.model.name!r}: the port trains the single-inst-decoder only; "
-                "training the mfcc-autoencoder (batches with mfcc) is not ported yet "
-                "(ROADMAP.md §1)"
-            )
         if config.mesh.time > 1 or config.mesh.data > 1:
             raise NotImplementedError(
                 f"mesh {config.mesh}: the port trains on one device; the data-parallel "

@@ -292,15 +292,21 @@ def test_make_stream_session_gives_the_synth_for_a_decoder_bundle():
     assert isinstance(session, StreamingSynth) and not session.needs_audio
 
 
-# --------------------------------------------------------------- refusals
+# ------------------------------------------------------- once refused
 
 
 def test_trainer_and_export_run_refuse_the_autoencoder(tmp_path):
+    """Both took the autoencoder's config only to refuse it until its
+    training was ported; now the Trainer builds it, and export_run of a run
+    without a checkpoint fails for that reason alone
+    (tests/test_torch_autoencoder_training.py and test_torch_export.py train
+    and export one)."""
     cfg = Config.from_yaml(os.path.join(AE_BUNDLE, "config.yaml"))
-    with pytest.raises(NotImplementedError, match="mfcc-autoencoder.*ROADMAP.md"):
-        Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    assert trainer.model.encoder.GRU_0.hidden_size == cfg.model.kwargs["hidden_size"]
+    trainer.close()
     run = tmp_path / "ae_run"
     run.mkdir()
     cfg.to_yaml(str(run / "config.yaml"))
-    with pytest.raises(NotImplementedError, match="mfcc-autoencoder.*ROADMAP.md"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         export_run(str(run), str(tmp_path / "export"), device="cpu")

@@ -25,7 +25,7 @@ PORT_MODULES = sorted(
     os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").replace(".__init__", "")
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
 )
-FORBIDDEN = ("jax", "flax", "msgpack", "yaml", "ddsp_pytorch_tpu")
+FORBIDDEN = ("jax", "flax", "msgpack", "yaml", "scipy", "ddsp_pytorch_tpu")
 
 
 def _leaves(tree, prefix=()):

@@ -113,6 +113,69 @@ def test_trainer_default_device_raises_without_cuda(no_cuda, tmp_path):
         Trainer(Config(), str(tmp_path / "run"))
 
 
+def _wav_folder(root) -> Config:
+    """data/{train,validation}/a.wav (a 0.3 s tone) and a yin config."""
+    from ddsp_pytorch_tpu_torch.utils import save_wav
+
+    for part in ("train", "validation"):
+        os.makedirs(root / "data" / part)
+        save_wav(str(root / "data" / part / "a.wav"),
+                 0.3 * np.sin(2 * np.pi * 220 * np.arange(4800) / 16000), 16000)
+    return Config.from_dict({
+        "data": {"data_location": str(root / "data")},
+        "preprocess": {"sample_rate": 16000, "block_size": 256, "signal_length": 4096,
+                       "out_dir": str(root / "cache"), "pitch_tracker": "yin"},
+        "model": {"name": "mfcc-autoencoder", "kwargs": dict(TINY)},
+    })
+
+
+def _setup(datamodule):
+    datamodule.setup()
+    return datamodule
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["Datamodule-device-cache", "Trainer-autoencoder", "make_synthetic_dataset", "extract_loudness",
+     "extract_pitch", "preprocess_folder", "preprocess-cli", "train_pretrained-cli"],
+)
+def test_feature_and_training_entry_points_raise_without_cuda(no_cuda, tmp_path, entry):
+    """The entry points of the autoencoder's training path default to the
+    GPU and raise without one, before writing anything; the Datamodule
+    raises where it places data on the device (its device-resident
+    loader).  Each takes the plain path only with device='cpu'."""
+    from ddsp_pytorch_tpu_torch import preprocess as preprocess_cli
+    from ddsp_pytorch_tpu_torch import train_pretrained
+    from ddsp_pytorch_tpu_torch.data import Datamodule, make_synthetic_dataset, preprocess_folder
+    from ddsp_pytorch_tpu_torch.ops import extract_loudness, extract_pitch
+
+    cfg = _wav_folder(tmp_path)
+    cfg.to_yaml(str(tmp_path / "cfg.yaml"))
+    x = np.zeros(4096, np.float32)
+    entries = {
+        "Datamodule-device-cache": lambda: _setup(Datamodule(cfg, device_cache=True)).train_dataloader(),
+        "Trainer-autoencoder": lambda: Trainer(cfg, str(tmp_path / "run")),
+        "make_synthetic_dataset": lambda: make_synthetic_dataset(str(tmp_path / "syn")),
+        "extract_loudness": lambda: extract_loudness(x, 16000, 256),
+        "extract_pitch": lambda: extract_pitch(x, 16000, 256),
+        "preprocess_folder": lambda: preprocess_folder(cfg.data.data_location, "train", cfg),
+        "preprocess-cli": lambda: preprocess_cli.main(["--config", str(tmp_path / "cfg.yaml")]),
+        "train_pretrained-cli": lambda: train_pretrained.main(
+            ["--model", "mfcc-autoencoder", "--root", str(tmp_path / "root"), "--out", str(tmp_path / "out")]),
+    }
+    if entry == "Datamodule-device-cache":
+        cfg.preprocess.out_dir = str(tmp_path / "features")
+        for part in ("train", "validation"):
+            os.makedirs(tmp_path / "features" / part)
+            for name in ("signals", "pitchs", "loudness"):
+                np.save(tmp_path / "features" / part / f"{name}.npy",
+                        np.zeros((2, 4096 if name == "signals" else 16), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entries[entry]()
+    for written in ("syn", "cache", "run", "root/runs", "out"):
+        assert not (tmp_path / written).exists(), written
+
+
 @pytest.mark.cuda
 def test_backward_kernel_matches_plain_on_cuda(cuda):
     """The backward kernel against its plain version on the card, each
@@ -434,3 +497,66 @@ def test_autoencoder_session_on_cuda_matches_cpu(cuda):
     peak = float(np.abs(got).max())
     assert peak > 1e-3
     assert float(np.abs(got - want).max()) <= min(1e-4, 1e-3 * peak)
+
+
+@pytest.mark.cuda
+def test_autoencoder_graphed_steps_equal_eager_steps_on_cuda(cuda):
+    """The AE's train step with `mfcc` gathered inside the graph: 4 replayed
+    steps against 4 eager ones (GRAPHED_REL), both kernels captured."""
+    from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder
+    from ddsp_pytorch_tpu_torch.training import make_optimizer
+    from ddsp_pytorch_tpu_torch.training.state import TrainState
+    from ddsp_pytorch_tpu_torch.training.train import (
+        make_train_multi_step_indexed, make_train_step, metrics_row,
+    )
+
+    cfg = _tiny_config()
+    cfg.model.name = "mfcc-autoencoder"
+    data = _tiny_data(cuda)
+    data["mfcc"] = torch.tensor(np.random.default_rng(2).standard_normal((6, TINY_FRAMES, 30)).astype(np.float32),
+                                device=cuda)
+    idx2d = np.random.default_rng(3).integers(0, 6, (4, 2))
+    base = init_params(DDSPAutoencoder(**TINY), torch.Generator().manual_seed(0)).to(cuda)
+
+    def fresh():
+        model = copy.deepcopy(base)
+        tx = make_optimizer(cfg)
+        state = TrainState(0, model, tx.init([p for _, p in model.named_parameters()]),
+                           torch.Generator(cuda).manual_seed(5), -1.0, 1.5)
+        return model, tx, state
+
+    model_e, tx_e, state_e = fresh()
+    step = make_train_step(model_e, tx_e, cfg)
+    eager = torch.stack([metrics_row(step(state_e, {k: v[torch.as_tensor(i, device=cuda)] for k, v in data.items()}))
+                         for i in idx2d])
+    model_g, tx_g, state_g = fresh()
+    multi = make_train_multi_step_indexed(model_g, tx_g, cfg, 4, 2)
+    graphed = multi(state_g, data, idx2d)
+    assert _rel(graphed[:, 0], eager[:, 0]) <= GRAPHED_REL
+    for (name, a), b in zip(model_g.named_parameters(), model_e.parameters()):
+        assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
+    assert multi.captured == {"oscillator_fwd": 2, "oscillator_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_features_on_cuda_match_cpu(cuda, tmp_path):
+    """Loudness, pitch and the synthetic corpus on the card against the
+    plain CPU path: loudness 1e-3, f0 1e-3 relative, the corpus's pitch
+    bitwise and its audio within 1e-4 of the peak."""
+    from ddsp_pytorch_tpu_torch.data import make_synthetic_dataset
+    from ddsp_pytorch_tpu_torch.ops import extract_loudness, extract_pitch
+
+    kw = dict(n_items=3, sample_rate=16000, signal_length=16384, block_size=256, n_harmonic=8,
+              instrument="violin", mfcc_ref_db=0.0, partitions=("train",))
+    osc.reset_kernel_counts()
+    gpu = make_synthetic_dataset(str(tmp_path / "gpu"), device=cuda, **kw)
+    assert osc.oscillator_bank.launches == 1  # every item of the partition in one launch
+    cpu = make_synthetic_dataset(str(tmp_path / "cpu"), device="cpu", **kw)
+    np.testing.assert_array_equal(gpu["pitchs"], cpu["pitchs"])
+    peak = float(np.abs(cpu["signals"]).max())
+    assert float(np.abs(gpu["signals"] - cpu["signals"]).max()) <= 1e-4 * peak
+    x = cpu["signals"]
+    np.testing.assert_allclose(extract_loudness(x, 16000, 256, device=cuda).cpu().numpy(),
+                               extract_loudness(x, 16000, 256, device="cpu").numpy(), atol=1e-3)
+    np.testing.assert_allclose(extract_pitch(x, 16000, 256, device=cuda).cpu().numpy(),
+                               extract_pitch(x, 16000, 256, device="cpu").numpy(), rtol=1e-3)

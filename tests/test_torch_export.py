@@ -1,14 +1,16 @@
 """The port's export of a trained run, against the JAX package: its msgpack
-writer against flax's, its wav writer against the JAX package's, and a
-bundle exported from a run the port trained, served by the JAX package's
-`load_bundle`/`make_streaming_synth` and by the port's own stream.
+writer against flax's, its wav writer against the JAX package's, and
+bundles exported from runs the port trained (a single-inst-decoder and an
+mfcc-autoencoder), served by the JAX package's `load_bundle`/
+`make_streaming_synth`/`make_stream_session` and by the port's own stream.
 
 Tolerances:
   * msgpack bytes and wav samples: equal;
   * the JAX stream of the port's bundle against the port's CPU stream of it,
     noise deterministic: 1e-4 absolute, the bound of
     tests/test_torch_streaming.py (the same f32 arithmetic from other
-    libraries, carried over 8 GRU steps);
+    libraries, carried over 8 GRU steps; for the autoencoder, its encoder's
+    GRU and the causal MFCC front end too);
   * the impulse's dry tap: within 2e-2 of 1 (16-bit quantized,
     tests/test_export_runtime.py:167-176).
 """
@@ -26,12 +28,14 @@ from scipy.io import wavfile
 from ddsp_pytorch_tpu.config import Config as JaxConfig
 from ddsp_pytorch_tpu.data import make_synthetic_dataset
 from ddsp_pytorch_tpu.export import load_bundle as jax_load_bundle
+from ddsp_pytorch_tpu.export import make_stream_session as jax_make_stream_session
 from ddsp_pytorch_tpu.export import make_streaming_synth as jax_make_streaming_synth
 from ddsp_pytorch_tpu.utils.audio_io import save_wav as jax_save_wav
 from ddsp_pytorch_tpu_torch import export
 from ddsp_pytorch_tpu_torch.bundle import msgpack_restore, msgpack_serialize, read_params
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import Datamodule
+from ddsp_pytorch_tpu_torch.data import make_synthetic_dataset as port_make_synthetic_dataset
 from ddsp_pytorch_tpu_torch.profile_serving import glide
 from ddsp_pytorch_tpu_torch.training import Trainer
 from ddsp_pytorch_tpu_torch.utils import save_wav
@@ -193,3 +197,78 @@ def test_export_cli(run, tmp_path):
     assert Config.from_yaml(os.path.join(bundle, "config.yaml")).data.data_location == str(wavs)
     assert sorted(os.path.relpath(os.path.join(d, f), os.path.join(out, "data"))
                   for d, _, fs in os.walk(os.path.join(out, "data")) for f in fs) == ["b.wav", "train/a.wav"]
+
+
+def _ae_config(cache, mfcc_ref_db):
+    return Config.from_dict({
+        "preprocess": {"sample_rate": SR, "signal_length": 8192, "block_size": BLOCK, "out_dir": cache,
+                       "mfcc_n_fft": 2 * BLOCK, "mfcc_ref_db": mfcc_ref_db},
+        "model": {"name": "mfcc-autoencoder", "kwargs": {
+            "hidden_size": 32, "n_harmonic": 8, "n_bands": 17, "sample_rate": SR,
+            "block_size": BLOCK, "has_reverb": True}},
+        "train": {"scales": [512, 256], "batch": 2, "steps": 6, "steps_per_call": 2,
+                  "val_interval_epochs": 0, "checkpoint_every_steps": 0},
+    })
+
+
+@pytest.fixture(scope="module")
+def ae_run(tmp_path_factory):
+    """A tiny autoencoder run the port trained on the CPU on its own violin
+    corpus (MFCCs at the fixed 0 dB reference): 6 steps, best params saved."""
+    root = tmp_path_factory.mktemp("export_ae_run")
+    cache = str(root / "cache")
+    port_make_synthetic_dataset(cache, n_items=4, sample_rate=SR, signal_length=8192, block_size=BLOCK,
+                                n_harmonic=8, instrument="violin", mfcc_n_fft=2 * BLOCK, mfcc_ref_db=0.0,
+                                device="cpu")
+    cfg = _ae_config(cache, 0.0)
+    dm = Datamodule(cfg)
+    dm.setup()
+    run_dir = str(root / "tiny_ae")
+    trainer = Trainer(cfg, run_dir, device="cpu")
+    trainer.fit(dm)
+    trainer.close()
+    return run_dir
+
+
+def test_exported_autoencoder_streams_in_jax_like_the_port(ae_run, tmp_path):
+    """export_run on the AE run: its parameters are the run's bit for bit,
+    and the JAX package's make_stream_session streams the bundle (audio in,
+    one block of latency) as the port's CPU session does."""
+    import warnings
+
+    out_dir = str(tmp_path / "export")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # mfcc_ref_db is set: no warning
+        bundle = export.export_run(ae_run, out_dir, device="cpu")
+    best = torch.load(os.path.join(ae_run, "best", "params.pt"), weights_only=True)
+    exported = export.load_bundle(bundle, device="cpu")[0].state_dict()
+    assert exported.keys() == best.keys() and all(torch.equal(exported[k], best[k]) for k in best)
+    with open(os.path.join(bundle, "params.msgpack"), "rb") as f:
+        assert f.read() == serialization.msgpack_serialize(state_dict_to_flax(best))
+    with open(os.path.join(bundle, "meta.json")) as f:
+        assert json.load(f)["model"]["name"] == "mfcc-autoencoder"
+    assert os.path.exists(os.path.join(out_dir, "ddsp_tiny_ae_impulse.wav"))
+
+    port = export.make_stream_session(bundle, device="cpu", noise_deterministic=True)
+    ref = jax_make_stream_session(bundle, noise_deterministic=True)
+    assert port.needs_audio and ref.needs_audio
+    pitch, loud = glide(N_BLOCKS, BLOCK)
+    t = np.arange(N_BLOCKS * BLOCK) / SR
+    audio = (0.3 * np.sin(2 * np.pi * np.cumsum(pitch[0]) / SR) + 0.01 * np.sin(2 * np.pi * 3000 * t))
+    audio = audio.astype(np.float32)
+    peak = 0.0
+    for i in range(N_BLOCKS):
+        sl = slice(BLOCK * i, BLOCK * (i + 1))
+        got = port.step_samples(pitch[0, sl], loud[0, sl], audio[sl])
+        want = np.asarray(ref.step_samples(pitch[0, sl], loud[0, sl], audio[sl]))
+        np.testing.assert_allclose(got, want, atol=ATOL, err_msg=f"block {i}")
+        peak = max(peak, float(np.abs(got).max()))
+    assert peak > 0
+
+
+def test_autoencoder_export_warns_without_a_fixed_mfcc_reference(ae_run, tmp_path):
+    """As the JAX package warns (export/__init__.py:66-81): a run whose
+    MFCCs used the global-maximum dB reference streams other features."""
+    with pytest.warns(UserWarning, match="mfcc_ref_db=None"):
+        export.export_run(ae_run, str(tmp_path / "out"), name="warned", device="cpu",
+                          overrides=["preprocess.mfcc_ref_db=null"])

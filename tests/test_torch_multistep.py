@@ -181,7 +181,8 @@ def test_device_data_loader_matches_jax(cache):
         port = DeviceDataLoader(Dataset(path), batch, shuffle, drop_last, seed=5, device="cpu")
         ref = JaxDeviceDataLoader(JaxDataset(path), batch, shuffle, drop_last, seed=5)
         assert len(port) == len(ref)
-        assert sorted(port.device_data) == ["loudness", "pitch", "sig"]
+        # the cache has mfccs.npy: both loaders hold the autoencoder's mfcc too
+        assert sorted(port.device_data) == sorted(ref.device_data) == ["loudness", "mfcc", "pitch", "sig"]
         for epoch in range(3):
             port.set_epoch(epoch)
             ref.set_epoch(epoch)
