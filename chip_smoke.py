@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU
+"""Drive the PyTorch/CUDA port's serving, training, pitch-tracking and timbre-transfer
 and check them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
@@ -16,8 +16,9 @@ is printed):
      the card at the serving shape and at larger shapes (the forward also
      against a float64 numpy oracle), with its time, the plain version's
      time, the bound and the share of the bound, at the pool's shapes too
-     (R = 2, 256, 1024, 2048); both roofline probes against their plain versions
-     in float32 and float64; OscillatorBank's gradients
+     (R = 2, 256, 1024, 2048) and timbre transfer's (R = 281); both
+     roofline probes against their plain versions in float32 and float64;
+     OscillatorBank's gradients
      (both kernels) against autograd through the plain forward at the
      training shape;
   3. streaming: make_streaming_synth on the full-width violin bundle streams
@@ -94,11 +95,31 @@ is printed):
      StreamServer; the train_pretrained CLI for 25 steps into a temporary
      --out; preprocess_folder (YIN) on two wav files written from the
      corpus, one at 44.1 kHz, on the card against the CPU;
- 13. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 13. pitch trackers and timbre transfer: the shipped CREPE (tiny,
+     pretrained/crepe_tiny.msgpack) on 2048 frames on the card against
+     the CPU (salience 1e-5), again with TF32 allowed globally, and its
+     frames/s; extract_pitch_crepe and extract_pitch_hybrid on a 4 s 48 kHz
+     glide with a -20 dB pink-noise floor on the card against the CPU
+     (Viterbi paths equal on every frame, f0 within 1 cent, RPA@50c = 1 on
+     the voiced frames against the known f0), seconds a call, one hybrid
+     call by stage and traced (device idle share, kernels); preprocess_folder
+     at configs/config.yaml (hybrid) on two wavs, one at 44.1 kHz, card vs
+     CPU; timbre_transfer through pretrained/ddsp_sigmund_bundle (hybrid,
+     decoder) and pretrained/ddsp_violin_ae_bundle (autoencoder) on a 3 s
+     220 Hz input at octave shifts 0 and +1 (length F·512, finite, the
+     harmonic-only render's YIN median within 3 % of 220 / 440 Hz (the
+     sigmund model's noise branch dominates its full output at this
+     input's loudness); harmonic-only, the CPU's controls rendered on the
+     card within 1e-3 of the CPU render's peak and the whole path within
+     1e-2 (the f0 controls within 1e-5 relative); one forward launch a
+     call, seconds a call and the realtime factor), and the transfer CLI
+     into a temporary file;
+ 14. report: one JSON line {"kernels": [...]} (all four kernels; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
-     synthetic, training_autoencoder and, for the probes, roofline), the
-     card's name and power limit, and last {"ok": true, "device": {...}}.
+     synthetic, training_autoencoder, timbre_transfer and, for the probes,
+     roofline; the forward's `launches` is timbre transfer's), the card's
+     name and power limit, and last {"ok": true, "device": {...}}.
 
 Imports torch, numpy, the standard library and ddsp_pytorch_tpu_torch only.
 Exits nonzero when torch.cuda.is_available() is false.
@@ -121,7 +142,7 @@ import wave
 import numpy as np
 import torch
 
-from ddsp_pytorch_tpu_torch import bench_roofline, serve, train_pretrained
+from ddsp_pytorch_tpu_torch import bench_roofline, serve, train_pretrained, transfer
 from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import Datamodule, Dataset, DeviceDataLoader, make_synthetic_dataset
@@ -141,10 +162,19 @@ from ddsp_pytorch_tpu_torch.kernel_bench import (
     sleep_cycles_per_ms,
     time_ms,
 )
-from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder, DDSPDecoder, init_params
+from ddsp_pytorch_tpu_torch.inference import render, timbre_transfer, transfer_controls
+from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder, DDSPDecoder, crepe, init_params
 from ddsp_pytorch_tpu_torch.ops import fft_convolve, kernels, multiscale_fft, roofline
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
-from ddsp_pytorch_tpu_torch.profile_serving import RAMP_VOICES, glide, voice_ramp, voices_per_card_text
+from ddsp_pytorch_tpu_torch.ops.pitch import extract_pitch, switch_cost, yin_emission
+from ddsp_pytorch_tpu_torch.profile_serving import (
+    PROFILER_ACTIVITIES,
+    RAMP_VOICES,
+    device_kernels,
+    glide,
+    voice_ramp,
+    voices_per_card_text,
+)
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
 from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
 from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer
@@ -224,8 +254,11 @@ N_REQUESTS = 8
 # Together they launch every variant and configuration of both kernels at
 # the main paths' shapes.
 GRAPHED_SHAPE = (3000, 64, 512)
+# phase 13d's shape: timbre transfer renders a 3 s 48 kHz clip (281 frames)
+# in one launch; the forward's JSON entry is taken here (this slice's path)
+TRANSFER_SHAPE = (281, 64, 512)
 KERNEL_SHAPES = ((1, 64, 512), (6000, 64, 512), GRAPHED_SHAPE, (37, 100, 512), (6000, 100, 512),
-                 (5, 1, 64), (2, 64, 512), (256, 64, 512), (1024, 64, 512), (2048, 64, 512))
+                 (5, 1, 64), (2, 64, 512), (256, 64, 512), (1024, 64, 512), (2048, 64, 512), TRANSFER_SHAPE)
 # The exported 100-step model's stream: GPU vs CPU within this share of the
 # stream's peak as well as STREAM_GPU_VS_CPU_ATOL (the model plays near
 # silence, where that absolute bound alone could not fail a wrong kernel).
@@ -271,6 +304,27 @@ MFCC_REL_OF_PEAK = 1e-3
 # the frames (a path may take another bin where costs tie within the two
 # FFT libraries' rounding, in near-silent frames)
 PITCH_RTOL, PITCH_FRAMES_AGREE = 1e-3, 0.99
+CREPE_PARAMS = "pretrained/crepe_tiny.msgpack"
+SIGMUND_BUNDLE = "pretrained/ddsp_sigmund_bundle"  # hybrid-tracked, single-inst-decoder
+N_CREPE_FRAMES = 2048
+# CREPE on the card against the CPU, TF32 allowed globally or not: the
+# salience within 1e-5 (the tests' bound against the JAX package)
+CREPE_SALIENCE_ATOL = 1e-5
+# the trackers on the card against the CPU: f0 within 1 cent on every
+# frame (with equal Viterbi paths); against the known f0, every voiced
+# frame within 50 cents (RPA@50c = 1)
+TRACK_CENTS, RPA_CENTS = 1.0, 50.0
+# timbre transfer: the harmonic-only output's YIN median within 3 % of
+# the input's (shifted) 220 Hz.  Card against CPU, harmonic-only: the f0
+# controls within 1e-5 relative (the tests' bound against JAX); the CPU's
+# controls rendered on the card within 1e-3 of the CPU render's peak; the
+# whole path within 1e-2 of it: the f0 tracks differ by ~1e-7-1e-6
+# relative (two FFT libraries' rounding under the trackers), which the
+# oscillator integrates into a phase drift of 2π·f0·t·δ, 8e-3 rad at
+# 440 Hz after 3 s at δ = 1e-6 (measured: 1.9e-3 of the peak, the violin AE
+# at +1 octave, NVIDIA H100 80GB HBM3, 700.00 W)
+TRANSFER_F0_REL, TRANSFER_CONTROL_F0_REL = 0.03, 1e-5
+TRANSFER_REL_OF_PEAK, TRANSFER_WHOLE_REL_OF_PEAK = 1e-3, 1e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -348,8 +402,8 @@ def oscillator_f64(phi, omega, amp, s: int) -> np.ndarray:
 def phase_kernels(device, kernel_ms: dict) -> dict:
     """Phase 2: the oscillator kernel against its plain version and the
     float64 oracle; times at every shape, also put in `kernel_ms` (keyed
-    as bench_roofline keys them).  Returns the entry at the graphed
-    training path's shape."""
+    as bench_roofline keys them).  Returns the entry at timbre transfer's
+    shape."""
     rng = np.random.default_rng(SEED)
     cycles_per_ms = sleep_cycles_per_ms()
     entry = None
@@ -384,7 +438,7 @@ def phase_kernels(device, kernel_ms: dict) -> dict:
             f"host_call_ms: kernel={call_ms:.6f} plain={plain_call_ms:.6f}",
             flush=True,
         )
-        if (rows, k, s) == GRAPHED_SHAPE:
+        if (rows, k, s) == TRANSFER_SHAPE:
             entry = {
                 "name": "oscillator_fwd",
                 "route": "cuda",
@@ -397,7 +451,7 @@ def phase_kernels(device, kernel_ms: dict) -> dict:
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": None,  # no single PyTorch call computes this bank
-                "rows_harmonics_samples": list(GRAPHED_SHAPE),
+                "rows_harmonics_samples": list(TRANSFER_SHAPE),
             }
     return entry
 
@@ -1691,6 +1745,300 @@ def phase_ae_preprocess(device, cache: str, tmp: str) -> None:
           f"preprocess features vs CPU: loudness {loud_err}, mfcc {mf_err}")
 
 
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _pink_glide(sr: int, n: int, seed: int, f_lo: float, f_hi: float, noise_db: float):
+    """A 5-harmonic exponential glide from f_lo to f_hi plus pink noise at
+    `noise_db` of the tone's peak: (float32 audio (n,), f0 of each sample)."""
+    rng = np.random.default_rng(seed)
+    f0 = f_lo * (f_hi / f_lo) ** (np.arange(n) / n)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    tone = sum(0.4 / h * np.sin(h * phase) for h in range(1, 6))
+    spec = np.fft.rfft(rng.standard_normal(n))
+    pink = np.fft.irfft(spec / np.sqrt(np.arange(spec.size) + 1.0), n)
+    pink *= 10 ** (noise_db / 20) * np.abs(tone).max() / np.abs(pink).max()
+    return (tone + pink).astype(np.float32), f0
+
+
+def phase_crepe_forward(device) -> None:
+    """Phase 13a: the shipped CREPE on the card against the CPU plain path
+    on N_CREPE_FRAMES frames of a glide with pink noise, then again with
+    TF32 allowed globally for cuDNN and cuBLAS (restored after); the
+    card's frames/s."""
+    hop = 160  # 10 ms at 16 kHz
+    x16, _ = _pink_glide(crepe.MODEL_SRATE, (N_CREPE_FRAMES - 1) * hop, 30, 110.0, 880.0, -20.0)
+    pad = crepe.FRAME_LENGTH // 2
+    idx = np.arange(N_CREPE_FRAMES)[:, None] * hop + np.arange(crepe.FRAME_LENGTH)[None, :]
+    frames = torch.tensor(np.pad(x16, (pad, pad))[idx])
+    gpu = crepe.load_crepe(CREPE_PARAMS, device=device)
+    frames_gpu = frames.to(device)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = torch.sigmoid(crepe.load_crepe(CREPE_PARAMS, device="cpu")(frames))
+        cpu_s = time.perf_counter() - t0
+        got = torch.sigmoid(gpu(frames_gpu)).cpu()
+        secs = []
+        for _ in range(5):
+            _sync(device)
+            t0 = time.perf_counter()
+            gpu(frames_gpu)
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_tf32 = torch.sigmoid(gpu(frames_gpu)).cpu()
+            still = torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+    err = float((got - want).abs().max())
+    err_tf32 = float((got_tf32 - want).abs().max())
+    fps = N_CREPE_FRAMES / float(np.median(secs))
+    print(f"CREPE tiny forward, {N_CREPE_FRAMES} frames of a 110-880 Hz glide + pink noise: max|salience "
+          f"card-CPU|={err:.3e}; {err_tf32:.3e} with cudnn.allow_tf32 and matmul.allow_tf32 set globally "
+          f"(still set inside the call: {still}); bound {CREPE_SALIENCE_ATOL}; card ms "
+          f"{[round(1e3 * s, 3) for s in secs]} = {fps:.0f} frames/s; CPU {cpu_s:.3f} s", flush=True)
+    check(bool(torch.isfinite(got).all()), "CREPE salience not finite")
+    check(err <= CREPE_SALIENCE_ATOL and err_tf32 <= CREPE_SALIENCE_ATOL,
+          f"CREPE on the card vs the CPU: {err}, with TF32 allowed globally {err_tf32}")
+
+
+def _path_cost(cost: np.ndarray, path: np.ndarray, switch: np.ndarray) -> float:
+    """Σ_t cost[t, path[t]] + switch[path[t−1], path[t]], in float64."""
+    cost, switch = cost.astype(np.float64), switch.astype(np.float64)
+    return float(cost[np.arange(len(path)), path].sum() + switch[path[:-1], path[1:]].sum())
+
+
+def _tracker_cost(name: str, x, sr: int, block: int, model, device):
+    """(the (F16, 360) cost extract_pitch_<name> runs its Viterbi on at its
+    defaults, as numpy; its path; the switch cost), on `device`."""
+    if name == "crepe":
+        sal, _ = crepe.crepe_salience(x, sr, block, model, device=device)
+        cost, per_octave = -torch.log(torch.clamp(sal, 1e-6, 1.0)), 3.0
+    else:
+        sal, d_16, _ = crepe.hybrid_evidence(x, sr, block, model, device=device)
+        cost = crepe.fused_cost(sal, d_16, yin_weight=8.0, salience_floor=0.03, confidence_gate=2.0,
+                                keep=crepe.cents_keep(32.0, 2100.0))
+        per_octave = 60.0
+    return cost.cpu().numpy(), crepe.viterbi_path(cost, per_octave), switch_cost(crepe.N_BINS, crepe.BINS_PER_OCTAVE, per_octave)
+
+
+def phase_trackers(device) -> None:
+    """Phase 13b: extract_pitch_crepe and extract_pitch_hybrid on a 4 s,
+    48 kHz glide of known f0 with a −20 dB pink-noise floor, on the card
+    against the CPU: Viterbi paths equal on every frame (else the differing
+    frames are printed with their cost margins), f0 within TRACK_CENTS on
+    every frame, RPA@50 cents against the known f0 on the voiced frames;
+    seconds a call; then one hybrid call's stages timed and traced."""
+    sr, block = 48000, 512
+    x, f0_true = _pink_glide(sr, 4 * sr, 31, 196.0, 784.0, -20.0)
+    n_out = x.size // block
+    truth = f0_true[np.arange(n_out) * block]
+    # voiced: the frames whose CREPE window (1024 samples at 16 kHz, three
+    # blocks each side) lies inside the clip
+    voiced = slice(3, n_out - 3)
+    models = {"cuda": crepe.load_crepe(CREPE_PARAMS, device=device),
+              "cpu": crepe.load_crepe(CREPE_PARAMS, device="cpu")}
+    for name, fn in (("crepe", crepe.extract_pitch_crepe), ("hybrid", crepe.extract_pitch_hybrid)):
+        fn(x, sr, block, models["cuda"], device=device)  # warm-up: cuDNN and cuFFT plans
+        _sync(device)
+        t0 = time.perf_counter()
+        got = fn(x, sr, block, models["cuda"], device=device).cpu().numpy()
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fn(x, sr, block, models["cpu"], device="cpu").numpy()
+        cpu_secs = time.perf_counter() - t0
+        cost_g, path_g, switch = _tracker_cost(name, x, sr, block, models["cuda"], device)
+        cost_c, path_c, _ = _tracker_cost(name, x, sr, block, models["cpu"], "cpu")
+        differ = np.nonzero(path_g != path_c)[0]
+        cents = 1200 * np.abs(np.log2(got / want))
+        err_true = 1200 * np.abs(np.log2(got[voiced] / truth[voiced]))
+        rpa = float(np.mean(err_true <= RPA_CENTS))
+        print(f"{name} tracker, 4 s 196-784 Hz glide + pink noise at -20 dB ({len(path_g)} CREPE frames): "
+              f"card {secs:.4f} s a call, CPU {cpu_secs:.4f} s; Viterbi paths differ on {differ.size} frames; "
+              f"max|f0 card-CPU| {cents.max():.3e} cents; against the known f0 on {err_true.size} voiced "
+              f"frames: RPA@50c {rpa:.4f}, median |cents| {float(np.median(err_true)):.3f}, max "
+              f"{float(err_true.max()):.3f}", flush=True)
+        if differ.size:
+            margins = [(int(t), int(path_g[t]), int(path_c[t]), float(cost_c[t, path_g[t]] - cost_c[t, path_c[t]]))
+                       for t in differ[:20]]
+            whole = _path_cost(cost_c, path_g, switch) - _path_cost(cost_c, path_c, switch)
+            print(f"  differing frames (frame, card bin, CPU bin, cost margin on the CPU's costs): {margins}; "
+                  f"whole-path margin {whole:.3e}", flush=True)
+        check(got.shape == want.shape == (n_out,) and bool(np.isfinite(got).all()), f"{name} tracker output")
+        check(differ.size == 0, f"{name}: Viterbi paths differ on {differ.size} frames")
+        check(float(cents.max()) <= TRACK_CENTS, f"{name}: card vs CPU {cents.max()} cents")
+        check(rpa == 1.0, f"{name}: RPA@50c {rpa} on the voiced frames")
+    _hybrid_breakdown(x, sr, block, models["cuda"], device)
+
+
+def _hybrid_breakdown(x, sr: int, block: int, model, device) -> None:
+    """One hybrid call on the card by stage (CREPE salience, YIN emission,
+    the fused decode with its Viterbi loop), each timed between
+    synchronizes, then the whole call traced: wall, device busy, idle
+    share, kernels launched and the kernels with the most device time."""
+    xt = torch.tensor(x, device=device)
+    stages = {}
+
+    def timed(key, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        value = fn()
+        _sync(device)
+        stages[key] = (time.perf_counter() - t0) * 1e3
+        return value
+
+    timed("salience", lambda: crepe.crepe_salience(xt, sr, block, model, device=device))
+    timed("yin", lambda: yin_emission(xt, sr, block, fmin=32.0, fmax=2100.0))
+    sal, d_16, _ = crepe.hybrid_evidence(xt, sr, block, model, device=device)
+    timed("decode", lambda: crepe.decode_fused(sal, d_16, yin_weight=8.0, switch_per_octave=60.0,
+                                               salience_floor=0.03, confidence_gate=2.0,
+                                               keep=crepe.cents_keep(32.0, 2100.0)))
+    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
+        _sync(device)
+        t0 = time.perf_counter()
+        crepe.extract_pitch_hybrid(xt, sr, block, model, device=device)
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, busy_ms = device_kernels(prof)
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    n16 = sal.shape[-2]
+    print("hybrid call on the card by stage (ms, each between synchronizes): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; traced: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f} %), {len(kernels)} kernels ({len(kernels) / n16:.1f} a CREPE "
+          f"frame, {n16} frames)", flush=True)
+    print("  kernels with the most device time: " + "; ".join(
+        f"{name[:80]} x{n} {us / 1e3:.3f} ms" for name, (n, us) in top), flush=True)
+
+
+def phase_default_preprocess(device, tmp: str) -> None:
+    """Phase 13c: preprocess_folder at configs/config.yaml's preprocess
+    section (pitch_tracker hybrid, the shipped crepe_tiny) on two wav
+    files, one at 44.1 kHz (resampled on load), on the card against the
+    CPU plain path, with phase 12e's checks."""
+    base = Config.from_yaml(CONFIG)
+    sr, length = base.preprocess.sample_rate, base.preprocess.signal_length
+    a, _ = _pink_glide(sr, length, 32, 150.0, 600.0, -30.0)
+    b, _ = _pink_glide(44100, length * 441 // 480, 33, 400.0, 250.0, -30.0)
+    os.makedirs(os.path.join(tmp, "wavs", "train"))
+    save_wav(os.path.join(tmp, "wavs", "train", "a.wav"), a, sr)
+    save_wav(os.path.join(tmp, "wavs", "train", "b.wav"), b, 44100)
+    out = {}
+    for side in ("cuda", "cpu"):
+        cfg = Config.from_yaml(CONFIG)
+        cfg.apply_overrides([f"preprocess.out_dir={os.path.join(tmp, 'pre_' + side)}",
+                             f"data.data_location={os.path.join(tmp, 'wavs')}"])
+        t0 = time.perf_counter()
+        preprocess_folder(cfg.data.data_location, "train", cfg, device=device if side == "cuda" else "cpu")
+        secs = time.perf_counter() - t0
+        out[side] = {n: np.load(os.path.join(cfg.preprocess.out_dir, "train", f"{n}.npy"))
+                     for n in ("signals", "pitchs", "loudness", "mfccs")}
+        print(f"preprocess at {CONFIG} (pitch_tracker {cfg.preprocess.pitch_tracker}) of 2 files on the {side}: "
+              f"{secs:.3f} s", flush=True)
+    gpu, cpu = out["cuda"], out["cpu"]
+    rel = np.abs(gpu["pitchs"] / cpu["pitchs"] - 1.0)
+    agree = float(np.mean(rel <= PITCH_RTOL))
+    loud_err = float(np.abs(gpu["loudness"] - cpu["loudness"]).max())
+    mf_peak = float(np.abs(cpu["mfccs"]).max())
+    mf_err = float(np.abs(gpu["mfccs"] - cpu["mfccs"]).max())
+    print(f"hybrid preprocess on the card vs the CPU: shapes { {n: v.shape for n, v in gpu.items()} }; f0 within "
+          f"{PITCH_RTOL} on {100 * agree:.2f} % of frames (max rel {float(rel.max()):.3e}; median f0 "
+          f"{float(np.median(gpu['pitchs'])):.2f} Hz); max|loudness|={loud_err:.3e}; max|mfcc|={mf_err:.3e} "
+          f"(peak {mf_peak:.2f})", flush=True)
+    check(gpu["signals"].shape == (2, length) and np.array_equal(gpu["signals"], cpu["signals"]),
+          "hybrid preprocess signals")
+    check(all(bool(np.isfinite(v).all()) for v in gpu.values()), "hybrid preprocess arrays not finite")
+    check(agree >= PITCH_FRAMES_AGREE, f"hybrid pitch on the card agrees with the CPU on {agree} of frames")
+    check(loud_err <= LOUDNESS_ATOL and mf_err <= MFCC_REL_OF_PEAK * mf_peak,
+          f"hybrid preprocess features vs CPU: loudness {loud_err}, mfcc {mf_err}")
+
+
+def phase_transfer(device, tmp: str) -> int:
+    """Phase 13d, with oscillator_fwd's count set to 0 just before it:
+    timbre_transfer through a full-width bundle of each family (sigmund:
+    hybrid tracker, decoder; violin AE: its YIN tracker, autoencoder) on a
+    3 s 220 Hz harmonic input at octave shifts 0 and 1, on the card with
+    and without noise and on the CPU without: length, finite, the
+    harmonic-only render's YIN median at the shifted 220 Hz, one forward
+    launch a card call; the card's controls against the CPU's, the card's
+    render of the CPU's controls against the CPU's render, and the whole
+    path card against CPU; then the transfer CLI into a temporary file.
+    Returns the forward kernel's launches."""
+    osc.reset_kernel_counts()
+    sr = 48000
+    n = 3 * sr
+    phase = 2 * np.pi * 220.0 * np.arange(n) / sr
+    x = (sum(0.3 / h * np.sin(h * phase) for h in range(1, 6))
+         + 0.003 * np.random.default_rng(34).standard_normal(n)).astype(np.float32)
+    frames = n // 512
+    check((frames, 64, 512) == TRANSFER_SHAPE, f"transfer's kernel shape is not phase 2's {TRANSFER_SHAPE}")
+    for bundle in (SIGMUND_BUNDLE, AE_BUNDLE):
+        cfg = Config.from_yaml(os.path.join(bundle, "config.yaml"))
+        model, _ = load_bundle(bundle, device=device)
+        for octave in (0.0, 1.0):
+            calls = []
+
+            def call(fn, dev, *args, **kw):
+                before = osc.oscillator_bank.launches
+                t0 = time.perf_counter()
+                y = fn(*args, device=dev, **kw)
+                calls.append((time.perf_counter() - t0, osc.oscillator_bank.launches - before))
+                return y
+
+            det = call(timbre_transfer, device, bundle, x, sr, octave_shift=octave, noise_deterministic=True)
+            noisy = call(timbre_transfer, device, bundle, x, sr, octave_shift=octave)
+            det_cpu = call(timbre_transfer, "cpu", bundle, x, sr, octave_shift=octave, noise_deterministic=True)
+            ctrl_cpu = transfer_controls(cfg, x, octave_shift=octave, device="cpu")
+            ctrl_gpu = transfer_controls(cfg, x, octave_shift=octave, device=device)
+            same = call(render, device, model, cfg, *ctrl_cpu, noise_deterministic=True)
+            f0_rel = float(np.abs(ctrl_gpu[0] / ctrl_cpu[0] - 1.0).max())
+            loud_err = float(np.abs(ctrl_gpu[1] - ctrl_cpu[1]).max())
+            # YIN on the harmonic-only render: the sigmund model's noise
+            # branch dominates its full output at this input's loudness
+            median, median_full = (float(np.median(extract_pitch(y, sr, 512, device=device).cpu().numpy()[8:-8]))
+                                   for y in (det, noisy))
+            target = 220.0 * 2.0 ** octave
+            peak = float(np.abs(det_cpu).max())
+            err_same = float(np.abs(same - det_cpu).max())
+            err = float(np.abs(det - det_cpu).max())
+            (det_s, det_n), (secs, n_launch), (cpu_s, cpu_n), (_, same_n) = calls
+            print(f"timbre_transfer {bundle} octave {octave:+.0f}: {len(noisy)} samples; card {secs:.3f} s a call "
+                  f"({n / sr / secs:.1f}x realtime; harmonic-only {det_s:.3f} s), CPU {cpu_s:.3f} s; YIN median of "
+                  f"the harmonic-only output {median:.2f} Hz (target {target:.0f}; of the full output "
+                  f"{median_full:.2f}); controls card vs CPU: f0 max rel {f0_rel:.3e}, loudness {loud_err:.3e}; "
+                  f"harmonic-only, peak {peak:.4f}: the CPU's controls rendered on the card vs the CPU "
+                  f"{err_same:.3e}, the whole path card vs CPU {err:.3e}; launches per card call "
+                  f"{det_n}, {n_launch}, {same_n}", flush=True)
+            check(noisy.shape == det.shape == (frames * 512,) and bool(np.isfinite(noisy).all())
+                  and bool(np.isfinite(det).all()), f"transfer output of {bundle}")
+            check(abs(median / target - 1.0) <= TRANSFER_F0_REL, f"transfer f0 {median} against {target}")
+            check(f0_rel <= TRANSFER_CONTROL_F0_REL and loud_err <= LOUDNESS_ATOL,
+                  f"transfer controls card vs CPU: f0 {f0_rel}, loudness {loud_err}")
+            check(peak > 1e-4 and err_same <= TRANSFER_REL_OF_PEAK * peak,
+                  f"the CPU's controls rendered on the card vs the CPU {err_same} (peak {peak})")
+            check(err <= TRANSFER_WHOLE_REL_OF_PEAK * peak, f"transfer card vs CPU {err} (peak {peak})")
+            check(det_n == n_launch == same_n == 1 and cpu_n == 0, f"forward launches per transfer call {calls}")
+    wav_in, wav_out = os.path.join(tmp, "transfer_in.wav"), os.path.join(tmp, "transfer_out.wav")
+    save_wav(wav_in, x, sr)
+    t0 = time.perf_counter()
+    transfer.main(["--bundle", SIGMUND_BUNDLE, "--input", wav_in, "--output", wav_out, "--octave-shift", "1"])
+    with wave.open(wav_out) as f:
+        written = (f.getnchannels(), f.getframerate(), f.getnframes())
+    print(f"transfer CLI ({SIGMUND_BUNDLE}, octave +1) wrote {written} (channels, rate, frames) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    check(written == (1, sr, frames * 512), f"transfer CLI wrote {written}")
+    return osc.oscillator_bank.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1743,18 +2091,26 @@ def main() -> int:
         phase_ae_graphed_vs_eager(device, ae_cache, card)
         phase_ae_export_serve(device, ae_run_dir, ae_cache, tmp)
         phase_ae_preprocess(device, ae_cache, tmp)
-    # launches: this slice's main path, the autoencoder trained in the graph
-    fwd_entry["launches"] = ae_train["oscillator_fwd"]
+    phase_crepe_forward(device)
+    phase_trackers(device)
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_transfer_") as tmp:
+        phase_default_preprocess(device, tmp)
+        transfer_fwd = phase_transfer(device, tmp)
+    check(transfer_fwd > 0, "oscillator_fwd not launched on the timbre-transfer path")
+    # launches: this slice's main path, timbre transfer
+    fwd_entry["launches"] = transfer_fwd
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
                                      "serving_exported": exported_fwd, "serving_pool": pool_fwd,
                                      "serving_autoencoder": ae_fwd, "synthetic": synthetic_fwd,
-                                     "training_autoencoder": ae_train["oscillator_fwd"]}
+                                     "training_autoencoder": ae_train["oscillator_fwd"],
+                                     "timbre_transfer": transfer_fwd}
     bwd_entry["launches"] = ae_train["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
                                      "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0,
-                                     "synthetic": 0, "training_autoencoder": ae_train["oscillator_bwd"]}
+                                     "synthetic": 0, "training_autoencoder": ae_train["oscillator_bwd"],
+                                     "timbre_transfer": 0}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)

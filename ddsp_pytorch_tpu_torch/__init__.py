@@ -9,13 +9,17 @@ it in PyTorch for an NVIDIA Hopper GPU, slice by slice (ROADMAP.md):
                 CUDA tensors, plain PyTorch on CPU tensors), FIR noise,
                 FFTs, MFCCs, loudness, YIN pitch
   models/       L1+L2 HarmonicSynth / FilteredNoise / Reverb, GRU decoder,
-                MFCC encoder and autoencoder
-  data/         feature cache loaders, synthetic corpus, preprocessing
+                MFCC encoder and autoencoder; the CREPE pitch tracker and
+                its fusion with YIN (crepe.py)
+  data/         feature cache loaders, synthetic corpus, preprocessing,
+                sigmund-wav ingestion, NSynth views
   training/     loss, optimizer, checkpoints, the Trainer (CUDA graphs)
   streaming/    L6a exact-state block streaming, the VoicePool
   export.py     trained run → bundle → model → stream session
+  inference.py  offline timbre transfer of a recording through a bundle
   serve.py      socket server, wire-compatible with ddsp_pytorch_tpu.serve
-  train.py, preprocess.py, train_pretrained.py: the CLIs
+  train.py, preprocess.py, train_pretrained.py, transfer.py,
+  nsynth_inst_split.py: the CLIs
 
 It imports torch, numpy and the standard library only — never jax, flax,
 msgpack, yaml or ddsp_pytorch_tpu.  Entry points take an explicit `device`

@@ -1,5 +1,6 @@
-"""Feature cache, loaders, the synthetic corpus and preprocessing (port of
-ddsp_pytorch_tpu.data without the sigmund, nsynth and fixture ingestion)."""
+"""Feature cache, loaders, the synthetic corpus, preprocessing (with the
+hybrid, crepe and yin pitch trackers), sigmund-wav ingestion and NSynth
+views (port of ddsp_pytorch_tpu.data without the fixtures)."""
 
 from ddsp_pytorch_tpu_torch.data.dataset import (  # noqa: F401
     DataLoader,

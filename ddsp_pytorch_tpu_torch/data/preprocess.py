@@ -1,17 +1,20 @@
 """Offline preprocessing: wav files → the `.npy` feature cache.
 
 Port of ddsp_pytorch_tpu/data/preprocess.py:31-218 (`get_files`,
-`preprocess`, `make_pitch_fn`, `preprocess_folder`; its `main` is the
-preprocess CLI, ddsp_pytorch_tpu_torch/preprocess.py): each file is
-loaded at the config's sample rate (utils/audio_io.load_wav), zero-padded
-to a multiple of signal_length (or cut to one chunk if oneshot) and
-chunked; pitch (YIN + Viterbi, ops/pitch.py), A-weighted loudness and the
-MFCCs (F + 1 frames a chunk) are extracted for all of a file's chunks at
-once on `device`; each partition's rows are saved as
-{signals,pitchs,loudness,mfccs}.npy under preprocess.out_dir/<partition>.
+`preprocess`, `default_crepe_params`, `make_pitch_fn`,
+`preprocess_folder`; its `main` is the preprocess CLI,
+ddsp_pytorch_tpu_torch/preprocess.py): each file is loaded at the config's
+sample rate (utils/audio_io.load_wav), zero-padded to a multiple of
+signal_length (or cut to one chunk if oneshot) and chunked; pitch,
+A-weighted loudness and the MFCCs (F + 1 frames a chunk) are extracted for
+all of a file's chunks at once on `device`; each partition's rows are
+saved as {signals,pitchs,loudness,mfccs}.npy under
+preprocess.out_dir/<partition>.
 
-Pitch trackers: "yin" is ported.  "crepe" and "hybrid" (the CREPE network
-and its fusion with YIN, models/crepe.py) are not, and raise.
+Pitch trackers (preprocess.pitch_tracker): "hybrid", the default (CREPE ×
+YIN, models/crepe.py), "crepe" (the CREPE network alone) and "yin"
+(ops/pitch.py).  The CREPE trackers read preprocess.crepe_params, or the
+shipped pretrained/crepe_tiny.msgpack.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.config import Config
+from ddsp_pytorch_tpu_torch.models.crepe import extract_pitch_crepe, extract_pitch_hybrid, load_crepe
 from ddsp_pytorch_tpu_torch.ops.loudness import extract_loudness
 from ddsp_pytorch_tpu_torch.ops.pitch import extract_pitch
 from ddsp_pytorch_tpu_torch.ops.spectral import mfcc as mfcc_op
@@ -85,22 +89,41 @@ def preprocess(
     )
 
 
+def default_crepe_params():
+    """Path of the shipped CREPE weights (pretrained/crepe_tiny.msgpack), or
+    None where the checkout has no pretrained/ tree."""
+    shipped = pathlib.Path(__file__).resolve().parents[2] / "pretrained" / "crepe_tiny.msgpack"
+    return str(shipped) if shipped.exists() else None
+
+
 def make_pitch_fn(config: Config, device="cuda"):
     """The pitch tracker of config.preprocess.pitch_tracker, as preprocess's
-    pitch_fn: "yin" is the YIN + Viterbi tracker between pitch_fmin and
-    pitch_fmax on `device`.  "crepe" and "hybrid" raise NotImplementedError
-    (not ported); any other name raises ValueError."""
+    pitch_fn (chunks (N, L) or a row (L,), sample_rate, block_size) →
+    (…, F) f0 on `device`, searching between pitch_fmin and pitch_fmax:
+    "hybrid" (the CREPE × YIN fused decode), "crepe" (the CREPE network
+    alone, its salience masked to the range) or "yin".  Any other name
+    raises ValueError.
+
+    The CREPE trackers load preprocess.crepe_params (capacity
+    crepe_capacity) once, onto `device`; a path that is unset or does not
+    exist (a bundle's config may record a relative or another host's path)
+    falls back to the shipped pretrained/crepe_tiny.msgpack."""
     pc = config.preprocess
     tracker = pc.pitch_tracker
+    if tracker not in ("hybrid", "crepe", "yin"):
+        raise ValueError(f"unknown pitch_tracker: {tracker!r} (hybrid|yin|crepe)")
+    device = resolve_device(device)
     if tracker == "yin":
-        return functools.partial(extract_pitch, fmin=pc.pitch_fmin, fmax=pc.pitch_fmax,
-                                 device=resolve_device(device))
-    if tracker in ("crepe", "hybrid"):
-        raise NotImplementedError(
-            f"pitch_tracker: {tracker}: the CREPE tracker (models/crepe.py) is not ported yet "
-            "(ROADMAP.md §1); set preprocess.pitch_tracker: yin"
-        )
-    raise ValueError(f"unknown pitch_tracker: {tracker!r} (hybrid|yin|crepe)")
+        return functools.partial(extract_pitch, fmin=pc.pitch_fmin, fmax=pc.pitch_fmax, device=device)
+    crepe_params = pc.crepe_params or default_crepe_params()
+    if crepe_params and not pathlib.Path(crepe_params).exists():
+        crepe_params = default_crepe_params()
+    if not crepe_params:
+        raise ValueError(f"pitch_tracker: {tracker} needs preprocess.crepe_params: the shipped "
+                         "pretrained/crepe_tiny.msgpack was not found")
+    model = load_crepe(crepe_params, pc.crepe_capacity, device=device)
+    extract = extract_pitch_hybrid if tracker == "hybrid" else extract_pitch_crepe
+    return functools.partial(extract, model=model, fmin=pc.pitch_fmin, fmax=pc.pitch_fmax, device=device)
 
 
 def preprocess_folder(root_dir, partition: str, config: Config, device="cuda") -> None:

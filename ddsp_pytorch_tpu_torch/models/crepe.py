@@ -1,0 +1,457 @@
+"""The CREPE-architecture pitch tracker and its fusion with YIN.
+
+Port of ddsp_pytorch_tpu/models/crepe.py:32-508: the cents codec, the
+`CREPE` network (eval mode), its decoders (local weighted average,
+Viterbi), the 16 kHz polyphase resampler, the salience map on CREPE's
+frame grid, `extract_pitch_crepe`, and the CREPE × YIN fusion
+(`hybrid_evidence`, `decode_fused`, `extract_pitch_hybrid`) that
+configs/config.yaml selects as its default tracker.
+
+Differences from the JAX module, by design:
+  * every function takes a mono signal (T,) or a batch of them (N, T); the
+    frames of all rows go through the network together, and one Viterbi
+    loop runs batched over rows (ops/pitch.py `viterbi`).  BatchNorm in
+    eval mode mixes nothing across frames, so each row equals the JAX
+    per-row call;
+  * the trackers take the network as a `CREPE` module (`load_crepe` reads
+    a `{params, batch_stats}` msgpack file, e.g. the shipped
+    pretrained/crepe_tiny.msgpack), not a flax tree;
+  * the forward runs its convolutions, the dense classifier among them (a
+    width-1 convolution), in cuDNN with TF32 off, whatever the global
+    flags say (torch.backends.cudnn.flags scopes it; cuBLAS, whose TF32
+    flag has no such scope, is not used).
+
+The JAX module has no Pallas kernel: its convolutions, resampler, decode
+and Viterbi are XLA.  Here the convolutions are cuDNN's (conv1d), the
+resampler a gather and a product on the device.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddsp_pytorch_tpu_torch import resolve_device
+from ddsp_pytorch_tpu_torch.ops.pitch import first_argmin, pitch_grid, switch_cost, viterbi, yin_emission
+
+MODEL_SRATE = 16000  # CREPE operates on 16 kHz frames
+FRAME_LENGTH = 1024  # 64 ms input window
+N_BINS = 360
+CENTS_PER_BIN = 20.0
+BINS_PER_OCTAVE = 1200.0 / CENTS_PER_BIN
+# Bin 0 = 32.70 Hz (C1) on the cents-above-10Hz scale CREPE uses.
+CENTS_OFFSET = 1200.0 * math.log2(32.70319566257483 / 10.0)
+
+# capacity multiplier → per-layer filter counts × [32, 4, 4, 4, 8, 16]
+CAPACITIES = {"micro": 1, "tiny": 4, "small": 8, "medium": 16, "large": 24, "full": 32}
+_BASE_FILTERS = (32, 4, 4, 4, 8, 16)
+_KERNELS = (512, 64, 64, 64, 64, 64)
+_STRIDES = (4, 1, 1, 1, 1, 1)
+# flax nn.BatchNorm's default epsilon
+BATCH_NORM_EPS = 1e-5
+# the cost that keeps a bin out of the fused decode (crepe.py:494-497)
+MASKED_COST = 1e6
+
+
+def cents_grid() -> np.ndarray:
+    """(360,) center of each salience bin, in cents above 10 Hz (float64)."""
+    return CENTS_OFFSET + CENTS_PER_BIN * np.arange(N_BINS)
+
+
+def cents_to_hz(cents):
+    """Cents above 10 Hz → Hz (a tensor, an array or a number)."""
+    return 10.0 * 2.0 ** (cents / 1200.0)
+
+
+def hz_to_cents(f0):
+    """Hz → cents above 10 Hz, f0 floored at 1e-6."""
+    if isinstance(f0, torch.Tensor):
+        return 1200.0 * torch.log2(torch.clamp(f0, min=1e-6) / 10.0)
+    return 1200.0 * np.log2(np.maximum(f0, 1e-6) / 10.0)
+
+
+def _same_padding(length: int, kernel: int, stride: int) -> tuple:
+    """(left, right) zero padding of XLA's "SAME" convolution: ceil(length /
+    stride) outputs, the odd sample of the padding on the right."""
+    out = -(-length // stride)
+    total = max((out - 1) * stride + kernel - length, 0)
+    return total // 2, total - total // 2
+
+
+class BatchNormEval(nn.Module):
+    """flax BatchNorm with use_running_average=True: (x − mean) /
+    sqrt(var + ε) · scale + bias over the channel axis of (B, C, T)."""
+
+    def __init__(self, channels: int, eps: float = BATCH_NORM_EPS):
+        super().__init__()
+        self.eps = float(eps)
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            training=False, eps=self.eps)
+
+
+class CREPE(nn.Module):
+    """(B, 1024) audio frames → (B, 360) pitch-salience logits, in eval mode
+    (crepe.py:60-103): each frame normalized (population std, floored at
+    1e-6), six blocks of conv ("SAME" padding) → ReLU → BatchNorm → max-pool
+    2 (dropout is the identity in eval mode), then a dense classifier over
+    the (4, 16·mult) map flattened time-major, as flax flattens it.  The
+    classifier is an nn.Linear applied as a width-1 convolution, so that
+    every product runs in cuDNN under the forward's TF32-off scope.
+
+    Submodules are named as in the flax tree (conv1..conv6, bn1..bn6,
+    classifier); weights.crepe_state_dict_from_flax maps a tree onto them.
+    Training (dropout, BatchNorm statistics) is not ported."""
+
+    def __init__(self, capacity: str = "tiny"):
+        super().__init__()
+        if capacity not in CAPACITIES:
+            raise ValueError(f"unknown CREPE capacity {capacity!r} ({'|'.join(CAPACITIES)})")
+        self.capacity = capacity
+        mult = CAPACITIES[capacity]
+        channels, length = 1, FRAME_LENGTH
+        self._pads = []
+        for i, (base, kernel, stride) in enumerate(zip(_BASE_FILTERS, _KERNELS, _STRIDES)):
+            setattr(self, f"conv{i + 1}", nn.Conv1d(channels, base * mult, kernel, stride))
+            setattr(self, f"bn{i + 1}", BatchNormEval(base * mult))
+            self._pads.append(_same_padding(length, kernel, stride))
+            channels, length = base * mult, -(-length // stride) // 2
+        self.classifier = nn.Linear(length * channels, N_BINS)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        mean = frames.mean(dim=-1, keepdim=True)
+        std = frames.std(dim=-1, keepdim=True, correction=0)
+        x = ((frames - mean) / torch.clamp(std, min=1e-6))[:, None, :]  # (B, 1, T)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            for i, pad in enumerate(self._pads):
+                x = getattr(self, f"conv{i + 1}")(F.pad(x, pad))
+                x = getattr(self, f"bn{i + 1}")(F.relu(x))
+                x = F.max_pool1d(x, 2, 2)
+            x = x.transpose(1, 2).reshape(x.shape[0], -1, 1)  # (B, 4 · C, 1), time-major
+            return F.conv1d(x, self.classifier.weight[:, :, None], self.classifier.bias)[:, :, 0]
+
+
+def _capacity_of(tree: dict) -> str:
+    """The capacity whose conv1 width a `{params, ...}` tree has."""
+    width = np.asarray(tree["params"]["conv1"]["kernel"]).shape[-1]
+    for name, mult in CAPACITIES.items():
+        if _BASE_FILTERS[0] * mult == width:
+            return name
+    raise ValueError(f"no CREPE capacity has a conv1 of {width} filters")
+
+
+def crepe_from_tree(tree: dict, capacity: Optional[str] = None, device="cuda") -> CREPE:
+    """A `{params, batch_stats}` tree (numpy, as msgpack_restore gives it)
+    → an eval-mode CREPE on `device`.  `capacity` defaults to the tree's;
+    a capacity that does not fit the tree raises."""
+    from ddsp_pytorch_tpu_torch.weights import crepe_state_dict_from_flax
+
+    device = resolve_device(device)
+    found = _capacity_of(tree)
+    if capacity is not None and capacity != found:
+        raise ValueError(f"CREPE weights of capacity {found!r}, asked for {capacity!r}")
+    model = CREPE(found)
+    model.load_state_dict(crepe_state_dict_from_flax(tree), strict=True)
+    return model.to(device).eval()
+
+
+def load_crepe(path: str, capacity: Optional[str] = None, device="cuda") -> CREPE:
+    """The CREPE of a msgpack file of `{params, batch_stats}` (written by
+    scripts/train_crepe.py; pretrained/crepe_tiny.msgpack is shipped), on
+    `device`."""
+    from ddsp_pytorch_tpu_torch.bundle import msgpack_restore
+
+    device = resolve_device(device)
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    return crepe_from_tree(tree, capacity, device)
+
+
+# ---------------------------------------------------------------- decoding
+
+
+def salience_to_cents(salience: torch.Tensor, window: int = 4) -> torch.Tensor:
+    """(…, 360) salience → (…,) cents: the weighted average of the grid over
+    ±`window` bins around the argmax (crepe.py:109-125), the bins clipped
+    at the grid's edges counted once."""
+    grid = torch.tensor(cents_grid().astype(np.float32), device=salience.device)
+    offsets = torch.arange(-window, window + 1, device=salience.device)
+    idx = first_argmin(-salience, dim=-1)[..., None] + offsets  # ties to the first, as jnp.argmax
+    clipped = torch.clamp(idx, 0, N_BINS - 1)
+    w = torch.gather(salience, -1, clipped)
+    w = torch.where(idx == clipped, w, torch.zeros_like(w))
+    return torch.sum(w * grid[clipped], dim=-1) / torch.clamp(torch.sum(w, dim=-1), min=1e-9)
+
+
+def _near_path(values: torch.Tensor, path: np.ndarray) -> torch.Tensor:
+    """`values` (…, F, 360) where the bin is within 4 of the path's (…, F)
+    bin, 0 elsewhere (crepe.py:144-150)."""
+    path = torch.as_tensor(path, device=values.device)
+    near = torch.abs(torch.arange(N_BINS, device=values.device) - path[..., None]) <= 4
+    return torch.where(near, values, torch.zeros_like(values))
+
+
+def viterbi_path(cost: torch.Tensor, switch_per_octave: float) -> np.ndarray:
+    """The min-sum Viterbi path (…, F) through (…, F, 360) costs with a jump
+    cost of `switch_per_octave` an octave (crepe.py:137-142; ops/pitch.py
+    `viterbi`, batched over rows)."""
+    switch = torch.tensor(switch_cost(N_BINS, BINS_PER_OCTAVE, switch_per_octave), device=cost.device)
+    return viterbi(cost, switch)
+
+
+def viterbi_cents(salience: torch.Tensor, switch_per_octave: float = 3.0) -> torch.Tensor:
+    """(…, F, 360) salience → (…, F) cents (crepe.py:128-151): the Viterbi
+    path through −log(salience) (clipped at 1e-6) with the per-octave jump
+    cost, then the local average of the salience masked to ±4 bins around
+    the path.  The average re-takes the argmax of the masked salience,
+    which need not be the path's bin, as the JAX function does."""
+    emission = -torch.log(torch.clamp(salience, 1e-6, 1.0))
+    path = viterbi_path(emission, switch_per_octave)
+    return salience_to_cents(_near_path(salience, path))
+
+
+# ------------------------------------------------------- full extract path
+
+
+@functools.lru_cache(maxsize=None)
+def _resample_kernel(up: int, down: int, taps_per_phase: int = 32) -> np.ndarray:
+    """Windowed-sinc FIR for rational resampling (crepe.py:157-164)."""
+    cutoff = 1.0 / max(up, down)  # in units of the upsampled Nyquist
+    half = taps_per_phase * max(up, down) // 2
+    n = np.arange(-half, half + 1)
+    kernel = cutoff * np.sinc(cutoff * n) * np.hanning(2 * half + 1)
+    return (kernel * up).astype(np.float32)
+
+
+def resample_to_model_rate(signal: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """(…, T) at sample_rate → (…, ceil(T·16000/sr)) at 16 kHz, the JAX
+    module's polyphase windowed sinc (crepe.py:167-201; not scipy's
+    resample_poly): output q is Σ_w x[i_q + w] · k̃[(i_q + w)·up − q·down +
+    P] over the window of inputs its taps touch (k̃ the flipped kernel, P
+    its half length, taps outside the kernel or the input 0).  The index
+    and tap matrices are built on the signal's device from the kernel, in
+    integer arithmetic, so they equal the JAX function's numpy ones.  16
+    kHz input is returned as is."""
+    if int(sample_rate) == MODEL_SRATE:
+        return signal
+    t = int(signal.shape[-1])
+    g = math.gcd(int(sample_rate), MODEL_SRATE)
+    up, down = MODEL_SRATE // g, int(sample_rate) // g
+    kernel = _resample_kernel(up, down)
+    length = kernel.shape[0]
+    dev = signal.device
+    flipped = torch.tensor(kernel[::-1].copy(), device=dev)
+    t_out = -(-t * up // down)  # ceil: len(zero-stuffed conv output) / down
+    window = (length - 1) // up + 2  # inputs touching one output
+    s = torch.arange(t_out, device=dev) * down - length // 2
+    i_mat = -torch.div(-s, up, rounding_mode="floor")[:, None] + torch.arange(window, device=dev)
+    j_mat = i_mat * up - s[:, None]  # tap index per (output, window slot)
+    valid = (j_mat >= 0) & (j_mat < length) & (i_mat >= 0) & (i_mat < t)
+    taps = torch.where(valid, flipped[torch.clamp(j_mat, 0, length - 1)], torch.zeros((), device=dev))
+    return torch.sum(signal[..., torch.clamp(i_mat, 0, t - 1)] * taps, dim=-1)
+
+
+def crepe_hop(sample_rate: int, block_size: int) -> int:
+    """The 16 kHz hop of one block: int(16000 · block / sr), at least 1."""
+    return max(1, int(MODEL_SRATE * block_size / sample_rate))
+
+
+def crepe_salience(signal, sample_rate: int, block_size: int, model: CREPE,
+                   batch_frames: int = 512, *, device="cuda") -> tuple:
+    """(T,) or (N, T) signal at `sample_rate` → ((…, F16, 360) salience,
+    hop) on `device` (crepe.py:218-259): resampled to 16 kHz, framed at
+    F16 = 1 + T16 // hop zero-center-padded frames, the frames of every
+    row through `model` (moved to `device`) in chunks of `batch_frames`."""
+    device = resolve_device(device)
+    signal = torch.as_tensor(signal, dtype=torch.float32).to(device)
+    if signal.dim() not in (1, 2):
+        raise ValueError(f"expects a mono (T,) signal or a batch (N, T), got {tuple(signal.shape)}")
+    model = model.to(device)
+    x16 = resample_to_model_rate(signal, int(sample_rate))
+    hop = crepe_hop(sample_rate, block_size)
+    pad = FRAME_LENGTH // 2
+    padded = F.pad(x16, (pad, pad))
+    n_frames = 1 + int(x16.shape[-1]) // hop
+    idx = (torch.arange(n_frames, device=device)[:, None] * hop
+           + torch.arange(FRAME_LENGTH, device=device)[None, :])
+    frames = padded[..., idx].reshape(-1, FRAME_LENGTH)
+    with torch.inference_mode():
+        logits = torch.cat([model(frames[i : i + batch_frames])
+                            for i in range(0, frames.shape[0], batch_frames)])
+    salience = torch.sigmoid(logits)
+    return salience.reshape(*signal.shape[:-1], n_frames, N_BINS), hop
+
+
+@functools.lru_cache(maxsize=64)
+def _block_grid_interp(n_src: int, hop: int, n_out: int, block_size: int, sample_rate: int):
+    """jnp.interp's index and weight (crepe.py:262-268) from the 16 kHz hop
+    grid (n_src frames) to the block grid (n_out frames), in float32 as
+    the JAX function computes them: (i (n_out,) int64, ratio (n_out,)
+    float32, below (n_out,) bool, above (n_out,) bool), read-only."""
+    xp = (np.arange(n_src) * hop / MODEL_SRATE).astype(np.float32)
+    x = (np.arange(n_out) * block_size / sample_rate).astype(np.float32)
+    i = np.clip(np.searchsorted(xp, x, side="right"), 1, max(n_src - 1, 1))
+    dx = xp[i] - xp[i - 1]
+    eps = np.spacing(np.finfo(np.float32).eps)
+    dx0 = np.abs(dx) <= eps
+    ratio = (x - xp[i - 1]) / np.where(dx0, np.float32(1.0), dx)
+    ratio = np.where(dx0, np.float32(0.0), ratio).astype(np.float32)
+    out = (i.astype(np.int64), ratio, x < xp[0], x > xp[-1])
+    for arr in out:
+        arr.flags.writeable = False
+    return out
+
+
+def interp_to_block_grid(f0: torch.Tensor, hop: int, n_out: int, block_size: int,
+                         sample_rate: int) -> torch.Tensor:
+    """(…, F16) track on the 16 kHz hop grid → (…, n_out) on the block grid,
+    by linear interpolation in time, clamped at the edges (jnp.interp
+    semantics, crepe.py:262-268)."""
+    i, ratio, below, above = _block_grid_interp(int(f0.shape[-1]), int(hop), int(n_out),
+                                                int(block_size), int(sample_rate))
+    dev = f0.device
+    i, ratio = torch.tensor(i, device=dev), torch.tensor(ratio, device=dev)
+    lo, hi = f0[..., i - 1], f0[..., i]
+    out = lo + ratio * (hi - lo)
+    out = torch.where(torch.tensor(below, device=dev), f0[..., :1], out)
+    return torch.where(torch.tensor(above, device=dev), f0[..., -1:], out)
+
+
+def cents_keep(fmin: Optional[float], fmax: Optional[float]) -> np.ndarray:
+    """(360,) bool: the bins whose center lies in [fmin, fmax] Hz (None
+    leaves that side open)."""
+    grid = cents_grid()
+    lo = 1200.0 * math.log2(fmin / 10.0) if fmin is not None else -np.inf
+    hi = 1200.0 * math.log2(fmax / 10.0) if fmax is not None else np.inf
+    return (grid >= lo) & (grid <= hi)
+
+
+def extract_pitch_crepe(signal, sample_rate: int, block_size: int, model: CREPE, viterbi: bool = True,
+                        batch_frames: int = 512, fmin: Optional[float] = None,
+                        fmax: Optional[float] = None, *, device="cuda") -> torch.Tensor:
+    """Frame-rate f0 in Hz through the CREPE network (crepe.py:271-314):
+    (T,) or (N, T) → (…, T // block_size) float32 on `device`.  The
+    salience of bins outside [fmin, fmax] is zeroed before the decode
+    (Viterbi by default, else the local average around the argmax); the
+    16 kHz track is interpolated onto the block grid."""
+    device = resolve_device(device)
+    signal = torch.as_tensor(signal, dtype=torch.float32).to(device)
+    n_out = int(signal.shape[-1]) // int(block_size)
+    salience, hop = crepe_salience(signal, sample_rate, block_size, model, batch_frames, device=device)
+    if fmin is not None or fmax is not None:
+        keep = torch.tensor(cents_keep(fmin, fmax), device=device)
+        salience = torch.where(keep, salience, torch.zeros_like(salience))
+    cents = viterbi_cents(salience) if viterbi else salience_to_cents(salience)
+    return interp_to_block_grid(cents_to_hz(cents), hop, n_out, block_size, sample_rate)
+
+
+# ------------------------------------------------------- CREPE×YIN fusion
+
+
+@functools.lru_cache(maxsize=None)
+def _yin_to_crepe_grid(fmin: float, fmax: float, bins_per_octave: int) -> tuple:
+    """(idx0 (360,) int64, frac (360,) float32): the linear interpolation
+    from the YIN log grid onto the CREPE cents grid, clamped to the YIN
+    grid's edges (crepe.py:317-328).  Read-only arrays."""
+    yin_cents = 1200.0 * np.log2(pitch_grid(fmin, fmax, bins_per_octave) / 10.0)
+    pos = np.interp(cents_grid(), yin_cents, np.arange(yin_cents.shape[0]))
+    idx0 = np.clip(np.floor(pos).astype(np.int64), 0, yin_cents.shape[0] - 2)
+    frac = (pos - idx0).astype(np.float32)
+    idx0.flags.writeable = False
+    frac.flags.writeable = False
+    return idx0, frac
+
+
+def hybrid_evidence(signal, sample_rate: int, block_size: int, model: CREPE, batch_frames: int = 512,
+                    fmin: float = 32.0, fmax: float = 2100.0, *, device="cuda") -> tuple:
+    """Both evidence maps on CREPE's (frame, cents) grid (crepe.py:403-449):
+    ((…, F16, 360) salience, (…, F16, 360) YIN CMNDF, hop).  The YIN
+    emission (ops/pitch.py, on the block hop between fmin and fmax) is
+    interpolated onto the cents grid, then onto the CREPE frame times, the
+    time position clamped to the YIN frame range before its floor/fraction
+    split."""
+    device = resolve_device(device)
+    signal = torch.as_tensor(signal, dtype=torch.float32).to(device)
+    if signal.dim() not in (1, 2):
+        raise ValueError(f"expects a mono (T,) signal or a batch (N, T), got {tuple(signal.shape)}")
+    salience, hop = crepe_salience(signal, sample_rate, block_size, model, batch_frames, device=device)
+    n16 = salience.shape[-2]
+    d = yin_emission(signal, int(sample_rate), int(block_size), fmin=fmin, fmax=fmax)  # (…, Fy, bins)
+    idx0, frac = _yin_to_crepe_grid(float(fmin), float(fmax), 60)
+    idx0 = torch.tensor(idx0, device=device)
+    frac = torch.tensor(frac, device=device)
+    d_c = d[..., idx0] * (1.0 - frac) + d[..., idx0 + 1] * frac  # (…, Fy, 360)
+    n_yin = d.shape[-2]
+    pos = (np.arange(n16) * hop / MODEL_SRATE) * sample_rate / block_size
+    pos = np.clip(pos, 0.0, n_yin - 1)
+    t0 = np.clip(np.floor(pos).astype(np.int64), 0, n_yin - 2)
+    tfrac = torch.tensor((pos - t0).astype(np.float32), device=device)[:, None]
+    t0 = torch.tensor(t0, device=device)
+    d_16 = d_c[..., t0, :] * (1.0 - tfrac) + d_c[..., t0 + 1, :] * tfrac  # (…, F16, 360)
+    return salience, d_16, hop
+
+
+def fused_cost(salience: torch.Tensor, d_16: torch.Tensor, yin_weight: float = 4.0,
+               crepe_weight: float = 1.0, salience_floor: float = 1e-6, confidence_gate: float = 0.0,
+               keep=None) -> torch.Tensor:
+    """The (…, F16, 360) cost that decode_fused's Viterbi runs on
+    (crepe.py:484-497): crepe_weight · (−log clip(S, salience_floor, 1)) ·
+    (max S of the frame)^confidence_gate (the gate off at 0) + yin_weight
+    · d'; bins outside `keep` (an optional (360,) bool mask) cost 1e6."""
+    crepe_cost = -torch.log(torch.clamp(salience, salience_floor, 1.0))
+    gate_pow = float(confidence_gate)
+    if gate_pow > 0.0:
+        conf = salience.amax(dim=-1, keepdim=True)
+        crepe_cost = crepe_cost * conf ** gate_pow
+    cost = crepe_weight * crepe_cost + yin_weight * d_16
+    if keep is not None:
+        keep = torch.as_tensor(np.asarray(keep, bool), device=cost.device)
+        cost = torch.where(keep, cost, torch.full_like(cost, MASKED_COST))
+    return cost
+
+
+def decode_fused(salience: torch.Tensor, d_16: torch.Tensor, yin_weight: float = 4.0,
+                 crepe_weight: float = 1.0, switch_per_octave: float = 3.0,
+                 salience_floor: float = 1e-6, confidence_gate: float = 0.0,
+                 keep=None) -> torch.Tensor:
+    """Fused evidence → (…, F16) f0 in Hz (crepe.py:452-508): the Viterbi
+    path through `fused_cost`, then the local average of exp(−(cost − the
+    frame's min)) masked to ±4 bins around the path (exactly 0 on masked
+    bins: the exp underflows)."""
+    cost = fused_cost(salience, d_16, yin_weight, crepe_weight, salience_floor, confidence_gate, keep)
+    path = viterbi_path(cost, switch_per_octave)
+    fused_salience = torch.exp(-(cost - cost.amin(dim=-1, keepdim=True)))
+    return cents_to_hz(salience_to_cents(_near_path(fused_salience, path)))
+
+
+def extract_pitch_hybrid(signal, sample_rate: int, block_size: int, model: CREPE,
+                         batch_frames: int = 512, yin_weight: float = 8.0, crepe_weight: float = 1.0,
+                         switch_per_octave: float = 60.0, salience_floor: float = 0.03,
+                         confidence_gate: float = 2.0, fmin: float = 32.0, fmax: float = 2100.0, *,
+                         device="cuda") -> torch.Tensor:
+    """CREPE × YIN fused pitch (crepe.py:331-400): (T,) or (N, T) → (…,
+    T // block_size) f0 in Hz on `device`, from one Viterbi pass over both
+    evidence maps (`hybrid_evidence`, `decode_fused`), the bins outside
+    [fmin, fmax] kept out of the decode.  The defaults are the JAX
+    function's, tuned on the robustness conditions of
+    pretrained/pitch_robustness.json."""
+    device = resolve_device(device)
+    signal = torch.as_tensor(signal, dtype=torch.float32).to(device)
+    salience, d_16, hop = hybrid_evidence(signal, sample_rate, block_size, model, batch_frames,
+                                          fmin=fmin, fmax=fmax, device=device)
+    n_out = int(signal.shape[-1]) // int(block_size)
+    f0 = decode_fused(salience, d_16, yin_weight=yin_weight, crepe_weight=crepe_weight,
+                      switch_per_octave=switch_per_octave, salience_floor=salience_floor,
+                      confidence_gate=confidence_gate, keep=cents_keep(fmin, fmax))
+    return interp_to_block_grid(f0, hop, n_out, block_size, sample_rate)

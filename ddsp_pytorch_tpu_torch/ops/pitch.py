@@ -108,7 +108,7 @@ def yin_emission(signal: torch.Tensor, sample_rate: int, block_size: int, fmin: 
     return emis + torch.tensor(penalty, device=d.device)
 
 
-def _first_argmin(x: torch.Tensor, dim: int) -> torch.Tensor:
+def first_argmin(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The first index at which `x` reaches its minimum along `dim` (ties to
     the lowest index, as jnp.argmin), exact on every device."""
     lowest = torch.amin(x, dim=dim, keepdim=True)
@@ -119,11 +119,12 @@ def _first_argmin(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.amin(torch.where(x == lowest, index, n), dim=dim)
 
 
-def switch_cost(n_bins: int, bins_per_octave: int) -> np.ndarray:
-    """The (n_bins, n_bins) float32 jump cost: SWITCH_PER_OCTAVE × the
-    distance in octaves (pitch.py:180-185)."""
+def switch_cost(n_bins: int, bins_per_octave: float, per_octave: float = SWITCH_PER_OCTAVE) -> np.ndarray:
+    """The (n_bins, n_bins) float32 jump cost: `per_octave` × the distance
+    in octaves (pitch.py:180-185; models/crepe.py's decoders use their own
+    per-octave cost on the 60-bin-an-octave cents grid)."""
     dist = np.abs(np.arange(n_bins)[:, None] - np.arange(n_bins)[None, :]) / bins_per_octave
-    return (SWITCH_PER_OCTAVE * dist).astype(np.float32)
+    return (per_octave * dist).astype(np.float32)
 
 
 def viterbi(emission: torch.Tensor, switch: torch.Tensor) -> np.ndarray:
@@ -137,9 +138,9 @@ def viterbi(emission: torch.Tensor, switch: torch.Tensor) -> np.ndarray:
     back = []
     for t in range(1, n_frames):
         total = cost[:, :, None] + switch  # (N, bins_prev, bins)
-        back.append(_first_argmin(total, dim=1))
+        back.append(first_argmin(total, dim=1))
         cost = torch.amin(total, dim=1) + emis[:, t]
-    last = _first_argmin(cost, dim=1).cpu().numpy()
+    last = first_argmin(cost, dim=1).cpu().numpy()
     back = torch.stack(back, dim=1).cpu().numpy() if back else np.zeros((emis.shape[0], 0, n_bins), np.int64)
     path = np.empty((emis.shape[0], n_frames), np.int64)
     path[:, -1] = last

@@ -112,12 +112,12 @@ def voice_ramp(bundle: str, voices, blocks: int = 200, include_reverb: bool = Fa
         launches = osc.oscillator_bank.launches - launches
         traced = {}
         if on_card:
-            with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+            with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
                 t0 = time.perf_counter()
                 for i in range(RAMP_TRACED):
                     pool.step(requests(RAMP_WARMUP + blocks + i))
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            kernels, busy_ms = _device_kernels(prof)
+            kernels, busy_ms = device_kernels(prof)
             traced = {"traced_block_ms": wall_ms / RAMP_TRACED,
                       "device_busy_ms_per_block": busy_ms / RAMP_TRACED,
                       "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -160,10 +160,10 @@ def voices_per_card_text(ramp: dict) -> str:
     return f"{v} (first failure at V={ramp['first_failed_voices']})"
 
 
-_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+PROFILER_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
 
-def _device_kernels(prof):
+def device_kernels(prof):
     """(the trace's device kernel events, their busy time in ms: the union
     of their intervals)."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -212,11 +212,11 @@ def main(argv=None) -> dict:
     untraced = _stream(synth, pitch, loud, args.blocks)
 
     synth.reset()
-    with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
         t0 = time.perf_counter()
         _stream(synth, pitch, loud, args.blocks)
         traced_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, busy_ms = _device_kernels(prof)
+    kernels, busy_ms = device_kernels(prof)
     by_name = defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1

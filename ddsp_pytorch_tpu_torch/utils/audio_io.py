@@ -13,6 +13,7 @@ default filter (a Kaiser-windowed sinc, β = 5) and its zero padding.
 from __future__ import annotations
 
 import math
+import re
 import wave
 
 import numpy as np
@@ -23,6 +24,8 @@ HALF_LEN_PER_RATE = 10
 KAISER_BETA = 5.0
 # outputs computed per block in resample_poly (bounds its temporary arrays)
 _OUT_BLOCK = 1 << 16
+# WAVE format tags that `wave` cannot decode, by name
+_WAV_FORMATS = {3: "IEEE float", 6: "A-law", 7: "mu-law", 0xFFFE: "extensible"}
 
 
 def pcm16(audio) -> np.ndarray:
@@ -45,10 +48,18 @@ def save_wav(path: str, audio, sample_rate: int) -> None:
 def read_pcm(path: str) -> tuple:
     """(samples (T,) or (T, channels), sample rate) of a PCM wav, in the
     integer types scipy.io.wavfile returns: uint8, int16, or int32 for 24-
-    and 32-bit samples (24-bit ones shifted into the top three bytes)."""
-    with wave.open(path, "rb") as f:
-        channels, width, sr = f.getnchannels(), f.getsampwidth(), f.getframerate()
-        raw = f.readframes(f.getnframes())
+    and 32-bit samples (24-bit ones shifted into the top three bytes).
+    Another format (IEEE-float WAV among them, which scipy reads and
+    `wave` cannot) raises a ValueError that names it."""
+    try:
+        with wave.open(path, "rb") as f:
+            channels, width, sr = f.getnchannels(), f.getsampwidth(), f.getframerate()
+            raw = f.readframes(f.getnframes())
+    except wave.Error as e:
+        m = re.search(r"unknown format: (\d+)", str(e))
+        tag = int(m.group(1)) if m else None
+        name = _WAV_FORMATS.get(tag, f"format {tag}" if m else str(e))
+        raise ValueError(f"{path}: {name} WAV is not supported (8, 16, 24 or 32-bit PCM only)") from e
     if width == 1:
         data = np.frombuffer(raw, np.uint8)
     elif width == 2:

@@ -91,3 +91,48 @@ def state_dict_to_flax(state_dict: dict) -> dict:
             node = node.setdefault(part, {})
         node[name] = np.array(arr.T if transpose else arr, order="C")
     return tree
+
+
+# CREPE (models/crepe.py): flax leaf → (state_dict leaf, axes permutation)
+#   conv kernel (k, in, out) → weight (out, in, k); both cross-correlate
+#   Dense kernel (in, out)   → weight (out, in)
+#   BatchNorm scale, bias    → weight, bias; batch_stats mean, var →
+#                              running_mean, running_var
+_CREPE_PARAM = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_CREPE_STAT = {"mean": "running_mean", "var": "running_var"}
+
+
+def crepe_state_dict_from_flax(tree: dict) -> dict:
+    """A CREPE `{params, batch_stats}` tree (numpy, as msgpack_restore
+    gives it) → the state_dict of models/crepe.py's CREPE, float32."""
+    out = {}
+    for collection, leaves in (("params", _CREPE_PARAM), ("batch_stats", _CREPE_STAT)):
+        for layer, node in tree[collection].items():
+            for leaf, value in node.items():
+                if leaf not in leaves:
+                    raise KeyError(f"unknown CREPE leaf {collection}/{layer}/{leaf}")
+                arr = np.asarray(value, np.float32)
+                if leaf == "kernel":
+                    arr = arr.T  # (k, in, out) → (out, in, k); (in, out) → (out, in)
+                out[f"{layer}.{leaves[leaf]}"] = torch.tensor(np.array(arr, order="C"))
+    return out
+
+
+def crepe_flax_from_state_dict(state_dict: dict) -> dict:
+    """The inverse of crepe_state_dict_from_flax: a CREPE state_dict → the
+    `{params, batch_stats}` tree of float32 numpy arrays."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    stats = {v: k for k, v in _CREPE_STAT.items()}
+    for key, value in state_dict.items():
+        layer, leaf = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf in stats:
+            tree["batch_stats"].setdefault(layer, {})[stats[leaf]] = np.array(arr, order="C")
+        elif leaf == "weight":
+            name = "scale" if arr.ndim == 1 else "kernel"
+            tree["params"].setdefault(layer, {})[name] = np.array(arr.T if arr.ndim > 1 else arr, order="C")
+        elif leaf == "bias":
+            tree["params"].setdefault(layer, {})["bias"] = np.array(arr, order="C")
+        else:
+            raise KeyError(f"unknown CREPE state_dict key {key}")
+    return tree

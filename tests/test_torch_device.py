@@ -28,6 +28,7 @@ from ddsp_pytorch_tpu_torch.training.train import loss_and_grads
 BUNDLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "pretrained", "ddsp_violin_bundle")
 AE_BUNDLE = os.path.join(os.path.dirname(BUNDLE), "ddsp_violin_ae_bundle")
+SIGMUND_BUNDLE = os.path.join(os.path.dirname(BUNDLE), "ddsp_sigmund_bundle")
 
 
 @pytest.fixture
@@ -137,7 +138,8 @@ def _setup(datamodule):
 @pytest.mark.parametrize(
     "entry",
     ["Datamodule-device-cache", "Trainer-autoencoder", "make_synthetic_dataset", "extract_loudness",
-     "extract_pitch", "preprocess_folder", "preprocess-cli", "train_pretrained-cli"],
+     "extract_pitch", "preprocess_folder", "preprocess-cli", "train_pretrained-cli", "extract_pitch_crepe",
+     "extract_pitch_hybrid", "make_pitch_fn-hybrid", "timbre_transfer", "transfer-cli"],
 )
 def test_feature_and_training_entry_points_raise_without_cuda(no_cuda, tmp_path, entry):
     """The entry points of the autoencoder's training path default to the
@@ -145,8 +147,11 @@ def test_feature_and_training_entry_points_raise_without_cuda(no_cuda, tmp_path,
     raises where it places data on the device (its device-resident
     loader).  Each takes the plain path only with device='cpu'."""
     from ddsp_pytorch_tpu_torch import preprocess as preprocess_cli
-    from ddsp_pytorch_tpu_torch import train_pretrained
+    from ddsp_pytorch_tpu_torch import train_pretrained, transfer
     from ddsp_pytorch_tpu_torch.data import Datamodule, make_synthetic_dataset, preprocess_folder
+    from ddsp_pytorch_tpu_torch.data.preprocess import make_pitch_fn
+    from ddsp_pytorch_tpu_torch.inference import timbre_transfer
+    from ddsp_pytorch_tpu_torch.models.crepe import CREPE, extract_pitch_crepe, extract_pitch_hybrid
     from ddsp_pytorch_tpu_torch.ops import extract_loudness, extract_pitch
 
     cfg = _wav_folder(tmp_path)
@@ -162,6 +167,13 @@ def test_feature_and_training_entry_points_raise_without_cuda(no_cuda, tmp_path,
         "preprocess-cli": lambda: preprocess_cli.main(["--config", str(tmp_path / "cfg.yaml")]),
         "train_pretrained-cli": lambda: train_pretrained.main(
             ["--model", "mfcc-autoencoder", "--root", str(tmp_path / "root"), "--out", str(tmp_path / "out")]),
+        "extract_pitch_crepe": lambda: extract_pitch_crepe(x, 16000, 256, CREPE("micro").eval()),
+        "extract_pitch_hybrid": lambda: extract_pitch_hybrid(x, 16000, 256, CREPE("micro").eval()),
+        "make_pitch_fn-hybrid": lambda: make_pitch_fn(Config.from_dict(
+            {"preprocess": {"pitch_tracker": "hybrid"}})),
+        "timbre_transfer": lambda: timbre_transfer(SIGMUND_BUNDLE, np.zeros(48000, np.float32), 48000),
+        "transfer-cli": lambda: transfer.main(["--bundle", SIGMUND_BUNDLE, "--input", str(tmp_path / "data" / "train"
+                                               / "a.wav"), "--output", str(tmp_path / "out.wav")]),
     }
     if entry == "Datamodule-device-cache":
         cfg.preprocess.out_dir = str(tmp_path / "features")
@@ -172,7 +184,7 @@ def test_feature_and_training_entry_points_raise_without_cuda(no_cuda, tmp_path,
                         np.zeros((2, 4096 if name == "signals" else 16), np.float32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[entry]()
-    for written in ("syn", "cache", "run", "root/runs", "out"):
+    for written in ("syn", "cache", "run", "root/runs", "out", "out.wav"):
         assert not (tmp_path / written).exists(), written
 
 
@@ -560,3 +572,27 @@ def test_features_on_cuda_match_cpu(cuda, tmp_path):
                                extract_loudness(x, 16000, 256, device="cpu").numpy(), atol=1e-3)
     np.testing.assert_allclose(extract_pitch(x, 16000, 256, device=cuda).cpu().numpy(),
                                extract_pitch(x, 16000, 256, device="cpu").numpy(), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_crepe_on_cuda_ignores_global_tf32(cuda):
+    """The shipped CREPE on the card equals the CPU (salience within 1e-5,
+    logits within 1e-4) with TF32 allowed globally for cuDNN and cuBLAS:
+    the forward scopes both off itself.  The flags are restored."""
+    from ddsp_pytorch_tpu_torch.models.crepe import load_crepe
+
+    shipped = os.path.join(os.path.dirname(BUNDLE), "crepe_tiny.msgpack")
+    frames = torch.tensor(np.random.default_rng(9).standard_normal((256, 1024)).astype(np.float32))
+    with torch.no_grad():
+        want = load_crepe(shipped, device="cpu")(frames)
+        gpu = load_crepe(shipped, device=cuda)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = gpu(frames.to(cuda)).cpu()
+            assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+    assert float((got - want).abs().max()) <= 1e-4
+    assert float((torch.sigmoid(got) - torch.sigmoid(want)).abs().max()) <= 1e-5

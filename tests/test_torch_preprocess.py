@@ -2,7 +2,8 @@
 `preprocess_folder`, on the CPU, on the same folder of wav files: two
 violin notes of the synthetic corpus, one written at the config's 16 kHz,
 the other at 44.1 kHz (resampled on load), each padded to whole chunks of
-16384 samples, with `pitch_tracker: yin`.
+16384 samples, with `pitch_tracker: yin`, and then with the two CREPE
+trackers.
 
 Tolerances, per cache file:
   * signals.npy: within 1e-4 of the peak (the resampled file: scipy filters
@@ -86,13 +87,18 @@ def test_cli_writes_the_cache(folder, tmp_path):
 
 
 @pytest.mark.parametrize("tracker", ["hybrid", "crepe"])
-def test_crepe_trackers_raise(folder, tracker):
-    cfg = Config.from_dict(_raw(folder / "data", folder / "never", tracker))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_pitch_fn(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=tracker):
-        preprocess_folder(folder / "data", "train", cfg, device="cpu")
-    assert not os.path.exists(folder / "never")
+def test_crepe_trackers_match_jax(folder, tracker):
+    """The CREPE trackers (the shipped pretrained/crepe_tiny.msgpack) run
+    in the port's preprocessing, all of a file's chunks in one batched
+    call, and give the JAX package's pitch (1e-3 relative, as above)."""
+    data = folder / "data"
+    preprocess_folder(data, "train", Config.from_dict(_raw(data, folder / f"port_{tracker}", tracker)), device="cpu")
+    jax_preprocess_folder(data, "train", JaxConfig.from_dict(_raw(data, folder / f"jax_{tracker}", tracker)))
+    got = np.load(folder / f"port_{tracker}" / "train" / "pitchs.npy")
+    want = np.load(folder / f"jax_{tracker}" / "train" / "pitchs.npy")
+    assert got.shape == want.shape == (4, LENGTH // BLOCK) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=PITCH_RTOL)
+    assert callable(make_pitch_fn(Config.from_dict(_raw(data, folder / "x", tracker)), device="cpu"))
 
 
 def test_unknown_tracker_and_missing_partition(folder):
