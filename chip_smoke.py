@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, pitch-tracking and timbre-transfer
-and check them.
+"""Drive the PyTorch/CUDA port's serving, training, pitch-tracking, timbre-transfer,
+benchmark, drift-soak and native realtime paths and check them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -16,7 +16,9 @@ is printed):
      the card at the serving shape and at larger shapes (the forward also
      against a float64 numpy oracle), with its time, the plain version's
      time, the bound and the share of the bound, at the pool's shapes too
-     (R = 2, 256, 1024, 2048) and timbre transfer's (R = 281); both
+     (R = 2, 256, 1024, 2048), timbre transfer's (R = 281), the headline's
+     (R = 128, K = 100), the realtime soak's (R = 2, K = 100) and the drift
+     soak's (R = 16 and 64, K = 8); both
      roofline probes against their plain versions in float32 and float64;
      OscillatorBank's gradients
      (both kernels) against autograd through the plain forward at the
@@ -114,11 +116,30 @@ is printed):
      1e-2 (the f0 controls within 1e-5 relative); one forward launch a
      call, seconds a call and the realtime factor), and the transfer CLI
      into a temporary file;
- 14. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 14. headline: the port's bench.py (×-realtime at 48 kHz, 100 harmonics,
+     hidden 512, batch 1: the best of 8 protocol runs of 20 synchronized
+     calls, and the value-pull figure), one forward launch a call, then
+     performance.py on the violin bundle at batch 1;
+ 15. drift soak: soak.py's phase drift over 1e7 samples on the card (the
+     float32 phase carry within 1e-3 rad of the float64 oracle at every
+     checkpoint, finite audio, the GRU carry within ±1) and on the CPU (the
+     card's phase within 1e-3 rad of the CPU's), and its pool churn over
+     2e6 samples (a long-lived slot within 1e-5 of its independent stream);
+ 16. realtime path: build_runtime() (g++) from this checkout and
+     stream_test; the CPython-embedded model host through ctypes in this
+     process on the violin and violin-AE bundles, equal to the Python
+     session on the card (1e-5) and, noise off, to the CPU plain session
+     (1e-4 and 1e-3 of the peak), one forward launch a rendered block, its
+     perform ms beside the session's; ddsp_host for 10 s of audio (its
+     timing report); pd_mock_test rendering the violin bundle through
+     ddsp~; selftest --soak 30 at realtime pacing: no underrun, render
+     p50/p99 against the 21.3 ms engine-block budget;
+ 17. report: one JSON line {"kernels": [...]} (all four kernels; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
-     synthetic, training_autoencoder, timbre_transfer and, for the probes,
-     roofline; the forward's `launches` is timbre transfer's), the card's
+     synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
+     runtime_host and, for the probes, roofline; the forward's `launches`
+     is the headline's, its times at the headline's shape), the card's
      name and power limit, and last {"ok": true, "device": {...}}.
 
 Imports torch, numpy, the standard library and ddsp_pytorch_tpu_torch only.
@@ -128,6 +149,7 @@ Exits nonzero when torch.cuda.is_available() is false.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import re
@@ -142,7 +164,7 @@ import wave
 import numpy as np
 import torch
 
-from ddsp_pytorch_tpu_torch import bench_roofline, serve, train_pretrained, transfer
+from ddsp_pytorch_tpu_torch import bench, bench_roofline, export, performance, runtime, serve, soak, train_pretrained, transfer
 from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import Datamodule, Dataset, DeviceDataLoader, make_synthetic_dataset
@@ -176,6 +198,7 @@ from ddsp_pytorch_tpu_torch.profile_serving import (
     voices_per_card_text,
 )
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
+from ddsp_pytorch_tpu_torch.runtime import ModelHost, selftest
 from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
 from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer
 from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
@@ -255,10 +278,16 @@ N_REQUESTS = 8
 # the main paths' shapes.
 GRAPHED_SHAPE = (3000, 64, 512)
 # phase 13d's shape: timbre transfer renders a 3 s 48 kHz clip (281 frames)
-# in one launch; the forward's JSON entry is taken here (this slice's path)
+# in one launch
 TRANSFER_SHAPE = (281, 64, 512)
+# phase 14's shape: the headline renders 128 frames of a 100-harmonic voice
+# a call (the runtime-K variant); the forward's JSON entry is taken here.
+# Phases 15-16: the realtime soak's engine block (2 frames, 100 harmonics),
+# the drift soak's call (16 frames, 8 harmonics) and its 4-voice pool's
+HEADLINE_SHAPE = (128, 100, 512)
 KERNEL_SHAPES = ((1, 64, 512), (6000, 64, 512), GRAPHED_SHAPE, (37, 100, 512), (6000, 100, 512),
-                 (5, 1, 64), (2, 64, 512), (256, 64, 512), (1024, 64, 512), (2048, 64, 512), TRANSFER_SHAPE)
+                 (5, 1, 64), (2, 64, 512), (256, 64, 512), (1024, 64, 512), (2048, 64, 512), TRANSFER_SHAPE,
+                 HEADLINE_SHAPE, (2, 100, 512), (16, 8, 512), (64, 8, 512))
 # The exported 100-step model's stream: GPU vs CPU within this share of the
 # stream's peak as well as STREAM_GPU_VS_CPU_ATOL (the model plays near
 # silence, where that absolute bound alone could not fail a wrong kernel).
@@ -325,6 +354,19 @@ TRACK_CENTS, RPA_CENTS = 1.0, 50.0
 # at +1 octave, NVIDIA H100 80GB HBM3, 700.00 W)
 TRANSFER_F0_REL, TRANSFER_CONTROL_F0_REL = 0.03, 1e-5
 TRANSFER_REL_OF_PEAK, TRANSFER_WHOLE_REL_OF_PEAK = 1e-3, 1e-2
+# the drift soak (phase 15): 1e7 samples of phase drift (1220 calls of 16
+# frames), 2e6 of pool churn; the phase carry within 1e-3 rad of the float64
+# oracle (the port's error walks one float32 rounding a call, at most
+# 2.4e-7 rad: ~1e-5 expected), the card's phase within 1e-3 rad of the
+# CPU's, a pooled slot within 1e-5 of its independent stream
+SOAK_SAMPLES, SOAK_POOL_SAMPLES = int(1e7), int(2e6)
+DRIFT_MAX_RAD, POOL_ISOLATION_ATOL = 1e-3, 1e-5
+# the model host against the Python session on the card (the same session,
+# driven through the embedded interpreter)
+HOST_VS_SESSION_ATOL = 1e-5
+N_HOST_BLOCKS = 64
+DDSP_HOST_SECONDS = 10
+REALTIME_SOAK_SECONDS = 30
 
 
 def check(cond: bool, msg: str) -> None:
@@ -402,7 +444,7 @@ def oscillator_f64(phi, omega, amp, s: int) -> np.ndarray:
 def phase_kernels(device, kernel_ms: dict) -> dict:
     """Phase 2: the oscillator kernel against its plain version and the
     float64 oracle; times at every shape, also put in `kernel_ms` (keyed
-    as bench_roofline keys them).  Returns the entry at timbre transfer's
+    as bench_roofline keys them).  Returns the entry at the headline's
     shape."""
     rng = np.random.default_rng(SEED)
     cycles_per_ms = sleep_cycles_per_ms()
@@ -438,7 +480,7 @@ def phase_kernels(device, kernel_ms: dict) -> dict:
             f"host_call_ms: kernel={call_ms:.6f} plain={plain_call_ms:.6f}",
             flush=True,
         )
-        if (rows, k, s) == TRANSFER_SHAPE:
+        if (rows, k, s) == HEADLINE_SHAPE:
             entry = {
                 "name": "oscillator_fwd",
                 "route": "cuda",
@@ -451,7 +493,7 @@ def phase_kernels(device, kernel_ms: dict) -> dict:
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": None,  # no single PyTorch call computes this bank
-                "rows_harmonics_samples": list(TRANSFER_SHAPE),
+                "rows_harmonics_samples": list(HEADLINE_SHAPE),
             }
     return entry
 
@@ -2039,6 +2081,166 @@ def phase_transfer(device, tmp: str) -> int:
     return osc.oscillator_bank.launches
 
 
+def phase_headline(device, card: str) -> int:
+    """Phase 14, with the kernel counts set to 0 just before it: the port's
+    bench.py (×-realtime at 48 kHz, 100 harmonics, hidden 512; dispatch and
+    value-pull), one forward launch a synth call, then performance.py on the
+    violin bundle at batch 1.  Returns its forward launches."""
+    osc.reset_kernel_counts()
+    line = bench.main(["--device", str(device)])
+    bench_launches = osc.oscillator_bank.launches
+    r = performance.run_benchmark(BUNDLE, n_run=10, batch=1, device=device)
+    launches = osc.oscillator_bank.launches
+    print(f"headline: {line['value']:.3f}x realtime dispatch ({line['mean_ms_per_call']:.4f} ms a "
+          f"{line['audio_ms_per_call']:.1f} ms call), {line['value_pull_x_realtime']:.3f}x value-pull "
+          f"({line['value_pull_ms_per_call']:.4f} ms); forward launches {bench_launches} for "
+          f"{line['calls']} calls; card {card}", flush=True)
+    print(f"performance.py {BUNDLE} batch 1: average of {r['mean_ms']:.4f} ms to generate "
+          f"{r['audio_ms']:.2f} ms over 10 trials, {r['x_realtime']:.3f}x realtime on {r['device_name']}; "
+          f"forward launches {launches - bench_launches} for {r['calls']} calls", flush=True)
+    check(bench_launches == line["calls"], f"headline: {bench_launches} forward launches, {line['calls']} calls")
+    check(launches - bench_launches == r["calls"], "performance.py: not one forward launch a call")
+    check(line["value"] > 1 and line["value_pull_x_realtime"] > 1 and r["x_realtime"] > 1,
+          "synthesis slower than realtime")
+    return launches
+
+
+def phase_drift(device) -> int:
+    """Phase 15, with the kernel counts set to 0 just before it: soak.py's
+    phase drift over SOAK_SAMPLES and pool churn over SOAK_POOL_SAMPLES on
+    the card, then the same phase drift on the CPU.  Returns the card run's
+    forward launches."""
+    osc.reset_kernel_counts()
+    drift = soak.phase_drift_soak(SOAK_SAMPLES, device=device)
+    churn = soak.pool_churn_soak(SOAK_POOL_SAMPLES, device=device)
+    launches = osc.oscillator_bank.launches
+    cpu = soak.phase_drift_soak(SOAK_SAMPLES, device="cpu")
+    n_calls = drift["total_samples"] // (soak.FRAMES_PER_CALL * 512)
+    pool_calls = churn["total_samples"] // (soak.FRAMES_PER_CALL * 512)
+    card_vs_cpu = max(soak.circular_err(g["phase_f32"], c["phase_f32"])
+                      for g, c in zip(drift["checkpoints"], cpu["checkpoints"]))
+    print(f"drift soak: {drift['total_samples']} samples ({drift['hours_at_sr']:.4f} h) on the card in "
+          f"{drift['wall_s']:.2f} s: max |phase - oracle| {drift['max_abs_err_rad']:.3e} rad, final "
+          f"{drift['final_abs_err_rad']:.3e}; CPU max {cpu['max_abs_err_rad']:.3e} rad in {cpu['wall_s']:.2f} s; "
+          f"card vs CPU phase max {card_vs_cpu:.3e} rad; audio peak {drift['audio_peak']:.4f}, "
+          f"gru carry max {drift['gru_carry_max_abs']:.4f}; pool churn {churn['total_samples']} samples, "
+          f"{churn['churn_events']} churns: hero vs solo {churn['hero_vs_solo_max_abs_diff']:.3e}; "
+          f"forward launches {launches} for {n_calls} + 2 x {pool_calls} calls", flush=True)
+    print(json.dumps({"drift_soak_checkpoints": [[c["samples"], c["abs_err_rad"]] for c in drift["checkpoints"]]}),
+          flush=True)
+    check(drift["max_abs_err_rad"] <= DRIFT_MAX_RAD, f"phase drift {drift['max_abs_err_rad']}")
+    check(cpu["max_abs_err_rad"] <= DRIFT_MAX_RAD and card_vs_cpu <= DRIFT_MAX_RAD, "card vs CPU phase")
+    check(churn["hero_vs_solo_max_abs_diff"] < POOL_ISOLATION_ATOL, f"pool isolation {churn}")
+    check(drift["gru_carry_max_abs"] <= 1.0 and 0 < drift["audio_peak"] < 100.0, "soak state")
+    check(launches == n_calls + 2 * pool_calls, f"drift soak launches {launches}")
+    return launches
+
+
+def _host_vs_session(bundle: str, device, pitch, loud, audio=None) -> dict:
+    """The in-process model host against the Python session on the card
+    (same seed, so the same noise), block by block; with the noise off,
+    against the CPU plain session.  Returns launches, errors and ms."""
+    block = 512
+    n_blocks = len(pitch) // block
+    feeds = [(pitch[i * block:(i + 1) * block], loud[i * block:(i + 1) * block],
+              None if audio is None else audio[i * block:(i + 1) * block]) for i in range(n_blocks)]
+
+    def session_out(x):
+        return x[0].cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def session_step(s, p, l, a):
+        return session_out(s.step_samples(p[None], l[None]) if a is None else s.step_samples(p, l, a))
+
+    host, twin = ModelHost(bundle), make_stream_session(bundle, device=device)
+    osc.reset_kernel_counts()
+    got, host_ms = [], []
+    for p, l, a in feeds:
+        t0 = time.perf_counter()
+        got.append(host.perform(p, l, a))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = osc.oscillator_bank.launches
+    want, session_ms = [], []
+    for p, l, a in feeds:
+        t0 = time.perf_counter()
+        want.append(session_step(twin, p, l, a))
+        session_ms.append((time.perf_counter() - t0) * 1e3)
+    host.close()
+    got, want = np.concatenate(got), np.concatenate(want)
+    # the noise off: the card's host against the CPU plain session
+    plain = export.make_stream_session
+    export.make_stream_session = functools.partial(plain, noise_deterministic=True)
+    try:
+        det = ModelHost(bundle)
+    finally:
+        export.make_stream_session = plain
+    cpu = make_stream_session(bundle, device="cpu", noise_deterministic=True)
+    det_out = np.concatenate([det.perform(p, l, a) for p, l, a in feeds])
+    cpu_out = np.concatenate([session_step(cpu, p, l, a) for p, l, a in feeds])
+    det.close()
+    return {"launches": launches, "blocks": n_blocks, "err_session": float(np.abs(got - want).max()),
+            "err_cpu": float(np.abs(det_out - cpu_out).max()), "peak": float(np.abs(got).max()),
+            "peak_det": float(np.abs(det_out).max()), "finite": bool(np.isfinite(got).all()),
+            "first_block_silent": bool(np.all(got[:block] == 0)),
+            "host_ms": np.percentile(host_ms[1:], [50, 99]), "session_ms": np.percentile(session_ms[1:], [50, 99])}
+
+
+def phase_realtime(device, card: str, tmp: str) -> int:
+    """Phase 16: the native realtime path.  build_runtime() from this
+    checkout's sources (g++) and stream_test; the model host through ctypes
+    in this process on the violin and violin-AE bundles (kernel counts set
+    to 0 just before each host stream) against the Python session on the
+    card and, with the noise off, the CPU plain session, one forward launch
+    a model block; ddsp_host for DDSP_HOST_SECONDS of audio; pd_mock_test
+    rendering the violin bundle through ddsp~; selftest --soak at realtime
+    pacing, which must count no underrun.  Returns the host's forward
+    launches."""
+    shutil.rmtree(runtime.BUILD_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    built = runtime.build_runtime()
+    print(f"runtime build (g++, 6 outputs in 2 parallel stages) wall s={time.perf_counter() - t0:.2f} "
+          f"into {os.path.relpath(built)}", flush=True)
+    rc, out, secs = runtime.run_binary("stream_test", timeout=120)
+    print(f"stream_test rc={rc} in {secs:.2f} s: {' | '.join(out.strip().splitlines())}", flush=True)
+    check(rc == 0 and "PASS (5 tests)" in out, "stream_test failed")
+
+    pitch, loud = glide(N_HOST_BLOCKS, 512)
+    dec = _host_vs_session(BUNDLE, device, pitch[0], loud[0])
+    n = N_HOST_BLOCKS * 512
+    t = np.arange(n) / 48000
+    f0 = 220.0 * 2.0 ** (t / t[-1])
+    audio_in = sum(0.3 / h * np.sin(h * 2 * np.pi * np.cumsum(f0) / 48000) for h in range(1, 6)).astype(np.float32)
+    ae = _host_vs_session(AE_BUNDLE, device, f0.astype(np.float32), np.full(n, -7.0, np.float32), audio_in)
+    for name, r, rendered in (("violin", dec, dec["blocks"]), ("violin AE", ae, ae["blocks"] - 1)):
+        print(f"model host in process ({name}, {r['blocks']} blocks): max|host-session on card|="
+              f"{r['err_session']:.3e}, noise off max|host on card - CPU plain|={r['err_cpu']:.3e} "
+              f"(peak {r['peak_det']:.4f}); forward launches {r['launches']} for {rendered} rendered blocks; "
+              f"host perform ms p50={r['host_ms'][0]:.4f} p99={r['host_ms'][1]:.4f}, python session "
+              f"(step and copy out) p50={r['session_ms'][0]:.4f} p99={r['session_ms'][1]:.4f}; card {card}",
+              flush=True)
+        check(r["finite"] and r["peak"] > 1e-3, f"{name}: host stream silent or not finite")
+        check(r["err_session"] <= HOST_VS_SESSION_ATOL, f"{name}: host vs session {r['err_session']}")
+        check(r["err_cpu"] <= STREAM_GPU_VS_CPU_ATOL and r["err_cpu"] <= EXPORT_STREAM_REL_OF_PEAK * r["peak_det"],
+              f"{name}: host vs CPU {r['err_cpu']} (peak {r['peak_det']})")
+        check(r["launches"] == rendered, f"{name}: {r['launches']} forward launches for {rendered} blocks")
+    check(ae["first_block_silent"], "AE host: the first block is not the session's silent block")
+
+    rc, out, secs = runtime.run_binary("ddsp_host", os.path.abspath(BUNDLE), str(DDSP_HOST_SECONDS), "64",
+                                       os.getcwd(), timeout=300, cwd=tmp)
+    print(f"ddsp_host ({DDSP_HOST_SECONDS} s of audio, 64-sample ticks, unpaced) rc={rc} in {secs:.2f} s: "
+          f"{' | '.join(out.strip().splitlines())}", flush=True)
+    check(rc == 0 and "rendered" in out and os.path.exists(os.path.join(tmp, "ddsp_host_out.wav")), "ddsp_host")
+    rc, out, secs = runtime.run_binary("pd_mock_test", runtime.runtime_path("ddsp~.pd_linux"),
+                                       os.path.abspath(BUNDLE), timeout=300)
+    print(f"pd_mock_test ddsp~ {BUNDLE} rc={rc} in {secs:.2f} s: {' | '.join(out.strip().splitlines())}",
+          flush=True)
+    check(rc == 0 and "pd_mock_test ok (bundle" in out, "pd_mock_test")
+
+    result = selftest.soak(REALTIME_SOAK_SECONDS, device=device)
+    print(json.dumps(result), flush=True)
+    check(result["underruns"] == 0, f"realtime soak counted {result['underruns']} underruns")
+    return dec["launches"] + ae["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2097,20 +2299,27 @@ def main() -> int:
         phase_default_preprocess(device, tmp)
         transfer_fwd = phase_transfer(device, tmp)
     check(transfer_fwd > 0, "oscillator_fwd not launched on the timbre-transfer path")
-    # launches: this slice's main path, timbre transfer
-    fwd_entry["launches"] = transfer_fwd
+    headline_fwd = phase_headline(device, card)
+    drift_fwd = phase_drift(device)
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_runtime_") as tmp:
+        host_fwd = phase_realtime(device, card, tmp)
+    check(headline_fwd > 0 and drift_fwd > 0 and host_fwd > 0,
+          "oscillator_fwd not launched on the headline, drift-soak or model-host path")
+    # launches: this slice's main path, the headline
+    fwd_entry["launches"] = headline_fwd
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
                                      "serving_exported": exported_fwd, "serving_pool": pool_fwd,
                                      "serving_autoencoder": ae_fwd, "synthetic": synthetic_fwd,
                                      "training_autoencoder": ae_train["oscillator_fwd"],
-                                     "timbre_transfer": transfer_fwd}
+                                     "timbre_transfer": transfer_fwd, "headline": headline_fwd,
+                                     "drift_soak": drift_fwd, "runtime_host": host_fwd}
     bwd_entry["launches"] = ae_train["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
                                      "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0,
                                      "synthetic": 0, "training_autoencoder": ae_train["oscillator_bwd"],
-                                     "timbre_transfer": 0}
+                                     "timbre_transfer": 0, "headline": 0, "drift_soak": 0, "runtime_host": 0}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)

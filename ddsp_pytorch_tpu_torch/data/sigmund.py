@@ -6,10 +6,10 @@ channel 1 the pitch in Hz (sigmund~ → mtof), channel 2 the loudness.  The
 file is chunked to signal_length and the pitch and loudness channels are
 decimated by block_size into the .npy cache.
 
-The wav is read with the standard library's `wave` (utils/audio_io.read_pcm,
-the integer types scipy.io.wavfile gives, scaled as the JAX function
-scales them), which reads PCM only: an IEEE-float wav, which the JAX
-package reads through scipy, raises a ValueError that names its format.
+The wav is read by utils/audio_io.read_wav, which returns the types
+scipy.io.wavfile gives, PCM and IEEE float alike; they are scaled as the
+JAX function scales them.  The pitch channel holds Hz, so only a float
+wav (as Pd and scripts/train_sigmund.py write) carries it unclipped.
 """
 
 from __future__ import annotations
@@ -19,13 +19,13 @@ import os
 import numpy as np
 
 from ddsp_pytorch_tpu_torch.config import Config
-from ddsp_pytorch_tpu_torch.utils.audio_io import read_pcm
+from ddsp_pytorch_tpu_torch.utils.audio_io import read_wav
 
 
 def preprocess_from_sigmund(wav_path: str, config: Config, partition: str | None = None) -> None:
     """One 3-channel sigmund wav → {signals,pitchs,loudness}.npy under
     preprocess.out_dir (/partition, if given)."""
-    x, sr = read_pcm(wav_path)
+    x, sr = read_wav(wav_path)
     pc = config.preprocess
     if sr != pc.sample_rate:
         raise ValueError(f"wav rate {sr} != config {pc.sample_rate}")

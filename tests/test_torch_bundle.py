@@ -3,7 +3,8 @@
 Every committed bundle's params.msgpack decodes bit-identically to
 flax.serialization.msgpack_restore; meta.json gives the model; and the port
 (and chip_smoke.py) import with jax, flax, msgpack, yaml and the JAX package
-made unimportable.
+made unimportable; the native runtime's C++ includes only its own files
+and embeds only the port's export module.
 """
 
 import ast
@@ -14,9 +15,20 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from flax import serialization
 
 from ddsp_pytorch_tpu_torch import bundle, weights
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNDLES = sorted(glob.glob(os.path.join(REPO, "pretrained", "ddsp_*_bundle")))
@@ -150,6 +162,43 @@ def test_no_forbidden_imports_in_source(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+RUNTIME = os.path.join(PORT, "runtime")
+RUNTIME_SOURCES = sorted(
+    os.path.relpath(p, REPO) for ext in ("cpp", "h")
+    for p in glob.glob(os.path.join(RUNTIME, "**", f"*.{ext}"), recursive=True)
+)
+# the Python modules the embedded model host may import
+HOST_PYTHON_MODULES = {"ddsp_pytorch_tpu_torch.export", "numpy", "torch"}
+
+
+@pytest.mark.parametrize("path", RUNTIME_SOURCES)
+def test_runtime_sources_stay_in_the_port(path):
+    """The native runtime's C++: every quoted #include resolves inside
+    ddsp_pytorch_tpu_torch/runtime/ (the package's own copies, never the
+    JAX package's by path), no system include names a JAX-package path,
+    and the only Python modules the host imports are the port's export
+    module, numpy and torch."""
+    import re
+
+    text = open(os.path.join(REPO, path)).read()
+    here = os.path.dirname(os.path.join(REPO, path))
+    for quoted in re.findall(r'#\s*include\s*"([^"]+)"', text):
+        found = [os.path.normpath(os.path.join(d, quoted)) for d in (here, os.path.join(RUNTIME, "pd"))
+                 if os.path.exists(os.path.join(d, quoted))]
+        assert found, f"{path}: #include \"{quoted}\" resolves nowhere in the runtime"
+        assert all(f.startswith(RUNTIME + os.sep) for f in found), f"{path}: {quoted} leaves the runtime"
+    for system in re.findall(r"#\s*include\s*<([^>]+)>", text):
+        assert "ddsp_pytorch_tpu" not in system and not system.startswith("/"), f"{path}: <{system}>"
+    imported = set(re.findall(r'PyImport_ImportModule\(\s*"([^"]+)"', text))
+    assert imported <= HOST_PYTHON_MODULES, f"{path} imports {imported - HOST_PYTHON_MODULES}"
+    assert {m for m in imported if m.startswith("ddsp_")} <= {"ddsp_pytorch_tpu_torch.export"}
+    assert "PyRun_" not in text and "PyImport_Import(" not in text, f"{path} runs other Python"
+    for word in FORBIDDEN[:-1]:
+        assert not re.search(rf'"[^"\n]*\b{word}\b[^"\n]*"', text), f"{path} names {word} in a string"
+    if path.endswith("ddsp_model.cpp"):
+        assert imported == HOST_PYTHON_MODULES
 
 
 def test_port_imports_with_jax_stack_blocked():

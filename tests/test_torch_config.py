@@ -7,10 +7,21 @@ import math
 import os
 
 import pytest
+import torch
 import yaml
 
 from ddsp_pytorch_tpu.config import Config as JaxConfig
 from ddsp_pytorch_tpu_torch.config import Config, dump_yaml, load_yaml
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML_FILES = sorted(

@@ -38,6 +38,16 @@ from ddsp_pytorch_tpu_torch.models import crepe as P
 from ddsp_pytorch_tpu_torch.ops.pitch import switch_cost
 from ddsp_pytorch_tpu_torch.weights import crepe_flax_from_state_dict, crepe_state_dict_from_flax
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "pretrained", "crepe_tiny.msgpack")
 LOGITS_ATOL, SALIENCE_ATOL, FRESH_ATOL, LAYER_ATOL = 1e-4, 1e-5, 1e-5, 1e-5

@@ -15,15 +15,26 @@ import numpy as np
 import pytest
 import torch
 
-from ddsp_pytorch_tpu_torch import resolve_device
+from ddsp_pytorch_tpu_torch import bench, performance, resolve_device, soak
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.export import export_run, load_bundle, make_stream_session, make_streaming_synth
 from ddsp_pytorch_tpu_torch.models import DDSPDecoder, init_params
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 from ddsp_pytorch_tpu_torch.ops import roofline
+from ddsp_pytorch_tpu_torch.runtime import selftest
 from ddsp_pytorch_tpu_torch.serve import StreamServer
 from ddsp_pytorch_tpu_torch.training import Trainer
 from ddsp_pytorch_tpu_torch.training.train import loss_and_grads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 BUNDLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "pretrained", "ddsp_violin_bundle")
@@ -57,9 +68,18 @@ def cuda():
         lambda: make_stream_session(AE_BUNDLE),
         lambda: StreamServer(BUNDLE, port=0, voices=4),
         lambda: StreamServer(AE_BUNDLE, port=0),
+        lambda: performance.run_benchmark(),
+        lambda: performance.run_benchmark(BUNDLE),
+        lambda: bench.main([]),
+        lambda: soak.phase_drift_soak(8192),
+        lambda: soak.pool_churn_soak(8192),
+        lambda: selftest.main(),
+        lambda: selftest.soak(1.0),
     ],
     ids=["make_streaming_synth", "explicit-cuda0", "load_bundle", "StreamServer", "export_run",
-         "make_stream_session", "StreamServer-pool", "StreamServer-autoencoder"],
+         "make_stream_session", "StreamServer-pool", "StreamServer-autoencoder", "run_benchmark",
+         "run_benchmark-bundle", "bench", "phase_drift_soak", "pool_churn_soak", "selftest",
+         "selftest-soak"],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -13,6 +13,15 @@ import torch
 from ddsp_pytorch_tpu import ops as jops
 from ddsp_pytorch_tpu_torch import ops
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 def _rng(seed):
     return np.random.default_rng(seed)

@@ -32,6 +32,7 @@ import wave
 
 import numpy as np
 import pytest
+import torch
 from scipy.io import wavfile
 
 import ddsp_pytorch_tpu.inference as jax_inference
@@ -47,6 +48,16 @@ from ddsp_pytorch_tpu_torch.data.nsynth import create_inst_view, filter_by_instr
 from ddsp_pytorch_tpu_torch.data.preprocess import make_pitch_fn
 from ddsp_pytorch_tpu_torch.data.sigmund import preprocess_from_sigmund
 from ddsp_pytorch_tpu_torch.utils import load_wav, save_wav
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNDLES = {name: os.path.join(REPO, "pretrained", f"ddsp_{name}_bundle") for name in ("sigmund", "oof_ae")}
@@ -188,9 +199,20 @@ def test_preprocess_from_sigmund_matches_jax(tmp_path, dtype):
 
 def test_preprocess_from_sigmund_refuses(tmp_path):
     port_cfg = Config.from_dict(_sigmund_raw(tmp_path / "never"))
-    wavfile.write(str(tmp_path / "float.wav"), 16000, np.zeros((300, 3), np.float32))
-    with pytest.raises(ValueError, match="IEEE float"):
-        preprocess_from_sigmund(str(tmp_path / "float.wav"), port_cfg)
+    # an IEEE-float sigmund wav (pitch in Hz) is read, as the JAX package reads it
+    rng = np.random.default_rng(6)
+    x = np.stack([rng.uniform(-0.5, 0.5, 300), rng.uniform(430, 450, 300), rng.uniform(-9, 0, 300)],
+                 axis=1).astype(np.float32)
+    wavfile.write(str(tmp_path / "float.wav"), 16000, x)
+    preprocess_from_sigmund(str(tmp_path / "float.wav"), Config.from_dict(_sigmund_raw(tmp_path / "fp")))
+    jax_from_sigmund(str(tmp_path / "float.wav"), JaxConfig.from_dict(_sigmund_raw(tmp_path / "fj")))
+    for name in ("signals", "pitchs", "loudness"):
+        np.testing.assert_array_equal(np.load(tmp_path / "fp" / f"{name}.npy"), np.load(tmp_path / "fj" / f"{name}.npy"))
+    a_law = bytearray((tmp_path / "float.wav").read_bytes())
+    a_law[20:22] = (6).to_bytes(2, "little")  # the fmt chunk's format tag
+    (tmp_path / "alaw.wav").write_bytes(bytes(a_law))
+    with pytest.raises(ValueError, match="A-law"):
+        preprocess_from_sigmund(str(tmp_path / "alaw.wav"), port_cfg)
     wavfile.write(str(tmp_path / "mono.wav"), 16000, np.zeros(300, np.int16))
     with pytest.raises(ValueError, match="3-channel"):
         preprocess_from_sigmund(str(tmp_path / "mono.wav"), port_cfg)

@@ -13,9 +13,20 @@ not compared.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ddsp_pytorch_tpu.ops import loudness as jax_loudness
 from ddsp_pytorch_tpu_torch.ops import loudness
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SR, BLOCK = 16000, 256
 ATOL = 1e-4

@@ -22,6 +22,16 @@ from ddsp_pytorch_tpu_torch.models.decoder import GRU, MLP
 from ddsp_pytorch_tpu_torch.models.modules import Reverb
 from ddsp_pytorch_tpu_torch.weights import flax_to_state_dict
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -25,6 +25,16 @@ from ddsp_pytorch_tpu.ops import phase_accumulate_frames as jax_phase
 from ddsp_pytorch_tpu.ops.pallas_kernels.oscillator import harmonic_synth_pallas
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

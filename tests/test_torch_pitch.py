@@ -23,6 +23,16 @@ from ddsp_pytorch_tpu.ops import pitch as jax_pitch
 from ddsp_pytorch_tpu_torch.ops import pitch
 from ddsp_pytorch_tpu_torch.utils import load_wav, save_wav
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SR, BLOCK = 16000, 256
 CMNDF_ATOL = 5e-5
 F0_RTOL = 1e-3

@@ -17,6 +17,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from ddsp_pytorch_tpu.config import Config as JaxConfig
 from ddsp_pytorch_tpu.data.preprocess import preprocess_folder as jax_preprocess_folder
@@ -25,6 +26,16 @@ from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import make_synthetic_dataset
 from ddsp_pytorch_tpu_torch.data.preprocess import get_files, make_pitch_fn, preprocess_folder
 from ddsp_pytorch_tpu_torch.utils import resample_poly, save_wav
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SR, BLOCK, LENGTH = 16000, 256, 16384
 SIGNAL_REL_OF_PEAK, PITCH_RTOL, LOUDNESS_ATOL, MFCC_REL_OF_PEAK = 1e-4, 1e-3, 1e-3, 1e-3

@@ -20,6 +20,16 @@ from ddsp_pytorch_tpu_torch.export import load_bundle, make_streaming_synth
 from ddsp_pytorch_tpu_torch.profile_serving import glide
 from ddsp_pytorch_tpu_torch.streaming import StreamState
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -27,12 +27,23 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ddsp_pytorch_tpu.data import make_synthetic_dataset as jax_make_synthetic_dataset
 from ddsp_pytorch_tpu.ops import extract_loudness as jax_extract_loudness
 from ddsp_pytorch_tpu.ops import harmonic_synth_frames as jax_harmonic_synth_frames
 from ddsp_pytorch_tpu.ops import mfcc as jax_mfcc
 from ddsp_pytorch_tpu_torch.data import make_synthetic_dataset
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs six test workers on shared cores,
+    where torch's default of a thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SR, BLOCK, LENGTH, K = 16000, 256, 16384, 8
 NAMES = ("signals", "pitchs", "loudness", "mfccs")
