@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, pitch-tracking, timbre-transfer,
-benchmark, drift-soak and native realtime paths and check them.
+benchmark, drift-soak, native realtime and out-of-family evidence paths and
+check them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -134,12 +135,38 @@ is printed):
      timing report); pd_mock_test rendering the violin bundle through
      ddsp~; selftest --soak 30 at realtime pacing: no underrun, render
      p50/p99 against the 21.3 ms engine-block budget;
- 17. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 17. pitch accuracy: pitch_accuracy.score_corpus on the card over
+     the default 16 kHz fixture corpus (9 notes): yin and the shipped
+     CREPE held to pretrained/pitch_accuracy.json (1089 frames, RPA@50c
+     within 0.005, median |cents| within 0.5), the card's YIN against the
+     CPU's on the scored frames;
+ 18. train_oof: the CLI at the reference width (48 kHz, hidden
+     512, 64 harmonics, 65 bands, reverb, batch 8, steps_per_call 25) on
+     the default fixture corpus for 150 steps: the loss falls, both
+     kernels replayed every step, steps/s, the first and last 10 losses
+     beside pretrained/oof_loss.json's; the exported bundle streamed on
+     the card against the CPU (1e-4, and 1e-3 of the peak);
+ 19. train_sigmund at a narrow config: the emulated sigmund~
+     wav ingested and trained in two segments (fresh child processes),
+     validated and exported; the same steps unsegmented in this process
+     (`train --profile`: its trace holds the graphed steps' CUDA kernels)
+     equal bit for bit; segments.jsonl's lines;
+ 20. CREPE training: one micro train step card vs CPU with the
+     same draws and dropout masks (loss and batch_stats within 1e-5); three
+     tiny steps traced; tiny at batch 256 for 300 steps (the loss falls,
+     the eval RPA rises, steps/s); the saved msgpack reloaded by
+     load_crepe with the same salience;
+ 21. hybrid sweep: tune_hybrid_pitch's cache and a 2 x 2 sweep
+     on one file, card against CPU: the same RPA;
+ 22. report: one JSON line {"kernels": [...]} (all four kernels; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
      synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
-     runtime_host and, for the probes, roofline; the forward's `launches`
-     is the headline's, its times at the headline's shape), the card's
+     runtime_host, pitch_accuracy, train_oof, train_sigmund (this
+     process's launches: the unsegmented run and the validation) and, for
+     the probes, roofline; both oscillator kernels' `launches` are
+     train_oof's, this slice's main path; the forward's times at the
+     headline's shape, the backward's at R = 3000, train_oof's), the card's
      name and power limit, and last {"ok": true, "device": {...}}.
 
 Imports torch, numpy, the standard library and ddsp_pytorch_tpu_torch only.
@@ -164,10 +191,13 @@ import wave
 import numpy as np
 import torch
 
-from ddsp_pytorch_tpu_torch import bench, bench_roofline, export, performance, runtime, serve, soak, train_pretrained, transfer
+from ddsp_pytorch_tpu_torch import bench, bench_roofline, export, performance, pitch_accuracy, runtime, serve, soak
+from ddsp_pytorch_tpu_torch import train as train_cli
+from ddsp_pytorch_tpu_torch import train_crepe, train_oof, train_pretrained, train_sigmund, transfer, tune_hybrid_pitch
 from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import Datamodule, Dataset, DeviceDataLoader, make_synthetic_dataset
+from ddsp_pytorch_tpu_torch.data.fixtures import cents_error, frame_truth, make_oof_corpus
 from ddsp_pytorch_tpu_torch.data.preprocess import preprocess_folder
 from ddsp_pytorch_tpu_torch.export import (
     export_run,
@@ -200,9 +230,10 @@ from ddsp_pytorch_tpu_torch.profile_serving import (
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
 from ddsp_pytorch_tpu_torch.runtime import ModelHost, selftest
 from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
-from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer
+from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer, profiling
 from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
 from ddsp_pytorch_tpu_torch.training.metrics import read_metrics
+from ddsp_pytorch_tpu_torch.training.optim import Optimizer, tree_leaves
 from ddsp_pytorch_tpu_torch.training.state import TrainState
 from ddsp_pytorch_tpu_torch.training.train import (
     loss_and_grads,
@@ -212,6 +243,7 @@ from ddsp_pytorch_tpu_torch.training.train import (
     to_device,
 )
 from ddsp_pytorch_tpu_torch.utils import resample_poly, save_wav
+from ddsp_pytorch_tpu_torch.utils.audio_io import load_wav, read_wav
 
 BUNDLE = "pretrained/ddsp_violin_bundle"
 SEED = 0
@@ -367,6 +399,39 @@ HOST_VS_SESSION_ATOL = 1e-5
 N_HOST_BLOCKS = 64
 DDSP_HOST_SECONDS = 10
 REALTIME_SOAK_SECONDS = 30
+# phase 17: the default 16 kHz validation corpus (9 notes of 2 s, seed 0)
+# scored on the card against pretrained/pitch_accuracy.json (yin RPA 1.0,
+# median 1.19 cents; crepe 0.998 and 4.10 cents; 1089 frames), and the
+# card's YIN against the CPU's on the scored (voiced) frames: within 1 cent
+# on all but 1 % of them and within 3 cents on every one.  Two float32 FFT
+# libraries move YIN's parabolic refinement on a flat CMNDF valley: on the
+# CPU, the correlation taken in float64 instead of float32 moves 2 of these
+# 1089 frames beyond 1 cent, the largest by 1.41 cents (and unvoiced frames
+# by up to 49.6 cents, a neighbouring bin)
+ACCURACY_JSON = "pretrained/pitch_accuracy.json"
+ACCURACY_FILES = 9
+ACCURACY_FRAMES = 1089
+ACCURACY_RPA_ATOL = 0.005
+ACCURACY_MEDIAN_ATOL = 0.5
+ACCURACY_YIN_CENTS = 1.0
+ACCURACY_YIN_SHARE_BEYOND = 0.01
+ACCURACY_YIN_MAX_CENTS = 3.0
+# phase 18: train_oof at the reference width, 18 training notes at batch 8
+# (2 steps an epoch): 150 steps, 6 graphed calls of 25, validation and the
+# log eval at epochs 0, 25 and 50
+OOF_LOSS_JSON = "pretrained/oof_loss.json"  # the JAX run's trajectory
+N_OOF_STEPS = 150
+OOF_INTERVAL_EPOCHS = 25
+# phase 19: train_sigmund at a narrow config (16 kHz, 1 s chunks, hidden
+# 64, 16 harmonics), two segments of 4 steps at steps_per_call 2
+SIGMUND_SEGMENT = 4
+SIGMUND_SETS = ("preprocess.sample_rate=16000", "preprocess.signal_length=16384", "preprocess.block_size=256",
+                "model.kwargs.sample_rate=16000", "model.kwargs.block_size=256", "model.kwargs.hidden_size=64",
+                "model.kwargs.n_harmonic=16", "model.kwargs.n_bands=17", "train.scales=[1024, 512, 256]")
+# phase 20: one CREPE train step card vs CPU (loss and batch statistics),
+# then tiny capacity at batch 256
+CREPE_STEP_ATOL = 1e-5
+N_CREPE_STEPS = 300
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2241,6 +2306,285 @@ def phase_realtime(device, card: str, tmp: str) -> int:
     return dec["launches"] + ae["launches"]
 
 
+
+def phase_accuracy(device, tmp: str) -> int:
+    """Phase 17: pitch_accuracy.score_corpus on the card over the default
+    16 kHz validation corpus (ACCURACY_FILES notes, seed 0): yin and the
+    shipped CREPE held to pretrained/pitch_accuracy.json (the frame count
+    equal, RPA@50c within ACCURACY_RPA_ATOL, median |cents| within
+    ACCURACY_MEDIAN_ATOL), and the card's yin f0 against the CPU plain
+    path on every file: on the voiced frames the score counts, within
+    ACCURACY_YIN_CENTS on all but ACCURACY_YIN_SHARE_BEYOND of them and
+    within ACCURACY_YIN_MAX_CENTS on all (the largest difference over all
+    frames is printed).
+    Returns oscillator_fwd's launches (none: no tracker synthesizes)."""
+    corpus = os.path.join(tmp, "oof16k")
+    make_oof_corpus(corpus, sample_rate=16000, n_train=0, n_validation=ACCURACY_FILES)
+    with open(ACCURACY_JSON) as f:
+        artifact = json.load(f)["summary"]
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    report = pitch_accuracy.score_corpus(corpus, 256, crepe_bundle=CREPE_PARAMS, device=device)
+    secs = time.perf_counter() - t0
+    launches = osc.oscillator_bank.launches
+    rows = {}
+    for name, summary in report["summary"].items():
+        o = summary["overall"]
+        rows[name] = {k: o[k] for k in ("rpa", "mean_abs_cents", "median_abs_cents", "n_frames")}
+        if name in artifact:
+            rows[name]["artifact"] = {k: artifact[name]["overall"][k] for k in ("rpa", "median_abs_cents",
+                                                                                 "n_frames")}
+    voiced_cents, worst_all = [], 0.0
+    for stem in sorted(os.listdir(os.path.join(corpus, "validation"))):
+        sig, _ = load_wav(os.path.join(corpus, "validation", stem), 16000)
+        truth = np.load(os.path.join(corpus, "truth", "validation", stem[:-4] + ".npz"))
+        card = extract_pitch(sig, 16000, 256, device=device).cpu().numpy()
+        cpu_f0 = extract_pitch(sig, 16000, 256, device="cpu").numpy()
+        cents = np.abs(cents_error(card, cpu_f0))
+        _, voiced = frame_truth(truth["f0"], truth["voiced"], 256, len(card))
+        worst_all = max(worst_all, float(cents.max()))
+        voiced_cents.append(cents[voiced])
+    voiced_cents = np.concatenate(voiced_cents)
+    beyond = int(np.sum(voiced_cents > ACCURACY_YIN_CENTS))
+    print(json.dumps({"phase": "accuracy", "files": ACCURACY_FILES, "seconds": round(secs, 3),
+                      "trackers": rows, "yin_card_vs_cpu_cents": {
+                          "voiced_max": float(voiced_cents.max()), "voiced_median": float(np.median(voiced_cents)),
+                          "voiced_beyond_1_cent": beyond, "voiced_frames": int(voiced_cents.size),
+                          "all_frames_max": worst_all}}),
+          flush=True)
+    for name in ("yin", "crepe"):
+        got, want = rows[name], rows[name]["artifact"]
+        check(got["n_frames"] == want["n_frames"] == ACCURACY_FRAMES, f"{name}: {got['n_frames']} frames")
+        check(abs(got["rpa"] - want["rpa"]) <= ACCURACY_RPA_ATOL, f"{name} RPA {got['rpa']} vs {want['rpa']}")
+        check(abs(got["median_abs_cents"] - want["median_abs_cents"]) <= ACCURACY_MEDIAN_ATOL,
+              f"{name} median cents {got['median_abs_cents']} vs {want['median_abs_cents']}")
+    check(beyond <= ACCURACY_YIN_SHARE_BEYOND * voiced_cents.size
+          and float(voiced_cents.max()) <= ACCURACY_YIN_MAX_CENTS,
+          f"yin on the card vs the CPU: {beyond} voiced frames beyond {ACCURACY_YIN_CENTS} cent, "
+          f"the largest {float(voiced_cents.max())} cents")
+    return launches
+
+
+def _bundle_stream_card_vs_cpu(bundle: str, cache: str, device) -> tuple:
+    """N_BLOCKS blocks of the first training item's controls streamed from
+    `bundle` on the card and on the CPU (deterministic noise): (max |Δ|,
+    the card's peak, oscillator_fwd's launches on the card)."""
+    gpu = make_streaming_synth(bundle, device=device, noise_deterministic=True)
+    cpu = make_streaming_synth(bundle, device="cpu", noise_deterministic=True)
+    block = gpu.block_size
+    pitch, loud = (np.repeat(np.load(os.path.join(cache, "train", f"{name}.npy"))[:1, :N_BLOCKS], block, axis=1)
+                   for name in ("pitchs", "loudness"))
+    before = osc.oscillator_bank.launches
+    got = torch.cat([gpu.step_samples(pitch[:, i * block:(i + 1) * block], loud[:, i * block:(i + 1) * block])
+                     for i in range(N_BLOCKS)], dim=-1).cpu().numpy()
+    launches = osc.oscillator_bank.launches - before
+    want = torch.cat([cpu.step_samples(pitch[:, i * block:(i + 1) * block], loud[:, i * block:(i + 1) * block])
+                      for i in range(N_BLOCKS)], dim=-1).numpy()
+    check(got.shape == (1, N_BLOCKS * block) and bool(np.isfinite(got).all()), "bundle stream")
+    return float(np.abs(got - want).max()), float(np.abs(got).max()), launches
+
+
+def phase_oof(device, card: str, tmp: str) -> dict:
+    """Phase 18: the train_oof CLI at the reference width (48 kHz, hidden
+    512, 64 harmonics, 65 bands, reverb, six scales, batch 8,
+    steps_per_call 25, the train split on the card) on the default corpus
+    (18 + 4 fixture notes of 4 s) for N_OOF_STEPS steps: finite losses that
+    fall, both kernels launched (graph replays counted), steps/s, the first
+    and last 10 losses beside pretrained/oof_loss.json's first points; then
+    its exported bundle streamed on the card against the CPU (1e-4, and
+    1e-3 of the peak).  Returns {kernel: launches on the path}."""
+    root, out = os.path.join(tmp, "oof"), os.path.join(tmp, "oof_out")
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    traj = train_oof.main(["--device", str(device), "--steps", str(N_OOF_STEPS), "--root", root, "--out", out,
+                           "--flush-steps", "25", "--checkpoint-every", "0",
+                           "--val-interval-epochs", str(OOF_INTERVAL_EPOCHS),
+                           "--log-interval-epochs", str(OOF_INTERVAL_EPOCHS)])
+    secs = time.perf_counter() - t0
+    counts = {name: w.launches + w.replayed for name, w in osc.KERNEL_WRAPPERS.items()}
+    replayed = {name: w.replayed for name, w in osc.KERNEL_WRAPPERS.items()}
+    run_dir = os.path.join(root, "runs", "oof")
+    losses = [v for _, v in read_metrics(run_dir, "loss")]
+    skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
+    window = read_metrics(run_dir, "train_window_steps_per_s")
+    with open(OOF_LOSS_JSON) as f:
+        jax_curve = json.load(f)["loss_curve_every_100"][:2]
+    err, peak, stream_fwd = _bundle_stream_card_vs_cpu(os.path.join(out, "ddsp_oof_bundle"),
+                                                       os.path.join(root, "cache"), device)
+    print(json.dumps({"phase": "train_oof", "card": card, "steps": len(losses), "seconds": round(secs, 3),
+                      "steps_per_s": window[-1][1], "loss_first10_mean": traj["loss_first10_mean"],
+                      "loss_last10_mean": traj["loss_last10_mean"], "jax_loss_at_steps_0_100": jax_curve,
+                      "val_losses": traj["val_losses"], "launches": counts, "replayed": replayed,
+                      "export_stream_card_vs_cpu": err, "export_stream_peak": peak,
+                      "export_stream_launches": stream_fwd,
+                      "media": sorted(os.listdir(os.path.join(run_dir, "audio")))}), flush=True)
+    check(len(losses) == N_OOF_STEPS and all(np.isfinite(losses)) and sum(skipped) == 0,
+          "train_oof: a loss not finite, a skipped update or a missing step")
+    check(traj["loss_first10_mean"] >= LOSS_FALL_FACTOR * traj["loss_last10_mean"],
+          f"train_oof: the loss did not fall by {LOSS_FALL_FACTOR}x")
+    for name, n in replayed.items():
+        check(n == N_OOF_STEPS, f"{name} replayed {n}x in {N_OOF_STEPS} graphed train_oof steps")
+    check(peak > 0 and stream_fwd == N_BLOCKS, f"exported stream peak {peak}, {stream_fwd} launches")
+    check(err <= STREAM_GPU_VS_CPU_ATOL and err <= EXPORT_STREAM_REL_OF_PEAK * peak,
+          f"exported OOF bundle card vs CPU {err} (peak {peak})")
+    return counts
+
+
+def phase_sigmund(device, tmp: str) -> dict:
+    """Phase 19: the train_sigmund CLI at a narrow config (SIGMUND_SETS):
+    the full_chain fixtures through the emulated sigmund~ analyzer into a
+    3-channel float wav, ingested, then trained in two segments of
+    SIGMUND_SEGMENT steps (fresh child processes on the card after a
+    stats-priming child), validated and exported; segments.jsonl has the
+    priming line and the two segments'.  The same steps run unsegmented in
+    this process from the same config end bitwise equal (parameters,
+    optimizer state, generator); that run is `train --profile`, whose
+    trace of its graphed steps holds CUDA kernels.  Returns {kernel:
+    launches in this process} (the unsegmented run and the validation)."""
+    root, out = os.path.join(tmp, "sigmund"), os.path.join(tmp, "sigmund_out")
+    steps = 2 * SIGMUND_SEGMENT
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    traj = train_sigmund.main(["--device", str(device), "--steps", str(steps), "--segment-steps",
+                               str(SIGMUND_SEGMENT), "--steps-per-call", "2", "--batch", "4", "--n-train", "6",
+                               "--n-validation", "2", "--root", root, "--out", out,
+                               *[a for kv in SIGMUND_SETS for a in ("--set", kv)]])
+    secs = time.perf_counter() - t0
+    runs = os.path.join(root, "runs")
+    t1 = time.perf_counter()
+    whole = train_cli.main(["--config", os.path.join(root, "sigmund.yaml"), "--root", runs, "--name", "whole",
+                            "--device-cache", "--device", str(device), "--steps", str(steps), "--profile"])
+    whole_s = time.perf_counter() - t1
+    with open(os.path.join(runs, "whole", "trace", profiling.TRACE_FILE)) as f:
+        traced = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    traced_osc = sum(1 for e in traced if "oscillator" in e.get("name", "").lower())
+    counts = {name: w.launches + w.replayed for name, w in osc.KERNEL_WRAPPERS.items()}
+    seg = torch.load(os.path.join(runs, "sigmund", "checkpoints", f"{steps}.pt"), map_location="cpu",
+                     weights_only=False)
+    ref = torch.load(os.path.join(runs, "whole", "checkpoints", f"{steps}.pt"), map_location="cpu",
+                     weights_only=False)
+    leaves = [(k, seg["params"][k], ref["params"][k]) for k in ref["params"]]
+    leaves += [(f"opt/{i}", a, b) for i, (a, b) in enumerate(zip(tree_leaves(seg["opt_state"]),
+                                                                 tree_leaves(ref["opt_state"])))]
+    unequal = [k for k, a, b in leaves if not torch.equal(a, b)]
+    same_gen = torch.equal(seg["generator"], ref["generator"])
+    with open(os.path.join(runs, "sigmund", "segments.jsonl")) as f:
+        segments = [json.loads(line) for line in f]
+    seg_losses = [v for _, v in read_metrics(os.path.join(runs, "sigmund"), "loss")]
+    whole_losses = [v for _, v in read_metrics(os.path.join(runs, "whole"), "loss")]
+    tri, sr = read_wav(os.path.join(root, "wavs", "train.wav"))
+    print(json.dumps({"phase": "train_sigmund_segmented", "steps": steps, "seconds": round(secs, 3),
+                      "unsegmented_seconds": round(whole_s, 3), "profile_trace_kernels": len(traced),
+                      "profile_trace_oscillator_kernels": traced_osc, "segments": segments,
+                      "leaves_compared": len(leaves), "leaves_unequal": unequal, "generator_equal": same_gen,
+                      "losses_equal": seg_losses == whole_losses, "wav": [list(tri.shape), str(tri.dtype), sr],
+                      "val_losses": traj["val_losses"], "launches_in_process": counts}), flush=True)
+    check(whole.step == steps and traj["steps"] == steps, "sigmund steps")
+    check([rec["to_step"] for rec in segments] == [0, SIGMUND_SEGMENT, steps]
+          and all(rec["returncode"] == 0 for rec in segments), f"segments.jsonl {segments}")
+    check(not unequal and same_gen and seg_losses == whole_losses,
+          f"segmented != unsegmented: {unequal}, generator equal {same_gen}")
+    check(tri.dtype == np.float32 and tri.shape[1] == 3, "sigmund wav")
+    check(len(traced) > 0, "train --profile traced no CUDA kernel")
+    return counts
+
+
+def phase_crepe_training(device, card: str, tmp: str) -> None:
+    """Phase 20: one train-mode CREPE step at micro capacity on the card
+    against the CPU from the same weights, draws and dropout masks (loss
+    and updated batch_stats within CREPE_STEP_ATOL); three tiny steps at
+    batch 256 traced with the profiler on the card (CUDA kernels in the
+    trace; host ms, device busy ms, kernels and the heaviest kernels a
+    step); then
+    train_crepe.train at tiny capacity, batch 256, N_CREPE_STEPS steps:
+    the loss falls, eval_rpa rises above the first step's, steps/s; the
+    saved msgpack loads through load_crepe with the in-memory net's
+    salience."""
+    cpu_model = train_crepe.init_crepe(crepe.CREPE("micro"), torch.Generator().manual_seed(SEED))
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    frames, f0 = train_crepe.synth_batch(train_crepe.draw_synth_inputs(8, torch.Generator().manual_seed(1)))
+    target = train_crepe.f0_to_target(f0)
+    gen = torch.Generator().manual_seed(2)
+    masks = [torch.rand(shape, generator=gen) < 1.0 - crepe.DROPOUT_RATE for shape in cpu_model.block_shapes(8)]
+    sides = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, device)):
+        tx = Optimizer("adam", 2e-3)
+        loss, _, _ = train_crepe.train_step(model, tx, tx.init(list(model.parameters())), frames.to(dev),
+                                            target.to(dev), 20.0, dropout_masks=[m.to(dev) for m in masks])
+        sides.append((float(loss), {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}))
+    (want_loss, want_stats), (got_loss, got_stats) = sides
+    stats_err = max(float((got_stats[k] - v).abs().max()) for k, v in want_stats.items())
+
+    gen_card = torch.Generator(device).manual_seed(SEED)
+    tx = Optimizer("adam", 2e-3)
+    opt_state = tx.init(list(gpu_model.parameters()))
+    with profiling.trace(os.path.join(tmp, "crepe_trace"), device) as prof:
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            batch_frames, batch_f0 = train_crepe.synth_batch(train_crepe.draw_synth_inputs(256, gen_card))
+            _, _, opt_state = train_crepe.train_step(gpu_model, tx, opt_state, batch_frames,
+                                                     train_crepe.f0_to_target(batch_f0), 20.0,
+                                                     generator=gen_card)
+        _sync(device)
+        traced_ms = 1e3 * (time.perf_counter() - t0) / 3
+    with open(os.path.join(tmp, "crepe_trace", profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels_traced = sum(1 for e in events if e.get("cat") == "kernel")
+    device_events, busy_ms = device_kernels(prof)
+    by_kernel = {}
+    for e in device_events:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 3e3
+    top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+
+    t0 = time.perf_counter()
+    model, log = train_crepe.train("tiny", steps=N_CREPE_STEPS, batch=256, log_every=100, device=device)
+    secs = time.perf_counter() - t0
+    path = os.path.join(tmp, "crepe_tiny.msgpack")
+    with open(path, "wb") as f:
+        f.write(train_crepe.crepe_bytes(model))
+    loaded = crepe.load_crepe(path, device=device)
+    eval_frames, _ = train_crepe.synth_batch(
+        train_crepe.draw_synth_inputs(512, torch.Generator(device).manual_seed(train_crepe.EVAL_SEED)))
+    with torch.no_grad():
+        reload_err = float((torch.sigmoid(loaded(eval_frames)) - torch.sigmoid(model(eval_frames))).abs().max())
+    print(json.dumps({"phase": "crepe_training", "card": card,
+                      "micro_step_card_vs_cpu": {"loss": [got_loss, want_loss], "batch_stats_max_err": stats_err},
+                      "trace_cuda_kernels": kernels_traced,
+                      "traced_step": {"host_ms": traced_ms, "device_busy_ms": busy_ms / 3,
+                                      "kernels_a_step": len(device_events) / 3,
+                                      "top_kernels_ms_a_step": top_kernels},
+                      "tiny_batch": 256, "steps": N_CREPE_STEPS,
+                      "seconds": round(secs, 3), "steps_per_s": N_CREPE_STEPS / secs, "log": log,
+                      "saved_bytes": os.path.getsize(path), "reloaded_salience_max_err": reload_err}), flush=True)
+    check(abs(got_loss - want_loss) <= CREPE_STEP_ATOL and stats_err <= CREPE_STEP_ATOL,
+          f"CREPE step card vs CPU: loss {got_loss} vs {want_loss}, batch_stats {stats_err}")
+    check(kernels_traced > 0, "the profiler traced no CUDA kernel")
+    check(all(np.isfinite(r["loss"]) for r in log) and log[-1]["loss"] < log[0]["loss"],
+          f"CREPE training loss did not fall: {log}")
+    check(log[-1]["rpa50"] > log[0]["rpa50"], f"CREPE eval RPA did not rise: {log}")
+    check(reload_err <= 1e-6, f"reloaded CREPE salience differs by {reload_err}")
+
+
+def phase_sweep(device, tmp: str) -> None:
+    """Phase 21: tune_hybrid_pitch on a one-file cache (the snr10
+    condition): the evidence built and a 2 x 2 sweep run on the card, then
+    the same on the CPU; every combination's RPA equal."""
+    conds = [c for c in tune_hybrid_pitch.conditions() if c[0] == "snr10"]
+    combos = [(f"y{w}_s{s}", dict(yin_weight=w, switch_per_octave=s, salience_floor=0.03, confidence_gate=2.0))
+              for w in (4.0, 8.0) for s in (10.0, 60.0)]
+    tables = {}
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        cache = os.path.join(tmp, f"sweep_{side}")
+        model = crepe.load_crepe(CREPE_PARAMS, device=dev)
+        t0 = time.perf_counter()
+        tune_hybrid_pitch.build_cache(cache, 16000, 256, 1, model, conds, device=dev)
+        tables[side] = (tune_hybrid_pitch.sweep(cache, 16000, 256, combos, device=dev), time.perf_counter() - t0)
+    print(json.dumps({"phase": "hybrid_sweep", "card": tables["card"][0], "cpu": tables["cpu"][0],
+                      "seconds": {k: round(v[1], 3) for k, v in tables.items()}}), flush=True)
+    check(tables["card"][0] == tables["cpu"][0], "the hybrid sweep's RPA differs card vs CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2305,21 +2649,33 @@ def main() -> int:
         host_fwd = phase_realtime(device, card, tmp)
     check(headline_fwd > 0 and drift_fwd > 0 and host_fwd > 0,
           "oscillator_fwd not launched on the headline, drift-soak or model-host path")
-    # launches: this slice's main path, the headline
-    fwd_entry["launches"] = headline_fwd
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_evidence_") as tmp:
+        accuracy_fwd = phase_accuracy(device, tmp)
+        oof = phase_oof(device, card, tmp)
+        check(all(n > 0 for n in oof.values()), "a kernel was not launched on the train_oof path")
+        sigmund = phase_sigmund(device, tmp)
+        check(all(n > 0 for n in sigmund.values()), "a kernel was not launched on the sigmund path")
+        phase_crepe_training(device, card, tmp)
+        phase_sweep(device, tmp)
+    # launches: this slice's main path, train_oof
+    fwd_entry["launches"] = oof["oscillator_fwd"]
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
                                      "serving_exported": exported_fwd, "serving_pool": pool_fwd,
                                      "serving_autoencoder": ae_fwd, "synthetic": synthetic_fwd,
                                      "training_autoencoder": ae_train["oscillator_fwd"],
                                      "timbre_transfer": transfer_fwd, "headline": headline_fwd,
-                                     "drift_soak": drift_fwd, "runtime_host": host_fwd}
-    bwd_entry["launches"] = ae_train["oscillator_bwd"]
+                                     "drift_soak": drift_fwd, "runtime_host": host_fwd,
+                                     "pitch_accuracy": accuracy_fwd, "train_oof": oof["oscillator_fwd"],
+                                     "train_sigmund": sigmund["oscillator_fwd"]}
+    bwd_entry["launches"] = oof["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
                                      "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0,
                                      "synthetic": 0, "training_autoencoder": ae_train["oscillator_bwd"],
-                                     "timbre_transfer": 0, "headline": 0, "drift_soak": 0, "runtime_host": 0}
+                                     "timbre_transfer": 0, "headline": 0, "drift_soak": 0, "runtime_host": 0,
+                                     "pitch_accuracy": 0, "train_oof": oof["oscillator_bwd"],
+                                     "train_sigmund": sigmund["oscillator_bwd"]}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)

@@ -12,14 +12,17 @@ it in PyTorch for an NVIDIA Hopper GPU, slice by slice (ROADMAP.md):
                 MFCC encoder and autoencoder; the CREPE pitch tracker and
                 its fusion with YIN (crepe.py)
   data/         feature cache loaders, synthetic corpus, preprocessing,
-                sigmund-wav ingestion, NSynth views
-  training/     loss, optimizer, checkpoints, the Trainer (CUDA graphs)
+                sigmund-wav ingestion, NSynth views, the out-of-family
+                fixture corpus and its pitch scoring (fixtures.py)
+  training/     loss, optimizer, checkpoints, the Trainer (CUDA graphs),
+                media reports, profiling
   streaming/    L6a exact-state block streaming, the VoicePool
   export.py     trained run → bundle → model → stream session
   inference.py  offline timbre transfer of a recording through a bundle
   serve.py      socket server, wire-compatible with ddsp_pytorch_tpu.serve
   train.py, preprocess.py, train_pretrained.py, transfer.py,
-  nsynth_inst_split.py: the CLIs
+  nsynth_inst_split.py, train_oof.py, train_sigmund.py, train_crepe.py,
+  pitch_accuracy.py, tune_hybrid_pitch.py: the CLIs
 
 It imports torch, numpy and the standard library only — never jax, flax,
 msgpack, yaml or ddsp_pytorch_tpu.  Entry points take an explicit `device`

@@ -1,6 +1,7 @@
 """Feature cache, loaders, the synthetic corpus, preprocessing (with the
-hybrid, crepe and yin pitch trackers), sigmund-wav ingestion and NSynth
-views (port of ddsp_pytorch_tpu.data without the fixtures)."""
+hybrid, crepe and yin pitch trackers), sigmund-wav ingestion, NSynth views
+and the out-of-family fixtures (port of ddsp_pytorch_tpu.data; fixtures.py
+is imported by its module path)."""
 
 from ddsp_pytorch_tpu_torch.data.dataset import (  # noqa: F401
     DataLoader,

@@ -1,7 +1,7 @@
 """The CREPE-architecture pitch tracker and its fusion with YIN.
 
 Port of ddsp_pytorch_tpu/models/crepe.py:32-508: the cents codec, the
-`CREPE` network (eval mode), its decoders (local weighted average,
+`CREPE` network (eval and train mode), its decoders (local weighted average,
 Viterbi), the 16 kHz polyphase resampler, the salience map on CREPE's
 frame grid, `extract_pitch_crepe`, and the CREPE × YIN fusion
 (`hybrid_evidence`, `decode_fused`, `extract_pitch_hybrid`) that
@@ -18,8 +18,9 @@ Differences from the JAX module, by design:
     pretrained/crepe_tiny.msgpack), not a flax tree;
   * the forward runs its convolutions, the dense classifier among them (a
     width-1 convolution), in cuDNN with TF32 off, whatever the global
-    flags say (torch.backends.cudnn.flags scopes it; cuBLAS, whose TF32
-    flag has no such scope, is not used).
+    flags say (`conv_precision` scopes it; cuBLAS, whose TF32 flag has no
+    such scope, is not used).  A training step runs its backward inside
+    `conv_precision` too (train_crepe.py).
 
 The JAX module has no Pallas kernel: its convolutions, resampler, decode
 and Viterbi are XLA.  Here the convolutions are cuDNN's (conv1d), the
@@ -53,8 +54,11 @@ CAPACITIES = {"micro": 1, "tiny": 4, "small": 8, "medium": 16, "large": 24, "ful
 _BASE_FILTERS = (32, 4, 4, 4, 8, 16)
 _KERNELS = (512, 64, 64, 64, 64, 64)
 _STRIDES = (4, 1, 1, 1, 1, 1)
-# flax nn.BatchNorm's default epsilon
+# flax nn.BatchNorm's default epsilon and momentum
 BATCH_NORM_EPS = 1e-5
+BATCH_NORM_MOMENTUM = 0.99
+# the JAX CREPE's dropout rate after every block
+DROPOUT_RATE = 0.25
 # the cost that keeps a bin out of the fused decode (crepe.py:494-497)
 MASKED_COST = 1e6
 
@@ -84,35 +88,65 @@ def _same_padding(length: int, kernel: int, stride: int) -> tuple:
     return total // 2, total - total // 2
 
 
-class BatchNormEval(nn.Module):
-    """flax BatchNorm with use_running_average=True: (x − mean) /
-    sqrt(var + ε) · scale + bias over the channel axis of (B, C, T)."""
+def conv_precision():
+    """The scope CREPE's convolutions run in, forward and backward: cuDNN
+    with TF32 off, whatever the global flags say."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
 
-    def __init__(self, channels: int, eps: float = BATCH_NORM_EPS):
+
+class BatchNorm(nn.Module):
+    """flax nn.BatchNorm over the channel axis of (B, C, T).
+
+    Eval (use_running_average=True): (x − mean) / sqrt(var + ε) · scale +
+    bias with the running statistics.  Train: the batch's mean and biased
+    variance (flax's E[x²] − E[x]², floored at 0) normalize, and the
+    running statistics move in place to momentum · running + (1 −
+    momentum) · batch, the variance biased too (torch's own running update
+    would take the unbiased one)."""
+
+    def __init__(self, channels: int, eps: float = BATCH_NORM_EPS,
+                 momentum: float = BATCH_NORM_MOMENTUM):
         super().__init__()
         self.eps = float(eps)
+        self.momentum = float(momentum)
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=False, eps=self.eps)
+        mean = x.mean(dim=(0, 2))
+        var = torch.clamp(torch.square(x).mean(dim=(0, 2)) - torch.square(mean), min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(self.momentum * self.running_mean + (1.0 - self.momentum) * mean)
+            self.running_var.copy_(self.momentum * self.running_var + (1.0 - self.momentum) * var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * scale[:, None] + self.bias[:, None]
 
 
 class CREPE(nn.Module):
-    """(B, 1024) audio frames → (B, 360) pitch-salience logits, in eval mode
-    (crepe.py:60-103): each frame normalized (population std, floored at
+    """(B, 1024) audio frames → (B, 360) pitch-salience logits
+    (crepe.py:60-106): each frame normalized (population std, floored at
     1e-6), six blocks of conv ("SAME" padding) → ReLU → BatchNorm → max-pool
-    2 (dropout is the identity in eval mode), then a dense classifier over
-    the (4, 16·mult) map flattened time-major, as flax flattens it.  The
-    classifier is an nn.Linear applied as a width-1 convolution, so that
-    every product runs in cuDNN under the forward's TF32-off scope.
+    2 → dropout, then a dense classifier over the (4, 16·mult) map
+    flattened time-major, as flax flattens it.  The classifier is an
+    nn.Linear applied as a width-1 convolution, so that every product runs
+    in cuDNN under the TF32-off scope.
+
+    In eval mode (the default) BatchNorm uses its running statistics and
+    dropout is the identity.  With train=True BatchNorm normalizes by the
+    batch and updates its running statistics in place (`BatchNorm`), and
+    dropout keeps each activation with probability 1 − DROPOUT_RATE,
+    scaling the kept ones by 1 / (1 − DROPOUT_RATE), as flax's nn.Dropout
+    does.  Its keep masks are `dropout_masks` (one bool tensor a block, in
+    the block's (B, C, T) layout: flax's (B, T, C) mask transposed) where
+    given, else drawn from `generator`.
 
     Submodules are named as in the flax tree (conv1..conv6, bn1..bn6,
-    classifier); weights.crepe_state_dict_from_flax maps a tree onto them.
-    Training (dropout, BatchNorm statistics) is not ported."""
+    classifier); weights.crepe_state_dict_from_flax maps a tree onto them."""
 
     def __init__(self, capacity: str = "tiny"):
         super().__init__()
@@ -124,20 +158,38 @@ class CREPE(nn.Module):
         self._pads = []
         for i, (base, kernel, stride) in enumerate(zip(_BASE_FILTERS, _KERNELS, _STRIDES)):
             setattr(self, f"conv{i + 1}", nn.Conv1d(channels, base * mult, kernel, stride))
-            setattr(self, f"bn{i + 1}", BatchNormEval(base * mult))
+            setattr(self, f"bn{i + 1}", BatchNorm(base * mult))
             self._pads.append(_same_padding(length, kernel, stride))
             channels, length = base * mult, -(-length // stride) // 2
         self.classifier = nn.Linear(length * channels, N_BINS)
 
-    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+    def block_shapes(self, batch: int) -> list:
+        """The (B, C, T) shape of each block's output: the dropout masks'."""
+        shapes, length = [], FRAME_LENGTH
+        for i, stride in enumerate(_STRIDES):
+            length = -(-length // stride) // 2
+            shapes.append((batch, getattr(self, f"conv{i + 1}").out_channels, length))
+        return shapes
+
+    def forward(self, frames: torch.Tensor, train: bool = False, dropout_masks=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train and dropout_masks is None and generator is None:
+            raise ValueError("CREPE(train=True) needs dropout_masks or a generator to draw them")
+        keep = 1.0 - DROPOUT_RATE
         mean = frames.mean(dim=-1, keepdim=True)
         std = frames.std(dim=-1, keepdim=True, correction=0)
         x = ((frames - mean) / torch.clamp(std, min=1e-6))[:, None, :]  # (B, 1, T)
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with conv_precision():
             for i, pad in enumerate(self._pads):
                 x = getattr(self, f"conv{i + 1}")(F.pad(x, pad))
-                x = getattr(self, f"bn{i + 1}")(F.relu(x))
+                x = getattr(self, f"bn{i + 1}")(F.relu(x), train)
                 x = F.max_pool1d(x, 2, 2)
+                if train:
+                    if dropout_masks is not None:
+                        mask = dropout_masks[i].to(x.device)
+                    else:
+                        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                    x = torch.where(mask, x / keep, torch.zeros_like(x))
             x = x.transpose(1, 2).reshape(x.shape[0], -1, 1)  # (B, 4 · C, 1), time-major
             return F.conv1d(x, self.classifier.weight[:, :, None], self.classifier.bias)[:, :, 0]
 

@@ -108,6 +108,15 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, fmin: float, fmax:
     return weights
 
 
+def stft_to_mel(stft_mag: torch.Tensor, sample_rate: int, n_fft: int) -> torch.Tensor:
+    """(..., bins, frames) magnitudes → (..., 128, frames) through the
+    Slaney mel filterbank over 0 … sr/2, the magnitudes taken as they are
+    (spectral.py:202-211, the reconstruction report's mel spectrogram)."""
+    fb = torch.tensor(mel_filterbank(sample_rate, n_fft, 128, 0.0, sample_rate / 2.0),
+                      dtype=stft_mag.dtype, device=stft_mag.device)
+    return torch.einsum("mf,...ft->...mt", fb, stft_mag)
+
+
 @functools.lru_cache(maxsize=None)
 def dct_matrix(n_out: int, n_in: int) -> np.ndarray:
     """Orthonormal DCT-II matrix (n_out, n_in), y = M @ x, as

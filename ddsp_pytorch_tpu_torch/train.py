@@ -2,7 +2,8 @@
 
     python -m ddsp_pytorch_tpu_torch.train --config configs/config.yaml \\
         --name myrun [--root runs] [--steps N] [--batch B] [--lr LR] \\
-        [--set key.path=value ...] [--device-cache] [--device cuda]
+        [--set key.path=value ...] [--device-cache] [--device cuda] \\
+        [--profile] [--segment-steps N | --segment-schedule N1,N2,...]
 
 Loads the YAML config, builds the model by registry name, computes the
 dataset's loudness stats and runs the one-device Trainer on the feature
@@ -11,21 +12,38 @@ config's train.steps_per_call steps per call (a CUDA graph of
 train.scan_unroll steps replayed on the card).  --device-cache uploads the
 train split to the device once and gathers each batch there.  Resumes from
 the newest checkpoint in <root>/<name>; SIGTERM or SIGINT checkpoints and
-stops at the next call.  The device defaults to the GPU and there is no
-fallback: pass --device cpu for the plain PyTorch path.
+stops at the next call.
+
+--profile traces the first 30 steps (torch.profiler, the card's kernels
+included) into <root>/<name>/trace/trace.json, then trains on.
+--segment-steps N runs the training as a sequence of fresh child processes
+of N steps each (--segment-schedule: a size a segment, the last repeated),
+each resuming from the checkpoint the one before it saved; the first child
+only computes the loudness stats, freezes them into the run's config and
+saves the step-0 checkpoint.  Each child's wall clock is appended to
+<root>/<name>/segments.jsonl.
+
+The device defaults to the GPU and there is no fallback: pass --device cpu
+for the plain PyTorch path.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import subprocess
+import sys
+import time
+
+# steps traced by --profile
+PROFILE_STEPS = 30
+# flags of the parent that its segment children do not get (each child
+# gets its own --steps)
+_SEGMENT_FLAGS = ("--segment-steps", "--segment-schedule", "--steps")
 
 
-def main(argv=None):
-    from ddsp_pytorch_tpu_torch.config import Config
-    from ddsp_pytorch_tpu_torch.data import Datamodule
-    from ddsp_pytorch_tpu_torch.training import Trainer
-
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="configs/config.yaml")
     p.add_argument("--name", default="debug")
@@ -40,7 +58,17 @@ def main(argv=None):
     p.add_argument("--device-cache", action="store_true",
                    help="keep the train split on the device (DeviceDataLoader)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--profile", action="store_true",
+                   help=f"trace the first {PROFILE_STEPS} steps into <run_dir>/trace")
+    p.add_argument("--segment-steps", type=int, default=None,
+                   help="train in fresh child processes of this many steps each")
+    p.add_argument("--segment-schedule", default=None, metavar="N1,N2,...",
+                   help="like --segment-steps with a size a segment (the last repeats)")
+    return p
+
+
+def _load_config(args):
+    from ddsp_pytorch_tpu_torch.config import Config
 
     cfg = Config.from_yaml(args.config)
     cfg.apply_overrides(args.overrides)
@@ -50,16 +78,97 @@ def main(argv=None):
         cfg.train.batch = args.batch
     if args.lr is not None:
         cfg.train.lr = args.lr
+    return cfg
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.segment_steps is not None or args.segment_schedule is not None:
+        return run_segmented(args, sys.argv[1:] if argv is None else list(argv))
+
+    from ddsp_pytorch_tpu_torch.data import Datamodule
+    from ddsp_pytorch_tpu_torch.training import Trainer
+    from ddsp_pytorch_tpu_torch.training.profiling import trace
+
+    cfg = _load_config(args)
     run_dir = os.path.join(args.root, args.name)
     trainer = Trainer(cfg, run_dir, device=args.device)
     datamodule = Datamodule(cfg, device_cache=args.device_cache, device=args.device)
     datamodule.setup()
     try:
+        if args.profile:
+            with trace(os.path.join(run_dir, "trace"), trainer.device):
+                trainer.fit(datamodule, total_steps=min(PROFILE_STEPS, cfg.train.steps))
         state = trainer.fit(datamodule)
     finally:
         trainer.close()
     print(f"trained to step {state.step}; run directory {run_dir}")
     return state
+
+
+def segment_schedule(args) -> list:
+    """The segment sizes of --segment-schedule or --segment-steps; a size
+    that is not positive raises ValueError."""
+    if args.segment_schedule is not None:
+        schedule = [int(s) for s in args.segment_schedule.split(",") if s]
+    else:
+        schedule = [args.segment_steps]
+    if not schedule or any(s <= 0 for s in schedule):
+        raise ValueError(f"segment sizes must be positive, got {schedule}")
+    return schedule
+
+
+def child_args(argv) -> list:
+    """`argv` without the segmentation flags and --steps, with their values."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in _SEGMENT_FLAGS:
+            skip = True
+        elif not a.startswith(tuple(f + "=" for f in _SEGMENT_FLAGS)):
+            out.append(a)
+    return out
+
+
+def run_segmented(args, argv) -> int:
+    """Run `python -m ddsp_pytorch_tpu_torch.train` children up to the
+    configured steps: first a stats-priming child (--steps 0), then one a
+    segment.  Each child's wall clock and return code go to
+    <run_dir>/segments.jsonl; a child that fails ends the run with its code
+    (SystemExit).  Returns the steps reached."""
+    from ddsp_pytorch_tpu_torch import resolve_device
+
+    resolve_device(args.device)  # no child is started for a device that is missing
+    schedule = segment_schedule(args)
+    total = _load_config(args).train.steps
+    cleaned = child_args(argv)
+    run_dir = os.path.join(args.root, args.name)
+    seg_log = os.path.join(run_dir, "segments.jsonl")
+    package_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (package_root, env.get("PYTHONPATH")) if p)
+
+    def child(boundary: int, label: str) -> None:
+        cmd = [sys.executable, "-m", "ddsp_pytorch_tpu_torch.train", *cleaned, "--steps", str(boundary)]
+        print(f"[segment] {label} -> step {boundary}/{total}", flush=True)
+        t0 = time.time()
+        rc = subprocess.run(cmd, env=env).returncode
+        wall = time.time() - t0
+        os.makedirs(run_dir, exist_ok=True)
+        with open(seg_log, "a") as f:
+            f.write(json.dumps({"label": label, "to_step": boundary, "total": total,
+                                "wall_s": round(wall, 3), "returncode": rc}) + "\n")
+        if rc != 0:
+            raise SystemExit(rc)
+
+    child(0, "prime-stats")
+    boundary, i = 0, 0
+    while boundary < total:
+        boundary = min(boundary + schedule[min(i, len(schedule) - 1)], total)
+        child(boundary, "train")
+        i += 1
+    return boundary
 
 
 if __name__ == "__main__":

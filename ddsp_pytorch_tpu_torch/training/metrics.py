@@ -1,13 +1,23 @@
-"""Metrics sink: an append-only `metrics.jsonl` in the run directory, one
-{"tag", "value", "step", "time"} record per scalar — the JSON stream of
-ddsp_pytorch_tpu/training/metrics.py:19-86.  TensorBoard, audio and figure
-sinks wait (ROADMAP.md)."""
+"""Metrics sink of a run directory (port of
+ddsp_pytorch_tpu/training/metrics.py:19-86 without its TensorBoard sink):
+an append-only `metrics.jsonl`, one {"tag", "value", "step", "time"}
+record per scalar; audio as 16-bit wavs under `audio/` and figures as
+PNGs under `figures/`, named <tag>_<step> with "/" in the tag as "_"."""
 
 from __future__ import annotations
 
 import json
 import os
 import time
+
+import numpy as np
+import torch
+
+from ddsp_pytorch_tpu_torch.utils.audio_io import save_wav
+
+
+def _file_stem(tag: str, step: int) -> str:
+    return f"{tag.replace('/', '_')}_{int(step)}"
 
 
 class MetricsWriter:
@@ -20,6 +30,26 @@ class MetricsWriter:
         record = {"tag": tag, "value": float(value), "step": int(step), "time": time.time()}
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
+
+    def add_audio(self, tag: str, audio, step: int, sample_rate: int) -> str:
+        """Write mono audio (an array or a tensor on any device) as
+        audio/<tag>_<step>.wav; returns its path."""
+        if isinstance(audio, torch.Tensor):
+            audio = audio.detach().to("cpu", torch.float32).numpy()
+        wav_dir = os.path.join(self.run_dir, "audio")
+        os.makedirs(wav_dir, exist_ok=True)
+        path = os.path.join(wav_dir, _file_stem(tag, step) + ".wav")
+        save_wav(path, np.asarray(audio, np.float32).reshape(-1), sample_rate)
+        return path
+
+    def add_figure(self, tag: str, fig, step: int) -> str:
+        """Save a matplotlib figure as figures/<tag>_<step>.png; returns its
+        path."""
+        fig_dir = os.path.join(self.run_dir, "figures")
+        os.makedirs(fig_dir, exist_ok=True)
+        path = os.path.join(fig_dir, _file_stem(tag, step) + ".png")
+        fig.savefig(path, dpi=100)
+        return path
 
     def close(self) -> None:
         self._jsonl.close()

@@ -18,8 +18,10 @@ so on the card a step launches the hand-written forward kernel once and the
 backward kernel once.  On the card a call of `steps_per_call` steps replays a CUDA graph
 of `scan_unroll` whole steps (forward, backward, Adam and the NaN guard,
 both kernels inside), the counterpart of the JAX package's lax.scan.
-Waiting for later slices (ROADMAP.md): audio and figure reports, the
-segmented runs, the data-parallel and time-sharded steps.
+Validation and the per-log-epoch eval write the target and the
+reconstruction as wavs and, where matplotlib imports, the reconstruction
+report as a figure (train.py:857-900).  Waiting for a later slice
+(ROADMAP.md): the data-parallel and time-sharded steps.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ from ddsp_pytorch_tpu_torch.training.optim import (
     make_optimizer,
     tree_leaves,
 )
+from ddsp_pytorch_tpu_torch.training.reports import reconstruction_report
 from ddsp_pytorch_tpu_torch.training.state import Checkpointer, TrainState
+from ddsp_pytorch_tpu_torch.utils.plots import pyplot
 
 # the columns of a step's metrics row
 METRIC_KEYS = ("loss", "grad_norm", "update_skipped")
@@ -376,8 +380,9 @@ def make_train_multi_step_indexed(model, tx: Optimizer, config: Config, n_steps:
 
 def make_eval_step(model, config: Config) -> Callable:
     """eval_step(state, batch, generator) → the model's outputs plus the
-    loss (train.py:198-217), without gradients; the spectrograms and audio
-    the JAX step adds feed media reports, which wait."""
+    loss, both multiscale spectrograms (`sig_stft`, `rec_stft`), the target
+    `sig` and the reconstruction `rec` (train.py:198-217), without
+    gradients: what validation and the media reports read."""
     scales = tuple(config.train.scales)
     overlap = config.train.overlap
 
@@ -385,7 +390,9 @@ def make_eval_step(model, config: Config) -> Callable:
     def eval_step(state: TrainState, batch, generator: torch.Generator):
         model_batch = _normalize_loudness(batch, state.mean_loudness, state.std_loudness)
         out = model(model_batch, generator=generator)
-        out["loss"] = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)[0]
+        loss, ori, rec = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)
+        out.update({"loss": loss, "sig_stft": ori, "rec_stft": rec, "sig": batch["sig"],
+                    "rec": out["signal"]})
         return out
 
     return eval_step
@@ -662,9 +669,13 @@ class Trainer:
         return self._eval_step(state, self._to_device(batch), generator)
 
     def _run_validation(self, state, val_loader) -> None:
-        losses = [float(self._eval(state, batch, 0)["loss"]) for batch in val_loader]
+        losses, out = [], None
+        for batch in val_loader:
+            out = self._eval(state, batch, 0)
+            losses.append(float(out["loss"]))
         if losses:
             self.metrics.add_scalar("loss/val", float(np.mean(losses)), state.step)
+            self._report(out, state.step, "val")
 
     def _log_eval(self, state, sample_batch) -> None:
         out = self._eval(state, sample_batch, 1)
@@ -673,6 +684,21 @@ class Trainer:
         if reverb is not None:
             self.metrics.add_scalar("reverb_decay", float(reverb.decay.detach()), state.step)
             self.metrics.add_scalar("reverb_wet", float(reverb.wet.detach()), state.step)
+        self._report(out, state.step, "train")
+
+    def _report(self, out, step: int, stage: str) -> None:
+        """The first item's target and reconstruction as wavs, and the
+        reconstruction report as a figure where matplotlib imports."""
+        sr = self.config.preprocess.sample_rate
+        self.metrics.add_audio(f"sig/{stage}", out["sig"][0], step, sr)
+        self.metrics.add_audio(f"rec/{stage}", out["rec"][0], step, sr)
+        try:
+            plt = pyplot()
+        except ImportError:  # no matplotlib: the wavs are the report
+            return
+        fig = reconstruction_report(out, self.config)
+        self.metrics.add_figure(f"reconstruction/{stage}", fig, step)
+        plt.close(fig)
 
     def close(self) -> None:
         self.metrics.close()

@@ -7,7 +7,10 @@ through scipy.io.wavfile and resamples with scipy.signal.resample_poly:
 64-bit; 24-bit samples as the top three bytes of an int32), IEEE float
 (32- and 64-bit) and WAVE_FORMAT_EXTENSIBLE files; `load_wav` scales them
 as the JAX function does, mixes the channels to mono and resamples; `save_wav` writes
-the same 16-bit PCM samples, mono; `resample_poly` is scipy's, with its
+the same 16-bit PCM samples, mono; `save_wav_float` writes float32 audio of
+any channel count, byte for byte as scipy.io.wavfile.write writes a
+float32 array (what the sigmund wavs of train_sigmund.py need: pitch in
+Hz); `resample_poly` is scipy's, with its
 default filter (a Kaiser-windowed sinc, β = 5) and its zero padding.
 """
 
@@ -48,6 +51,21 @@ def save_wav(path: str, audio, sample_rate: int) -> None:
         f.setsampwidth(2)
         f.setframerate(int(sample_rate))
         f.writeframes(samples.astype("<i2").tobytes())
+
+
+def save_wav_float(path: str, audio, sample_rate: int) -> None:
+    """Write float32 audio (T,) or (T, channels) as an IEEE-float wav, the
+    bytes scipy.io.wavfile.write gives a float32 array: a fmt chunk of 18
+    bytes (cbSize 0), a fact chunk with the frame count, then the data."""
+    data = np.ascontiguousarray(np.asarray(audio, "<f4"))
+    channels = 1 if data.ndim == 1 else data.shape[1]
+    fmt = struct.pack("<HHIIHH", _IEEE_FLOAT, channels, int(sample_rate), int(sample_rate) * 4 * channels,
+                      4 * channels, 32) + b"\x00\x00"
+    body = (b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+            + b"fact" + struct.pack("<II", 4, data.shape[0])
+            + b"data" + struct.pack("<I", data.nbytes) + data.tobytes())
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
 
 
 def _chunks(raw: bytes):

@@ -1,0 +1,64 @@
+"""Diagnostic plots (port of ddsp_pytorch_tpu/utils/plots.py).
+
+matplotlib is imported when a figure is built, with the Agg backend, so a
+headless training process never touches a display; where it is not
+installed, `pyplot()` raises ImportError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def pyplot():
+    """matplotlib.pyplot on the Agg backend (ImportError without matplotlib)."""
+    import matplotlib
+
+    matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def hz_to_midi(freqs):
+    return 12.0 * np.log2(np.asarray(freqs) / 440.0) + 69.0
+
+
+def plot_sig(sig, ax, stem: bool = False):
+    if stem:
+        ax.stem(np.asarray(sig))
+    else:
+        ax.plot(np.asarray(sig))
+    ax.set_xlabel("sample")
+    return ax
+
+
+def amplitude_to_db(mag: np.ndarray) -> np.ndarray:
+    """20·log10 of the magnitudes (floored at 1e-10), clipped 80 dB below
+    their maximum."""
+    power = np.square(np.maximum(np.asarray(mag, np.float64), 1e-10))
+    db = 10.0 * np.log10(power)
+    return np.maximum(db, db.max() - 80.0)
+
+
+def plot_spec(stft_mag, ax, amp_to_db: bool = True):
+    plt = pyplot()
+    mag = np.asarray(stft_mag)
+    img = amplitude_to_db(mag) if amp_to_db else mag
+    im = ax.imshow(img, aspect="auto")
+    plt.gcf().colorbar(im, ax=ax)
+    ax.invert_yaxis()
+    return ax
+
+
+def plot_f0(ax, f0, index: int = 0):
+    f0 = np.asarray(f0)[index].squeeze(-1)
+    ax.set_title("F0 (MIDI)")
+    ax.set_ylim([-1, 128])
+    plot_sig(hz_to_midi(f0), ax)
+
+
+def plot_loudness(ax, loudness, index: int = 0):
+    loudness = np.asarray(loudness)[index].squeeze(-1)
+    ax.set_title("Loudness")
+    plot_sig(loudness, ax)

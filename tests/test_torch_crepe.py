@@ -230,7 +230,7 @@ def test_batchnorm_eval_matches_flax():
     params = {"scale": rng.standard_normal(16).astype(np.float32), "bias": rng.standard_normal(16).astype(np.float32)}
     want = np.asarray(fnn.BatchNorm(use_running_average=True).apply(
         {"params": params, "batch_stats": stats}, jnp.asarray(x)))
-    bn = P.BatchNormEval(16)
+    bn = P.BatchNorm(16)
     sd = crepe_state_dict_from_flax({"params": {"bn": params}, "batch_stats": {"bn": stats}})
     bn.load_state_dict({k[len("bn."):]: v for k, v in sd.items()}, strict=True)
     with torch.no_grad():

@@ -616,3 +616,66 @@ def test_crepe_on_cuda_ignores_global_tf32(cuda):
             torch.backends.cuda.matmul.allow_tf32 = False
     assert float((got - want).abs().max()) <= 1e-4
     assert float((torch.sigmoid(got) - torch.sigmoid(want)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["train_oof-cli", "train_sigmund-cli", "train_crepe-cli", "train_crepe.train", "pitch_accuracy-cli",
+     "pitch_accuracy-robustness", "tune_hybrid_pitch-cli", "train-segmented", "profiling.trace"],
+)
+def test_evidence_path_entry_points_raise_without_cuda(no_cuda, tmp_path, entry):
+    """The out-of-family evidence path's entry points (the fixture corpus
+    trained, scored and swept, CREPE trained, segmented and profiled runs)
+    default to the GPU and raise without one, before writing anything."""
+    from ddsp_pytorch_tpu_torch import pitch_accuracy, train, train_crepe, train_oof, train_sigmund, tune_hybrid_pitch
+    from ddsp_pytorch_tpu_torch.training import profiling
+
+    cfg = _wav_folder(tmp_path)
+    cfg.to_yaml(str(tmp_path / "cfg.yaml"))
+    root, out = str(tmp_path / "root"), str(tmp_path / "out")
+    entries = {
+        "train_oof-cli": lambda: train_oof.main(["--root", root, "--out", out]),
+        "train_sigmund-cli": lambda: train_sigmund.main(["--root", root, "--out", out]),
+        "train_crepe-cli": lambda: train_crepe.main(["--out", os.path.join(out, "c.msgpack")]),
+        "train_crepe.train": lambda: train_crepe.train("micro", steps=1),
+        "pitch_accuracy-cli": lambda: pitch_accuracy.main(["--out", os.path.join(out, "pa.json")]),
+        "pitch_accuracy-robustness": lambda: pitch_accuracy.robustness_report(16000, 256, None, "tiny"),
+        "tune_hybrid_pitch-cli": lambda: tune_hybrid_pitch.main(["--cache", root, "--out", out]),
+        "train-segmented": lambda: train.main(["--config", str(tmp_path / "cfg.yaml"), "--root", root,
+                                               "--segment-steps", "2"]),
+        "profiling.trace": lambda: profiling.trace(os.path.join(out, "trace")).__enter__(),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entries[entry]()
+    assert not os.path.exists(root) and not os.path.exists(out)
+
+
+@pytest.mark.cuda
+def test_crepe_train_step_on_cuda_matches_cpu(cuda):
+    """One train-mode CREPE step (micro, batch 8) on the card against the
+    CPU from the same weights, draws and dropout masks: the loss and the
+    updated batch statistics within 1e-5, every gradient leaf within 1e-4
+    of its largest magnitude (cuDNN's convolution sums in other orders)."""
+    from ddsp_pytorch_tpu_torch import train_crepe
+    from ddsp_pytorch_tpu_torch.models.crepe import CREPE
+    from ddsp_pytorch_tpu_torch.training.optim import Optimizer
+
+    cpu_model = train_crepe.init_crepe(CREPE("micro"), torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    frames, f0 = train_crepe.synth_batch(train_crepe.draw_synth_inputs(8, torch.Generator().manual_seed(1)))
+    target = train_crepe.f0_to_target(f0)
+    gen = torch.Generator().manual_seed(2)
+    masks = [torch.rand(s, generator=gen) < 0.75 for s in cpu_model.block_shapes(8)]
+    results = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
+        tx = Optimizer("adam", 2e-3)
+        loss, grads, _ = train_crepe.train_step(model, tx, tx.init(list(model.parameters())), frames.to(dev),
+                                                target.to(dev), 20.0, dropout_masks=[m.to(dev) for m in masks])
+        results.append((float(loss), [g.cpu() for g in grads],
+                        {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}))
+    (want_loss, want_grads, want_stats), (loss, grads, stats) = results
+    assert abs(loss - want_loss) <= 1e-5
+    for g, w in zip(grads, want_grads):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    for k, v in want_stats.items():
+        assert float((stats[k] - v).abs().max()) <= 1e-5, k
