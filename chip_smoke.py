@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, pitch-tracking, timbre-transfer,
-benchmark, drift-soak, native realtime and out-of-family evidence paths and
-check them.
+benchmark, drift-soak, native realtime, out-of-family evidence and parallel
+paths and check them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -158,16 +158,40 @@ is printed):
      load_crepe with the same salience;
  21. hybrid sweep: tune_hybrid_pitch's cache and a 2 x 2 sweep
      on one file, card against CPU: the same RPA;
- 22. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 22. time sharding at configs/config_timesharded.yaml (the reference
+     workload, mesh.time 4, 375 frames padded to 384): Trainer.fit with its
+     in-process time = 4 mesh for 4 steps on violin-rendered glides (this
+     slice's main path, launches counted from zero around it); the
+     time-sharded loss and gradients on a time = 4 and a data 2 × time 4
+     mesh against the unsharded step on the card (loss 1e-4, gradient norm
+     2e-2, each leaf within 1.5e-1 of its largest), one launch of each
+     kernel over 6144 rows; 4 eager against 4 graphed steps, sharded and
+     unsharded (1e-6), and ms per step of each;
+ 23. the trajectory: time_sharded_trajectory.py at its defaults (400 Adam
+     steps, sharded and not) held to pretrained/time_sharded_trajectory.
+     json's bounds;
+ 24. data parallel across processes on the one card: two gloo ranks on
+     cuda:0 through the train CLI (--multihost) at configs/config.yaml,
+     each step equal to one process's on the global batch from the same
+     state (loss 1e-5, gradient norm 1e-3); one NCCL rank's graphed
+     MultiStep, the gradient all_reduce captured, bit for bit the steps
+     without a mesh;
+ 25. long-form: the violin bundle renders 8 voices × 60 s through
+     LongFormSynthesizer on a time = 4 mesh against the unsharded render
+     (2e-3 of the peak), its seconds and realtime factor;
+ 26. report: one JSON line {"kernels": [...]} (all four kernels; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
      synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
      runtime_host, pitch_accuracy, train_oof, train_sigmund (this
-     process's launches: the unsegmented run and the validation) and, for
-     the probes, roofline; both oscillator kernels' `launches` are
-     train_oof's, this slice's main path; the forward's times at the
-     headline's shape, the backward's at R = 3000, train_oof's), the card's
-     name and power limit, and last {"ok": true, "device": {...}}.
+     process's launches: the unsegmented run and the validation),
+     time_sharded_fit, time_sharded_graphed, time_sharded_trajectory,
+     data_parallel_nccl_graphed, longform and, for the probes, roofline;
+     both oscillator kernels' `launches` are time_sharded_fit's, this
+     slice's main path; the forward's times at the headline's shape, the
+     backward's at R = 3000, train_oof's; phase 2 also times both at the
+     sharded rows 1536 and 6144), the card's name and power limit, and last
+     {"ok": true, "device": {...}}.
 
 Imports torch, numpy, the standard library and ddsp_pytorch_tpu_torch only.
 Exits nonzero when torch.cuda.is_available() is false.
@@ -182,6 +206,8 @@ import os
 import re
 import shutil
 import signal
+import socket
+import subprocess
 import sys
 import tempfile
 import threading
@@ -193,10 +219,12 @@ import torch
 
 from ddsp_pytorch_tpu_torch import bench, bench_roofline, export, performance, pitch_accuracy, runtime, serve, soak
 from ddsp_pytorch_tpu_torch import train as train_cli
-from ddsp_pytorch_tpu_torch import train_crepe, train_oof, train_pretrained, train_sigmund, transfer, tune_hybrid_pitch
+from ddsp_pytorch_tpu_torch import time_sharded_trajectory, train_crepe, train_oof, train_pretrained, train_sigmund
+from ddsp_pytorch_tpu_torch import transfer, tune_hybrid_pitch
 from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
-from ddsp_pytorch_tpu_torch.data import Datamodule, Dataset, DeviceDataLoader, make_synthetic_dataset
+from ddsp_pytorch_tpu_torch.data import DataLoader, Datamodule, Dataset, DeviceDataLoader, make_synthetic_dataset
+from ddsp_pytorch_tpu_torch.data.dataset import dict_collate
 from ddsp_pytorch_tpu_torch.data.fixtures import cents_error, frame_truth, make_oof_corpus
 from ddsp_pytorch_tpu_torch.data.preprocess import preprocess_folder
 from ddsp_pytorch_tpu_torch.export import (
@@ -215,8 +243,9 @@ from ddsp_pytorch_tpu_torch.kernel_bench import (
     time_ms,
 )
 from ddsp_pytorch_tpu_torch.inference import render, timbre_transfer, transfer_controls
-from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder, DDSPDecoder, crepe, init_params
-from ddsp_pytorch_tpu_torch.ops import fft_convolve, kernels, multiscale_fft, roofline
+from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder, DDSPDecoder, crepe, init_params, load_model
+from ddsp_pytorch_tpu_torch.ops import fft_convolve, kernels, mean_std_loudness, multiscale_fft, roofline
+from ddsp_pytorch_tpu_torch.ops import uniform_noise
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 from ddsp_pytorch_tpu_torch.ops.pitch import extract_pitch, switch_cost, yin_emission
 from ddsp_pytorch_tpu_torch.profile_serving import (
@@ -227,16 +256,20 @@ from ddsp_pytorch_tpu_torch.profile_serving import (
     voice_ramp,
     voices_per_card_text,
 )
+from ddsp_pytorch_tpu_torch.parallel import LongFormSynthesizer, make_mesh
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
 from ddsp_pytorch_tpu_torch.runtime import ModelHost, selftest
 from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
 from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer, profiling
 from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
 from ddsp_pytorch_tpu_torch.training.metrics import read_metrics
-from ddsp_pytorch_tpu_torch.training.optim import Optimizer, tree_leaves
+from ddsp_pytorch_tpu_torch.training.optim import Optimizer, global_norm, tree_leaves
 from ddsp_pytorch_tpu_torch.training.state import TrainState
+from ddsp_pytorch_tpu_torch.training.time_sharded import plan_time_padding
 from ddsp_pytorch_tpu_torch.training.train import (
     loss_and_grads,
+    make_loss_and_grads,
+    make_train_multi_step,
     make_train_multi_step_indexed,
     make_train_step,
     metrics_row,
@@ -317,9 +350,14 @@ TRANSFER_SHAPE = (281, 64, 512)
 # Phases 15-16: the realtime soak's engine block (2 frames, 100 harmonics),
 # the drift soak's call (16 frames, 8 harmonics) and its 4-voice pool's
 HEADLINE_SHAPE = (128, 100, 512)
+# Phases 22-25 (the parallel layer): one launch holds shards × batch ×
+# frames a shard rows, 4 × 16 × 96 = 6144 at configs/config_timesharded.yaml
+# with the shards stacked in one process, 16 × 96 = 1536 a rank with one
+# shard a rank.
+SHARDED_SHAPES = ((1536, 64, 512), (6144, 64, 512))
 KERNEL_SHAPES = ((1, 64, 512), (6000, 64, 512), GRAPHED_SHAPE, (37, 100, 512), (6000, 100, 512),
                  (5, 1, 64), (2, 64, 512), (256, 64, 512), (1024, 64, 512), (2048, 64, 512), TRANSFER_SHAPE,
-                 HEADLINE_SHAPE, (2, 100, 512), (16, 8, 512), (64, 8, 512))
+                 HEADLINE_SHAPE, (2, 100, 512), (16, 8, 512), (64, 8, 512), *SHARDED_SHAPES)
 # The exported 100-step model's stream: GPU vs CPU within this share of the
 # stream's peak as well as STREAM_GPU_VS_CPU_ATOL (the model plays near
 # silence, where that absolute bound alone could not fail a wrong kernel).
@@ -432,6 +470,36 @@ SIGMUND_SETS = ("preprocess.sample_rate=16000", "preprocess.signal_length=16384"
 # then tiny capacity at batch 256
 CREPE_STEP_ATOL = 1e-5
 N_CREPE_STEPS = 300
+
+
+TIMESHARDED_CONFIG = "configs/config_timesharded.yaml"
+# phase 22: the time-sharded step against the unsharded step on the card at
+# the bounds of tests/test_time_sharded_training.py:324-361 (the reference
+# shape): the loss within 1e-4 relative, the gradient's norm within 2e-2,
+# each leaf elementwise within 1.5e-1 of its largest magnitude plus 1e-3
+# relative — but FLAGGED_LEAVES, which carry the float32 loss's
+# conditioning at fresh weights (phase 5: a 1e-7 relative change of the
+# noise moves noise_proj's gradient by 17-29 %), are held instead, as every
+# leaf also is, to phase 5's bounds for two float32 steps rounded
+# differently: |Δ| within STEP_LEAF_OF_WHOLE of the whole gradient's norm,
+# the whole gradient within STEP_GRAD_REL.  The unsharded step with its
+# noise scaled by 1 + 1e-7 is printed beside it: the same leaves move as far.
+TS_LOSS_REL, TS_GRAD_NORM_REL, TS_LEAF_OF_MAX = 1e-4, 2e-2, 1.5e-1
+TS_FIT_STEPS = 4  # Trainer.fit at the committed config (the main path)
+TS_GRAPH_STEPS = 4  # eager against graphed steps, and the timed calls' steps
+# phase 24: two gloo ranks on the one card through the train CLI, at
+# configs/config.yaml (global batch 16, 8 a rank); each step held to one
+# process's step on the global batch from the run's own state (its
+# checkpoint): loss 1e-5 relative, gradient norm 1e-3 (tests/
+# test_parallel.py:187-241)
+DP_STEPS = 3
+DP_LOSS_REL, DP_GRAD_NORM_REL = 1e-5, 1e-3
+DP_TIMEOUT_S = 600
+# phase 25: 8 voices × 5632 frames (60.07 s at 48 kHz; 5632 = 4 × 1408) on a
+# time = 4 mesh against the unsharded render, within 2e-3 of its peak
+# (tests/test_longform.py:92)
+LONGFORM_VOICES, LONGFORM_FRAMES = 8, 5632
+LONGFORM_REL_OF_PEAK = 2e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2585,6 +2653,367 @@ def phase_sweep(device, tmp: str) -> None:
     check(tables["card"][0] == tables["cpu"][0], "the hybrid sweep's RPA differs card vs CPU")
 
 
+def _wrapper_counts() -> dict:
+    """{kernel: launches + graph replays} since the last reset."""
+    return {name: w.launches + w.replayed for name, w in osc.KERNEL_WRAPPERS.items()}
+
+
+def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
+    """Phase 22: configs/config_timesharded.yaml on the card (the reference
+    workload, 16 × 375 frames, mesh.time 4, padded to 384 frames).  First
+    the main path: Trainer.fit at the committed config with its in-process
+    time = 4 mesh for TS_FIT_STEPS steps on the violin-rendered cache, the
+    launches counted from zero around it.  Then, from fresh weights, one
+    batch and injected noise, the time-sharded loss and gradients on a
+    time = 4 and a data 2 × time 4 mesh against the unsharded step's, each
+    one launch of each kernel over 6144 rows.  Then TS_GRAPH_STEPS eager
+    steps against one graphed call (MultiStep) of as many, sharded, within
+    GRAPHED_REL; and ms per step, eager and graphed, sharded and unsharded.
+    Returns the launches by path."""
+    cfg = Config.from_yaml(TIMESHARDED_CONFIG)
+    check(cfg.mesh.time == 4 and cfg.n_frames == 375, f"{TIMESHARDED_CONFIG} is not the reference workload")
+    fit_cfg = Config.from_yaml(TIMESHARDED_CONFIG)
+    fit_cfg.apply_overrides([
+        f"preprocess.out_dir={cache}", f"train.steps={TS_FIT_STEPS}", "train.val_interval_epochs=2",
+        "train.log_interval_epochs=0", "train.checkpoint_every_steps=0", "train.metrics_flush_steps=10",
+    ])
+    mesh = make_mesh(fit_cfg.mesh.data, fit_cfg.mesh.time)
+    dm = Datamodule(fit_cfg, mesh=mesh)
+    dm.setup()
+    run_dir = os.path.join(tmp, "run_timesharded")
+    trainer = Trainer(fit_cfg, run_dir, device=device, mesh=mesh)
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit = _wrapper_counts()
+    trainer.close()
+    losses = [v for _, v in read_metrics(run_dir, "loss")]
+    val = read_metrics(run_dir, "loss/val")
+    plan = plan_time_padding(fit_cfg, mesh)
+    print(f"time-sharded Trainer.fit ({TIMESHARDED_CONFIG}, {mesh}, batch {fit_cfg.train.batch} x "
+          f"{fit_cfg.n_frames} frames padded to {plan.frames_pad}, chunk {plan.chunk} samples, reverb, "
+          f"scales {fit_cfg.train.scales}): {state.step} steps in {fit_s:.2f} s; "
+          f"losses {[round(v, 5) for v in losses]}; val {[round(v, 5) for _, v in val]}; launches {fit}; "
+          f"eval forwards {trainer.eval_forwards}; card {card}", flush=True)
+    check(state.step == TS_FIT_STEPS and len(losses) == TS_FIT_STEPS and all(np.isfinite(losses)),
+          "the time-sharded fit's steps or losses")
+    check(fit["oscillator_bwd"] == TS_FIT_STEPS and
+          fit["oscillator_fwd"] == TS_FIT_STEPS + trainer.eval_forwards,
+          f"time-sharded fit launches {fit}, expected a forward and a backward a step (+ evals)")
+    del trainer, dm
+    torch.cuda.empty_cache()
+
+    data = Dataset(os.path.join(cache, "train"))
+    batch = to_device(dict_collate([data[i] for i in range(cfg.train.batch)]), device)
+    meta = read_meta(BUNDLE)
+    base = init_params(load_model(cfg.model.name, cfg.model.kwargs),
+                       torch.Generator().manual_seed(SEED + 30)).to(device)
+    noise = uniform_noise((cfg.train.batch, cfg.n_frames, base.block_size),
+                          torch.Generator(device).manual_seed(SEED + 31), torch.float32, device)
+    state = TrainState(0, base, {}, torch.Generator(device), meta["mean_loudness"], meta["std_loudness"])
+    names = [n for n, _ in base.named_parameters()]
+    unsharded = make_loss_and_grads(base, cfg, None)
+    loss0, g0 = unsharded(state, batch, noise)
+    norm0 = float(global_norm(g0))
+    _, g_perturbed = unsharded(state, batch, noise * (1.0 + 1e-7))
+    moved = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+             for n, a, b in zip(names, g_perturbed, g0)}
+    print("unsharded step, its noise scaled by 1 + 1e-7, against itself (max|Δ|/max|g|): "
+          + ", ".join(f"{n}={moved[n]:.3e}" for n in FLAGGED_LEAVES), flush=True)
+    del g_perturbed
+    step_launches = {}
+    for shape in ((1, 4), (2, 4)):
+        mesh = make_mesh(*shape)
+        fn = make_loss_and_grads(base, cfg, mesh)
+        osc.reset_kernel_counts()
+        loss1, g1 = fn(state, batch, noise)
+        torch.cuda.synchronize()
+        launched = _wrapper_counts()
+        rows = fn.plan.frames_pad * cfg.train.batch
+        loss_rel = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+        norm_rel = abs(float(global_norm(g1)) - norm0) / norm0
+        of_max = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for n, a, b in zip(names, g1, g0)}
+        rel_l2 = {n: float((a - b).norm()) / max(float(b.norm()), 1e-30) for n, a, b in zip(names, g1, g0)}
+        of_whole = {n: float((a - b).norm()) / norm0 for n, a, b in zip(names, g1, g0)}
+        whole = float(torch.cat([(a - b).flatten() for a, b in zip(g1, g0)]).norm()) / norm0
+        worst = sorted(of_max, key=of_max.get, reverse=True)[:4]
+        print(f"time-sharded step vs unsharded on the card ({mesh}, fresh weights, {cfg.train.batch} x "
+              f"{cfg.n_frames} frames, rows a launch {rows}): loss {float(loss1):.7f} vs {float(loss0):.7f} "
+              f"rel {loss_rel:.3e}; grad norm rel {norm_rel:.3e}; whole-gradient rel L2 {whole:.3e}; largest "
+              "leaf errors (max|Δ|/max|g|, own rel L2, |Δ|/|g|): "
+              + ", ".join(f"{n}=({of_max[n]:.3e}, {rel_l2[n]:.3e}, {of_whole[n]:.3e})" for n in worst)
+              + f"; launches {launched}", flush=True)
+        check(launched == {"oscillator_fwd": 1, "oscillator_bwd": 1},
+              f"the sharded step launched {launched}, expected one forward and one backward")
+        check(rows == fn.plan.frames_pad * cfg.train.batch and fn.plan.frames_pad == 384,
+              f"the sharded launch holds {rows} rows, expected 6144")
+        check(loss_rel <= TS_LOSS_REL, f"time-sharded loss rel {loss_rel}")
+        check(norm_rel <= TS_GRAD_NORM_REL, f"time-sharded grad norm rel {norm_rel}")
+        check(whole <= STEP_GRAD_REL, f"time-sharded whole-gradient rel L2 {whole}")
+        for n, a, b in zip(names, g1, g0):
+            check(of_whole[n] <= STEP_LEAF_OF_WHOLE, f"time-sharded gradient of {n}: |Δ|/|g| {of_whole[n]}")
+            if n in FLAGGED_LEAVES:
+                continue
+            bound = TS_LEAF_OF_MAX * float(b.abs().max()) + 1e-3 * b.abs()
+            check(bool(((a - b).abs() <= bound).all()), f"time-sharded gradient of {n}: {of_max[n]:.3e} of max")
+        step_launches[f"{shape[0]}x{shape[1]}"] = launched
+    del g0, g1
+    torch.cuda.empty_cache()
+
+    # eager against graphed, and ms a step (Adam, as the config trains)
+    stacked = {k: torch.stack([v.roll(j, 0) for j in range(TS_GRAPH_STEPS)]) for k, v in batch.items()}
+    timing, graphed_launches = {}, {}
+    for label, mesh in (("unsharded", None), ("sharded", make_mesh(1, 4))):
+        def fresh(seed):
+            model = copy.deepcopy(base)
+            tx = make_optimizer(cfg)
+            return model, tx, TrainState(0, model, tx.init(list(model.parameters())),
+                                         torch.Generator(device).manual_seed(seed),
+                                         meta["mean_loudness"], meta["std_loudness"])
+
+        model_e, tx_e, state_e = fresh(SEED + 32)
+        step = make_train_step(model_e, tx_e, cfg, mesh)
+        eager = torch.stack([metrics_row(step(state_e, {k: v[j] for k, v in stacked.items()}))
+                             for j in range(TS_GRAPH_STEPS)]).cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(TS_GRAPH_STEPS):
+            step(state_e, {k: v[j] for k, v in stacked.items()})
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / TS_GRAPH_STEPS
+        model_g, tx_g, state_g = fresh(SEED + 32)
+        multi = make_train_multi_step(model_g, tx_g, cfg, TS_GRAPH_STEPS, 1, mesh)
+        osc.reset_kernel_counts()
+        graphed = multi(state_g, stacked).cpu()
+        graphed_launches[label] = _wrapper_counts()
+        loss_rel = rel_err(graphed[:, 0], eager[:, 0])
+        leaf = _leaf_rel(model_g, model_e)
+        worst = max(leaf, key=leaf.get)
+        # the eager model took TS_GRAPH_STEPS more steps: compare it with a
+        # second graphed call
+        multi(state_g, stacked)
+        torch.cuda.synchronize()
+        leaf2 = _leaf_rel(model_g, model_e)
+        worst2 = max(leaf2, key=leaf2.get)
+        t0 = time.perf_counter()
+        multi(state_g, stacked)
+        torch.cuda.synchronize()
+        graphed_ms = (time.perf_counter() - t0) * 1e3 / TS_GRAPH_STEPS
+        timing[label] = (eager_ms, graphed_ms, multi.capture_s, multi.pool_bytes)
+        print(f"{label} steps at {TIMESHARDED_CONFIG} ({mesh}): graphed vs eager per-step loss rel "
+              f"{loss_rel:.3e}, worst leaf after {2 * TS_GRAPH_STEPS} steps {worst2} rel {leaf2[worst2]:.3e}; "
+              f"captured {multi.captured}; eager ms/step {eager_ms:.3f}, graphed ms/step {graphed_ms:.3f} "
+              f"(synced call of {TS_GRAPH_STEPS}); capture s {multi.capture_s}, graph pool bytes "
+              f"{multi.pool_bytes}; card {card}", flush=True)
+        check(loss_rel <= GRAPHED_REL, f"{label}: graphed vs eager loss rel {loss_rel}")
+        check(leaf2[worst2] <= GRAPHED_REL, f"{label}: graphed vs eager {worst2} rel {leaf2[worst2]}")
+        check(multi.captured == {"oscillator_fwd": 1, "oscillator_bwd": 1},
+              f"{label}: captured launches {multi.captured}")
+        del model_e, model_g, multi, step, state_e, state_g, leaf, worst
+        torch.cuda.empty_cache()
+    (ue, ug, _, _), (se, sg, _, _) = timing["unsharded"], timing["sharded"]
+    print(f"time-sharded / unsharded ms per step: eager {se:.3f} / {ue:.3f} = {se / ue:.3f}; graphed "
+          f"{sg:.3f} / {ug:.3f} = {sg / ug:.3f}; card {card}", flush=True)
+    return {"fit": fit, "step": step_launches, "graphed": graphed_launches["sharded"]}
+
+
+def phase_trajectory(device, tmp: str, card: str) -> dict:
+    """Phase 23: time_sharded_trajectory.py at its defaults (400 Adam steps,
+    unsharded and on an in-process data 2 × time 4 mesh, 71 frames padded
+    to 80) on the card, held to the artifact's bounds.  Returns its
+    launches."""
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    report = time_sharded_trajectory.run_trajectories(cache_dir=os.path.join(tmp, "trajectory_cache"),
+                                                      device=device)
+    secs = time.perf_counter() - t0
+    launched = _wrapper_counts()
+    failed = time_sharded_trajectory.check_bounds(report)
+    first, last = report["loss_first_window"], report["loss_last_window"]
+    print(f"trajectory ({report['steps']} steps, window {report['window']}): first window unsharded "
+          f"{first['loss_unsharded']:.5f} sharded {first['loss_sharded']:.5f}; last window "
+          f"{last['loss_unsharded']:.5f} / {last['loss_sharded']:.5f}; largest windowed rel diff "
+          f"{max(c['rel_diff'] for c in report['checkpoints']):.3e}; final global param rel L2 "
+          f"{report['final_param_global_rel_l2']:.4e}; wall s unsharded {report['wall_s_unsharded']:.2f} "
+          f"sharded {report['wall_s_sharded']:.2f} ({secs:.2f} s in all, the corpus included); launches "
+          f"{launched}; bounds {'met' if not failed else failed}; card {card}", flush=True)
+    check(not failed, f"trajectory bounds missed: {failed}")
+    check(launched["oscillator_bwd"] == 2 * report["steps"], f"trajectory launches {launched}")
+    return launched
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_data_parallel(device, cache: str, tmp: str, card: str) -> dict:
+    """Phase 24: data parallelism across processes on the one card.
+    (a) Two ranks over gloo, each stepping on cuda:0, through the train CLI
+    (--multihost --backend gloo) at configs/config.yaml (global batch 16,
+    8 a rank, Adam) for DP_STEPS steps, checkpointing every step; then each
+    step in this process on the global batch [rank 0's rows, rank 1's rows]
+    from the run's own state before it: loss within 1e-5, gradient norm
+    within 1e-3.  (b) One rank over NCCL: MultiStep (a CUDA graph with the
+    gradient all_reduce inside) against MultiStep without a mesh, from one
+    state on the same batches: bit for bit.  NCCL cannot put two ranks on
+    one card, so two NCCL ranks wait for a machine with several.  Returns
+    the NCCL run's launches."""
+    import torch.distributed as dist
+
+    cfg = Config.from_yaml(CONFIG)
+    cfg.apply_overrides([
+        f"preprocess.out_dir={cache}", f"train.steps={DP_STEPS}", "train.val_interval_epochs=0",
+        "train.log_interval_epochs=0", "train.checkpoint_every_steps=1", f"train.keep_checkpoints={DP_STEPS}",
+        "train.metrics_flush_steps=1",
+    ])
+    config = os.path.join(tmp, "dp_config.yaml")
+    cfg.to_yaml(config)
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               PYTHONPATH=os.pathsep.join(p for p in (os.getcwd(), os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "ddsp_pytorch_tpu_torch.train", "--config", config, "--name", "dp", "--root",
+           tmp, "--device", str(device), "--multihost", "--backend", "gloo", "--dist-timeout", "300"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print(f"  gloo rank {r} (exit {p.returncode}): " + " | ".join(log.strip().splitlines()[-3:]), flush=True)
+    check(all(p.returncode == 0 for p in procs), "a gloo rank failed:\n" + "\n=====\n".join(logs))
+    run_dir = os.path.join(tmp, "dp")
+    data = Dataset(os.path.join(cache, "train"))
+    mean_l, std_l = mean_std_loudness(DataLoader(data, cfg.train.batch, shuffle=False))
+    model = load_model(cfg.model.name, cfg.model.kwargs).to(device)
+    generator = torch.Generator(device).manual_seed(cfg.train.seed)
+    init_params(model, generator)
+    tx = make_optimizer(cfg)
+    state = TrainState(0, model, tx.init(list(model.parameters())), generator, mean_l, std_l)
+    step = make_train_step(model, tx, cfg)
+    per_rank = cfg.train.batch // 2
+    shards = [DataLoader(data, per_rank, shuffle=True, drop_last=True, seed=cfg.train.seed, num_shards=2,
+                         shard_index=i) for i in range(2)]
+    run_loss = [v for _, v in read_metrics(run_dir, "loss")]
+    run_norm = [v for _, v in read_metrics(run_dir, "grad_norm")]
+    check(len(run_loss) == DP_STEPS, f"the gloo run logged {len(run_loss)} losses (rank 0 alone, once a step)")
+    k, errs = 0, []
+    for epoch in range(DP_STEPS):
+        for loader in shards:
+            loader.set_epoch(epoch)
+        for b0, b1 in zip(*shards):
+            k += 1
+            if k > DP_STEPS:
+                break
+            if k > 1:
+                saved = torch.load(os.path.join(run_dir, "checkpoints", f"{k - 1}.pt"), map_location="cpu",
+                                   weights_only=True)
+                state.load_state_dict(saved)
+            metrics = step(state, to_device({key: np.concatenate([b0[key], b1[key]]) for key in b0}, device))
+            loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            errs.append((abs(run_loss[k - 1] - loss) / abs(loss), abs(run_norm[k - 1] - norm) / norm))
+    print(f"data parallel over 2 gloo ranks on {device} ({CONFIG}, global batch {cfg.train.batch}, "
+          f"{per_rank} a rank, {DP_STEPS} steps, {secs:.2f} s with start-up) vs one process on the global "
+          f"batch from the run's own state: per step (loss rel, grad norm rel) "
+          + ", ".join(f"({a:.3e}, {b:.3e})" for a, b in errs) + f"; card {card}", flush=True)
+    for a, b in errs:
+        check(a <= DP_LOSS_REL and b <= DP_GRAD_NORM_REL, f"gloo data parallel vs one process: {a}, {b}")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # (b) NCCL, one rank, the graphed multi-step with its all_reduce inside
+    backend = "nccl" if device.type == "cuda" else "gloo"  # gloo: a CPU rehearsal of this phase
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, group=dist.group.WORLD)
+        loader = DeviceDataLoader(data, cfg.train.batch, shuffle=True, drop_last=True, seed=SEED, device=device)
+        idx2d = []
+        for epoch in range(TS_GRAPH_STEPS):
+            loader.set_epoch(epoch)
+            idx2d += list(loader.index_batches())
+        idx2d = np.stack(idx2d[:TS_GRAPH_STEPS])
+        base = init_params(DDSPDecoder(**_full_kwargs()), torch.Generator().manual_seed(SEED + 50)).to(device)
+        meta = read_meta(BUNDLE)
+        runs = {}
+        for label, m in (("no mesh", None), ("nccl", mesh)):
+            model = copy.deepcopy(base)
+            tx = make_optimizer(cfg)
+            state = TrainState(0, model, tx.init(list(model.parameters())),
+                               torch.Generator(device).manual_seed(SEED + 51),
+                               meta["mean_loudness"], meta["std_loudness"])
+            multi = make_train_multi_step_indexed(model, tx, cfg, TS_GRAPH_STEPS, 1, m)
+            osc.reset_kernel_counts()
+            rows = multi(state, loader.device_data, idx2d).cpu()
+            launched = _wrapper_counts()
+            runs[label] = (rows, model, state.generator.get_state(), multi.captured, launched)
+        (r0, m0, g0, _, _), (r1, m1, g1, captured, launched) = runs["no mesh"], runs["nccl"]
+        bitwise = (torch.equal(r0, r1) and torch.equal(g0, g1)
+                   and all(torch.equal(a, b) for a, b in zip(m0.parameters(), m1.parameters())))
+        print(f"NCCL world size 1, graphed MultiStep ({TS_GRAPH_STEPS} steps, the all_reduce captured) vs no "
+              f"mesh: losses {[round(float(v), 6) for v in r1[:, 0]]}; bitwise equal: {bitwise}; captured "
+              f"{captured}; launches {launched}; card {card}", flush=True)
+        check(bitwise, "NCCL graphed steps at world size 1 differ from the steps without a mesh")
+        check(captured == {"oscillator_fwd": 1, "oscillator_bwd": 1}, f"NCCL graph captured {captured}")
+    finally:
+        dist.destroy_process_group()
+    del runs, base, loader
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_longform(device, card: str) -> int:
+    """Phase 25: the violin bundle renders LONGFORM_VOICES voices of
+    LONGFORM_FRAMES frames (60.07 s) of glides through LongFormSynthesizer on
+    an in-process time = 4 mesh (decoder whole, the DSP and the 1 s reverb
+    on the shards), against the unsharded render from the same generator:
+    within LONGFORM_REL_OF_PEAK of its peak; seconds and realtime factor of
+    two renders.  Returns the launches of one render."""
+    model, meta = load_bundle(BUNDLE, device=device)
+    mean, std = meta["mean_loudness"], meta["std_loudness"]
+    pitch, loud = glide_controls(LONGFORM_VOICES, LONGFORM_FRAMES, model.block_size, model.sample_rate,
+                                 seed=SEED + 40, mean_loudness=mean, std_loudness=std)
+    f0 = torch.tensor(pitch[..., None], device=device)
+    loudness = torch.tensor(loud[..., None], device=device)
+    synth = LongFormSynthesizer(model, make_mesh(1, 4), mean_loudness=mean, std_loudness=std)
+    secs = []
+    for i in range(2):
+        osc.reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = synth.synthesize(f0, loudness, generator=torch.Generator(device).manual_seed(SEED + 41))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launched = _wrapper_counts()
+    with torch.no_grad():
+        want = model({"pitch": f0, "loudness": (loudness - mean) / std},
+                     generator=torch.Generator(device).manual_seed(SEED + 41))["signal"]
+    peak = float(want.abs().max())
+    err = float((audio - want).abs().max())
+    duration = LONGFORM_FRAMES * model.block_size / model.sample_rate
+    print(f"long-form ({LONGFORM_VOICES} voices x {duration:.2f} s, violin bundle, time = 4 mesh, reverb): "
+          f"max|sharded-unsharded|={err:.3e} of peak {peak:.4f} ({err / peak:.3e}); render s "
+          + ", ".join(f"{s:.3f}" for s in secs)
+          + f" = {LONGFORM_VOICES * duration / min(secs):.1f}x realtime (voices x seconds a second); "
+          f"launches {launched}; card {card}", flush=True)
+    check(audio.shape == want.shape and bool(torch.isfinite(audio).all()), "long-form output")
+    check(err <= LONGFORM_REL_OF_PEAK * peak, f"long-form vs unsharded {err / peak} of the peak")
+    check(launched == {"oscillator_fwd": 1, "oscillator_bwd": 0}, f"long-form launches {launched}")
+    del model, audio, want
+    torch.cuda.empty_cache()
+    return launched["oscillator_fwd"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2657,8 +3086,18 @@ def main() -> int:
         check(all(n > 0 for n in sigmund.values()), "a kernel was not launched on the sigmund path")
         phase_crepe_training(device, card, tmp)
         phase_sweep(device, tmp)
-    # launches: this slice's main path, train_oof
-    fwd_entry["launches"] = oof["oscillator_fwd"]
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_parallel_") as tmp:
+        cache = os.path.join(tmp, "cache")
+        write_cache(cache, device)
+        sharded = phase_time_sharded(device, cache, tmp, card)
+        trajectory = phase_trajectory(device, tmp, card)
+        nccl = phase_data_parallel(device, cache, tmp, card)
+    longform_fwd = phase_longform(device, card)
+    check(all(n > 0 for n in sharded["fit"].values()), "a kernel was not launched on the time-sharded path")
+    check(all(n > 0 for n in nccl.values()) and longform_fwd > 0,
+          "a kernel was not launched on the NCCL data-parallel or long-form path")
+    # launches: this slice's main path, the time-sharded Trainer.fit
+    fwd_entry["launches"] = sharded["fit"]["oscillator_fwd"]
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
                                      "serving_exported": exported_fwd, "serving_pool": pool_fwd,
@@ -2667,15 +3106,24 @@ def main() -> int:
                                      "timbre_transfer": transfer_fwd, "headline": headline_fwd,
                                      "drift_soak": drift_fwd, "runtime_host": host_fwd,
                                      "pitch_accuracy": accuracy_fwd, "train_oof": oof["oscillator_fwd"],
-                                     "train_sigmund": sigmund["oscillator_fwd"]}
-    bwd_entry["launches"] = oof["oscillator_bwd"]
+                                     "train_sigmund": sigmund["oscillator_fwd"],
+                                     "time_sharded_fit": sharded["fit"]["oscillator_fwd"],
+                                     "time_sharded_graphed": sharded["graphed"]["oscillator_fwd"],
+                                     "time_sharded_trajectory": trajectory["oscillator_fwd"],
+                                     "data_parallel_nccl_graphed": nccl["oscillator_fwd"],
+                                     "longform": longform_fwd}
+    bwd_entry["launches"] = sharded["fit"]["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
                                      "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0,
                                      "synthetic": 0, "training_autoencoder": ae_train["oscillator_bwd"],
                                      "timbre_transfer": 0, "headline": 0, "drift_soak": 0, "runtime_host": 0,
                                      "pitch_accuracy": 0, "train_oof": oof["oscillator_bwd"],
-                                     "train_sigmund": sigmund["oscillator_bwd"]}
+                                     "train_sigmund": sigmund["oscillator_bwd"],
+                                     "time_sharded_fit": sharded["fit"]["oscillator_bwd"],
+                                     "time_sharded_graphed": sharded["graphed"]["oscillator_bwd"],
+                                     "time_sharded_trajectory": trajectory["oscillator_bwd"],
+                                     "data_parallel_nccl_graphed": nccl["oscillator_bwd"], "longform": 0}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)

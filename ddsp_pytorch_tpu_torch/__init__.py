@@ -15,14 +15,17 @@ it in PyTorch for an NVIDIA Hopper GPU, slice by slice (ROADMAP.md):
                 sigmund-wav ingestion, NSynth views, the out-of-family
                 fixture corpus and its pitch scoring (fixtures.py)
   training/     loss, optimizer, checkpoints, the Trainer (CUDA graphs),
-                media reports, profiling
+                media reports, profiling, the time-sharded step
+  parallel/     the ('data', 'time') mesh in process or across
+                torch.distributed processes, time-sharded DSP ops, the
+                gradient reduction, long-form synthesis
   streaming/    L6a exact-state block streaming, the VoicePool
   export.py     trained run → bundle → model → stream session
   inference.py  offline timbre transfer of a recording through a bundle
   serve.py      socket server, wire-compatible with ddsp_pytorch_tpu.serve
   train.py, preprocess.py, train_pretrained.py, transfer.py,
   nsynth_inst_split.py, train_oof.py, train_sigmund.py, train_crepe.py,
-  pitch_accuracy.py, tune_hybrid_pitch.py: the CLIs
+  pitch_accuracy.py, tune_hybrid_pitch.py, time_sharded_trajectory.py: the CLIs
 
 It imports torch, numpy and the standard library only — never jax, flax,
 msgpack, yaml or ddsp_pytorch_tpu.  Entry points take an explicit `device`

@@ -310,8 +310,11 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """`mesh:` section (config.py:154-166).  Parsed; the port trains on one
-    device, so the Trainer refuses time > 1 and data > 1."""
+    """`mesh:` section (config.py:154-166): the ('data', 'time') axis sizes,
+    data −1 meaning the processes left after the time axis.  The train CLI
+    builds a mesh from it across processes when the world size is above 1
+    (parallel/mesh.py); a Trainer given an in-process mesh of these sizes
+    runs the time-sharded step on one device."""
 
     data: int = -1
     time: int = 1

@@ -9,7 +9,9 @@ the DeviceDataLoader, which uploads the whole cache once and gathers
 batches on the device in that same order, and the train/validation
 Datamodule.  The DataLoader's batches are numpy, which
 the Trainer moves to its device; the DeviceDataLoader's are tensors on its
-device.  The multi-host shards wait (ROADMAP.md).
+device.  Under a mesh across processes each loader yields its process's
+interleaved shard of every global batch (`num_shards`, `shard_index`,
+dataset.py:257-298).
 """
 
 from __future__ import annotations
@@ -61,7 +63,12 @@ def dict_collate(records) -> Dict[str, np.ndarray]:
 class DataLoader:
     """Deterministic batch loader: the shuffle order is a function of
     (seed, epoch).  Call `set_epoch(e)` before iterating epoch e (the
-    Trainer does), which makes resume exact."""
+    Trainer does), which makes resume exact.
+
+    `batch_size` is the per-shard batch.  With num_shards > 1 (one shard a
+    process along the mesh's data axis) every shard derives the same global
+    order and takes its interleaved slice, cut to the shards' common length
+    so that they stay in step (dataset.py:60-108)."""
 
     def __init__(
         self,
@@ -70,29 +77,42 @@ class DataLoader:
         shuffle: bool = False,
         drop_last: bool = False,
         seed: int = 0,
+        num_shards: int = 1,
+        shard_index: int = 0,
     ):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
-    def index_batches(self) -> Iterator[np.ndarray]:
-        """This epoch's per-batch item indices, in iteration order."""
-        n = len(self.dataset)
-        order = np.arange(n)
+    def _shard_order(self) -> np.ndarray:
+        order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(order)
+        if self.num_shards > 1:
+            per = len(order) // self.num_shards
+            order = order[self.shard_index :: self.num_shards][:per]
+        return order
+
+    def index_batches(self) -> Iterator[np.ndarray]:
+        """This epoch's per-batch item indices, in iteration order."""
+        order = self._shard_order()
+        n = len(order)
         end = (n // self.batch_size) * self.batch_size if self.drop_last else n
         for start in range(0, end, self.batch_size):
             yield order[start : start + self.batch_size]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._shard_order())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -115,8 +135,9 @@ class DeviceDataLoader(DataLoader):
     gathers from inside its graph.  Iterating yields `take` of each batch."""
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0, device="cuda"):
-        super().__init__(dataset, batch_size, shuffle, drop_last, seed)
+                 drop_last: bool = False, seed: int = 0, device="cuda", num_shards: int = 1,
+                 shard_index: int = 0):
+        super().__init__(dataset, batch_size, shuffle, drop_last, seed, num_shards, shard_index)
         self.device = resolve_device(device)
         # one upload per array; trailing feature axes added like __getitem__
         self._data = {
@@ -162,16 +183,24 @@ class DeviceDataLoader(DataLoader):
 
 class Datamodule:
     """Train/validation loader pair from a Config: `<out_dir>/train` and
-    `<out_dir>/validation` (dataset.py:239-299, one device).
-    `device_cache=True` makes the train loader a DeviceDataLoader on
-    `device`; validation stays on the host loader, as in the JAX package."""
+    `<out_dir>/validation` (dataset.py:239-299).  `device_cache=True` makes
+    the train loader a DeviceDataLoader on `device`; validation stays on
+    the host loader, as in the JAX package.  Under a mesh across processes
+    (parallel/mesh.py) config.train.batch is the global batch and each
+    loader yields this process's interleaved shard of it, sharded along the
+    data axis (the time ranks of one data shard load the same rows)."""
 
-    def __init__(self, config, device_cache: bool = False, device="cuda"):
+    def __init__(self, config, device_cache: bool = False, device="cuda", mesh=None):
         self.config = config
         self.device_cache = device_cache
         self.device = device
         self.train_data: Optional[Dataset] = None
         self.val_data: Optional[Dataset] = None
+        if mesh is None or mesh.in_process:
+            self._shards = {"num_shards": 1, "shard_index": 0}
+        else:
+            self._shards = {"num_shards": mesh.data, "shard_index": mesh.data_index}
+        self._batch = max(1, config.train.batch // self._shards["num_shards"])
 
     def setup(self) -> None:
         out_dir = Path(self.config.preprocess.out_dir)
@@ -182,19 +211,21 @@ class Datamodule:
         if self.device_cache:
             return DeviceDataLoader(
                 self.train_data,
-                batch_size=self.config.train.batch,
+                batch_size=self._batch,
                 shuffle=True,
                 drop_last=True,
                 seed=self.config.train.seed,
                 device=self.device,
+                **self._shards,
             )
         return DataLoader(
             self.train_data,
-            batch_size=self.config.train.batch,
+            batch_size=self._batch,
             shuffle=True,
             drop_last=True,
             seed=self.config.train.seed,
+            **self._shards,
         )
 
     def val_dataloader(self) -> DataLoader:
-        return DataLoader(self.val_data, batch_size=self.config.train.batch, shuffle=False)
+        return DataLoader(self.val_data, batch_size=self._batch, shuffle=False, **self._shards)

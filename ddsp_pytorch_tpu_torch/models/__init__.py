@@ -26,6 +26,6 @@ def load_model(name: str, kwargs: dict):
         )
     kwargs = dict(kwargs)
     if kwargs.pop("dtype", "float32") not in ("float32", None):
-        raise NotImplementedError("only float32 models are ported")
+        raise NotImplementedError("only float32 models are ported; bf16 waits (ROADMAP.md §1)")
     kwargs.pop("use_pallas", None)  # JAX backend switch; the port dispatches on device
     return MODEL_REGISTRY[name](**kwargs)

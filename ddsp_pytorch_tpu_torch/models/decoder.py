@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddsp_pytorch_tpu_torch import ops
 from ddsp_pytorch_tpu_torch.models.modules import FilteredNoise, HarmonicSynth, Reverb
 
 N_LAYERS = 3
@@ -165,6 +166,25 @@ class DDSPDecoder(nn.Module):
         noise_ctrls = self.noise_synth.get_controls(self.noise_proj(hidden))
         return harmonic_ctrls, noise_ctrls
 
+    def frame_controls(self, f0: torch.Tensor, loudness: torch.Tensor):
+        """Decoder + projections, no synthesis (decoder.py:214-223): f0,
+        loudness (B, F, 1) → (harmonic controls, noise controls).  The NN
+        stage of the time-sharded step and of long-form synthesis."""
+        f0 = f0.to(self.dtype)
+        hidden, _ = self.decoder(f0, loudness)
+        return self._controls(hidden, f0)
+
+    def sample_noise(self, f0: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """(B, F, block_size) uniform noise in [-1, 1): the draw `forward`
+        makes from `generator` when no noise is injected (decoder.py:168-172)."""
+        return ops.uniform_noise((f0.shape[0], f0.shape[1], self.block_size), generator,
+                                 self.dtype, f0.device)
+
+    def reverb_impulse(self) -> torch.Tensor:
+        """(sample_rate,) reverb impulse response (decoder.py:174-179); the
+        time-sharded step convolves with it shard by shard."""
+        return self.reverb.build_impulse()
+
     def forward(
         self,
         batch: Dict[str, torch.Tensor],
@@ -176,8 +196,7 @@ class DDSPDecoder(nn.Module):
         noise_ctrls, harmonic_ctrls.  noise (B, F, S) is injected, or drawn
         from `generator`."""
         f0, loudness = batch["pitch"].to(self.dtype), batch["loudness"]
-        hidden, _ = self.decoder(f0, loudness)
-        harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
+        harmonic_ctrls, noise_ctrls = self.frame_controls(f0, loudness)
         harmonic = self.harmonic_synth(**harmonic_ctrls)
         noise_audio = self.noise_synth(**noise_ctrls, noise=noise, generator=generator)
         signal = harmonic + noise_audio

@@ -43,6 +43,8 @@ class DDSPAutoencoder(nn.Module):
 
     dtype = DDSPDecoder.dtype
     _controls = DDSPDecoder._controls
+    sample_noise = DDSPDecoder.sample_noise
+    reverb_impulse = DDSPDecoder.reverb_impulse
 
     def __init__(
         self,

@@ -3,7 +3,9 @@
     python -m ddsp_pytorch_tpu_torch.train --config configs/config.yaml \\
         --name myrun [--root runs] [--steps N] [--batch B] [--lr LR] \\
         [--set key.path=value ...] [--device-cache] [--device cuda] \\
-        [--profile] [--segment-steps N | --segment-schedule N1,N2,...]
+        [--profile] [--segment-steps N | --segment-schedule N1,N2,...] \\
+        [--multihost [--backend nccl|gloo] [--dist-timeout S]] \\
+        [--mesh-data D] [--mesh-time T] [--no-mesh]
 
 Loads the YAML config, builds the model by registry name, computes the
 dataset's loudness stats and runs the one-device Trainer on the feature
@@ -23,6 +25,17 @@ only computes the loudness stats, freezes them into the run's config and
 saves the step-0 checkpoint.  Each child's wall clock is appended to
 <root>/<name>/segments.jsonl.
 
+--multihost joins a torch.distributed process group from the environment
+(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, as torchrun sets them; the
+JAX CLI's jax.distributed.initialize).  The backend follows the device —
+NCCL for cuda, one card a rank (LOCAL_RANK's, where --device names no
+index), gloo for cpu — unless --backend names one; the log states it.  As
+in JAX (train.py:142-149), a mesh is built only when the world size is
+above 1: config.mesh's (data, time), or --mesh-data/--mesh-time, data −1
+meaning world size // time.  config.train.batch is then the global batch,
+each rank loading its interleaved shard; only rank 0 logs and writes.  With
+--no-mesh, or at world size 1, the run is unsharded.
+
 The device defaults to the GPU and there is no fallback: pass --device cpu
 for the plain PyTorch path.
 """
@@ -30,6 +43,7 @@ for the plain PyTorch path.
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import subprocess
@@ -64,6 +78,19 @@ def _parser() -> argparse.ArgumentParser:
                    help="train in fresh child processes of this many steps each")
     p.add_argument("--segment-schedule", default=None, metavar="N1,N2,...",
                    help="like --segment-steps with a size a segment (the last repeats)")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="mesh 'data' axis (default config.mesh.data; -1: world size // time)")
+    p.add_argument("--mesh-time", type=int, default=None,
+                   help="mesh 'time' axis (default config.mesh.time); > 1: the time-sharded step")
+    p.add_argument("--no-mesh", action="store_true", help="train unsharded")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed group from RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="with --multihost: the process group's backend (default: nccl on "
+                        "cuda, gloo on cpu)")
+    p.add_argument("--dist-timeout", type=float, default=1800.0,
+                   help="with --multihost: seconds a collective may wait before it fails")
     return p
 
 
@@ -78,12 +105,61 @@ def _load_config(args):
         cfg.train.batch = args.batch
     if args.lr is not None:
         cfg.train.lr = args.lr
+    if args.mesh_data is not None:
+        cfg.mesh.data = args.mesh_data
+    if args.mesh_time is not None:
+        cfg.mesh.time = args.mesh_time
     return cfg
 
 
+def init_multihost(args):
+    """Join the process group the environment describes; returns this
+    rank's device.  NCCL for a cuda device, gloo for cpu, unless --backend
+    names one."""
+    import torch
+    import torch.distributed as dist
+
+    from ddsp_pytorch_tpu_torch import resolve_device
+
+    device = resolve_device(args.device)
+    backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("--backend nccl needs a cuda device")
+    if backend == "nccl" and torch.device(args.device).index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="env://",
+                            timeout=datetime.timedelta(seconds=args.dist_timeout))
+    print(f"[train] rank {dist.get_rank()} of {dist.get_world_size()}: backend {backend}, "
+          f"device {device}", flush=True)
+    return device
+
+
+def build_mesh(args, cfg):
+    """The run's mesh: across the process group when --multihost and the
+    world size is above 1 (and not --no-mesh), else None."""
+    import torch.distributed as dist
+
+    from ddsp_pytorch_tpu_torch.parallel import make_mesh
+
+    if args.no_mesh or not (dist.is_available() and dist.is_initialized()):
+        return None
+    if dist.get_world_size() == 1:
+        print("[train] world size 1: no mesh (config.mesh not used)", flush=True)
+        return None
+    mesh = make_mesh(cfg.mesh.data, cfg.mesh.time, group=dist.group.WORLD)
+    print(f"[train] {mesh}", flush=True)
+    return mesh
+
+
 def main(argv=None):
-    args = _parser().parse_args(argv)
-    if args.segment_steps is not None or args.segment_schedule is not None:
+    parser = _parser()
+    args = parser.parse_args(argv)
+    segmented = args.segment_steps is not None or args.segment_schedule is not None
+    if segmented and args.multihost:
+        parser.error("--multihost runs one process a rank; it does not take --segment-*")
+    if segmented:
         return run_segmented(args, sys.argv[1:] if argv is None else list(argv))
 
     from ddsp_pytorch_tpu_torch.data import Datamodule
@@ -92,16 +168,24 @@ def main(argv=None):
 
     cfg = _load_config(args)
     run_dir = os.path.join(args.root, args.name)
-    trainer = Trainer(cfg, run_dir, device=args.device)
-    datamodule = Datamodule(cfg, device_cache=args.device_cache, device=args.device)
-    datamodule.setup()
+    device = init_multihost(args) if args.multihost else args.device
     try:
-        if args.profile:
-            with trace(os.path.join(run_dir, "trace"), trainer.device):
-                trainer.fit(datamodule, total_steps=min(PROFILE_STEPS, cfg.train.steps))
-        state = trainer.fit(datamodule)
+        mesh = build_mesh(args, cfg)
+        trainer = Trainer(cfg, run_dir, device=device, mesh=mesh)
+        datamodule = Datamodule(cfg, device_cache=args.device_cache, device=device, mesh=mesh)
+        datamodule.setup()
+        try:
+            if args.profile:
+                with trace(os.path.join(run_dir, "trace"), trainer.device):
+                    trainer.fit(datamodule, total_steps=min(PROFILE_STEPS, cfg.train.steps))
+            state = trainer.fit(datamodule)
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if args.multihost:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(f"trained to step {state.step}; run directory {run_dir}")
     return state
 

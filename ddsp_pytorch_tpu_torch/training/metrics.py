@@ -9,6 +9,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -21,19 +22,26 @@ def _file_stem(tag: str, step: int) -> str:
 
 
 class MetricsWriter:
-    def __init__(self, run_dir: str):
+    def __init__(self, run_dir: str, enabled: bool = True):
+        """enabled=False makes every write a no-op: the ranks of a process
+        mesh other than rank 0 share its run directory (metrics.py:19-40)."""
         self.run_dir = run_dir
+        self.enabled = enabled
         os.makedirs(run_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(run_dir, "metrics.jsonl"), "a")
+        self._jsonl = open(os.path.join(run_dir, "metrics.jsonl"), "a") if enabled else None
 
     def add_scalar(self, tag: str, value, step: int) -> None:
+        if not self.enabled:
+            return
         record = {"tag": tag, "value": float(value), "step": int(step), "time": time.time()}
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
 
-    def add_audio(self, tag: str, audio, step: int, sample_rate: int) -> str:
+    def add_audio(self, tag: str, audio, step: int, sample_rate: int) -> Optional[str]:
         """Write mono audio (an array or a tensor on any device) as
-        audio/<tag>_<step>.wav; returns its path."""
+        audio/<tag>_<step>.wav; returns its path (None when disabled)."""
+        if not self.enabled:
+            return None
         if isinstance(audio, torch.Tensor):
             audio = audio.detach().to("cpu", torch.float32).numpy()
         wav_dir = os.path.join(self.run_dir, "audio")
@@ -42,9 +50,11 @@ class MetricsWriter:
         save_wav(path, np.asarray(audio, np.float32).reshape(-1), sample_rate)
         return path
 
-    def add_figure(self, tag: str, fig, step: int) -> str:
+    def add_figure(self, tag: str, fig, step: int) -> Optional[str]:
         """Save a matplotlib figure as figures/<tag>_<step>.png; returns its
-        path."""
+        path (None when disabled)."""
+        if not self.enabled:
+            return None
         fig_dir = os.path.join(self.run_dir, "figures")
         os.makedirs(fig_dir, exist_ok=True)
         path = os.path.join(fig_dir, _file_stem(tag, step) + ".png")
@@ -52,7 +62,8 @@ class MetricsWriter:
         return path
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 def read_metrics(run_dir: str, tag: str):

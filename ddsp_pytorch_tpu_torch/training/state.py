@@ -77,15 +77,22 @@ def _save_atomic(obj, path: str) -> None:
 
 
 class Checkpointer:
-    """Full-state checkpoints with retention, and the best-loss params."""
+    """Full-state checkpoints with retention, and the best-loss params.
+
+    Under a mesh across processes (parallel/mesh.py) the state is
+    replicated: rank 0 writes, every rank waits at a barrier after the
+    write, and every rank restores from the shared run directory
+    (state.py:207-214)."""
 
     _CKPT = re.compile(r"^(\d+)\.pt$")
 
-    def __init__(self, run_dir: str, max_to_keep: int = 3):
+    def __init__(self, run_dir: str, max_to_keep: int = 3, mesh=None):
         self.run_dir = os.path.abspath(run_dir)
         self.ckpt_dir = os.path.join(self.run_dir, "checkpoints")
         self.best_dir = os.path.join(self.run_dir, "best")
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.is_primary
         os.makedirs(self.ckpt_dir, exist_ok=True)
 
     def _steps(self):
@@ -93,11 +100,14 @@ class Checkpointer:
         return sorted(int(m.group(1)) for m in found if m)
 
     def save(self, state: TrainState) -> None:
-        _save_atomic(state.state_dict(), os.path.join(self.ckpt_dir, f"{state.step}.pt"))
-        steps = self._steps()
-        if self.max_to_keep > 0:
-            for step in steps[: -self.max_to_keep]:
-                os.remove(os.path.join(self.ckpt_dir, f"{step}.pt"))
+        if self.primary:
+            _save_atomic(state.state_dict(), os.path.join(self.ckpt_dir, f"{state.step}.pt"))
+            steps = self._steps()
+            if self.max_to_keep > 0:
+                for step in steps[: -self.max_to_keep]:
+                    os.remove(os.path.join(self.ckpt_dir, f"{step}.pt"))
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self._steps()
@@ -116,6 +126,8 @@ class Checkpointer:
         return state
 
     def save_best(self, params: dict, step: int, loss: float) -> None:
+        if not self.primary:
+            return
         os.makedirs(self.best_dir, exist_ok=True)
         _save_atomic(
             {k: v.detach().to("cpu") for k, v in params.items()},

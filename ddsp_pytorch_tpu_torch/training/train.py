@@ -1,7 +1,7 @@
-"""Train step, multi-step, eval step and the Trainer loop, on one device.
+"""Train step, multi-step, eval step and the Trainer loop.
 
-Port of ddsp_pytorch_tpu/training/train.py:60-218 and the single-device
-Trainer of :220-905: the epoch loop sized to reach `steps`, loudness
+Port of ddsp_pytorch_tpu/training/train.py:60-218 and the Trainer of
+:220-905: the epoch loop sized to reach `steps`, loudness
 normalized by the frozen dataset stats, the multiscale spectral loss of the
 model's signal against the target, the optimizer update behind a NaN
 guard, `steps_per_call` optimizer steps per call, per-step metrics fetched
@@ -20,8 +20,19 @@ of `scan_unroll` whole steps (forward, backward, Adam and the NaN guard,
 both kernels inside), the counterpart of the JAX package's lax.scan.
 Validation and the per-log-epoch eval write the target and the
 reconstruction as wavs and, where matplotlib imports, the reconstruction
-report as a figure (train.py:857-900).  Waiting for a later slice
-(ROADMAP.md): the data-parallel and time-sharded steps.
+report as a figure (train.py:857-900).
+
+Under a ('data', 'time') mesh (parallel/mesh.py; train.py:236-410) the step
+is the time-sharded one where time > 1 (training/time_sharded.py), and the
+data-parallel one across processes where time = 1: each rank takes its
+rows, and its gradients and loss are averaged over the ranks in one
+all_reduce inside the step (parallel/sharding.GradientReducer), so the
+MultiStep graph holds it on NCCL.  On an in-process mesh with time = 1 the
+whole batch is this process's and the step is the unsharded one.  The
+noise of a step is drawn for the global batch from the state's generator,
+as one process on that batch draws it, and each rank takes its rows.  Only
+rank 0 logs and writes (`_is_primary`); checkpoints are written by rank 0
+and restored by every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.models import init_params, load_model
 from ddsp_pytorch_tpu_torch.ops import mean_std_loudness, uniform_noise
 from ddsp_pytorch_tpu_torch.ops.oscillator import KERNEL_WRAPPERS
+from ddsp_pytorch_tpu_torch.parallel.mesh import Mesh
+from ddsp_pytorch_tpu_torch.parallel.sharding import GradientReducer, replicate_state
 from ddsp_pytorch_tpu_torch.training.loss import spectral_loss_from_signals
 from ddsp_pytorch_tpu_torch.training.metrics import MetricsWriter
 from ddsp_pytorch_tpu_torch.training.optim import (
@@ -50,6 +63,10 @@ from ddsp_pytorch_tpu_torch.training.optim import (
 )
 from ddsp_pytorch_tpu_torch.training.reports import reconstruction_report
 from ddsp_pytorch_tpu_torch.training.state import Checkpointer, TrainState
+from ddsp_pytorch_tpu_torch.training.time_sharded import (
+    make_time_sharded_loss_and_grads,
+    validate_time_sharding,
+)
 from ddsp_pytorch_tpu_torch.utils.plots import pyplot
 
 # the columns of a step's metrics row
@@ -160,21 +177,63 @@ def metrics_row(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.stack([metrics[k].to(torch.float32) for k in METRIC_KEYS])
 
 
-def make_train_step(model, tx: Optimizer, config: Config) -> Callable:
-    """train_step(state, batch, noise=None) → metrics: one optimizer step
-    in place (train.py:109-134).  The noise is drawn from the state's
-    generator on the device unless `noise` is injected."""
+def make_loss_and_grads(model, config: Config, mesh: Optional[Mesh] = None) -> Callable:
+    """fn(state, batch, noise) → (loss, grads) of the step under `mesh`,
+    noise being the global batch's (B · mesh.data_procs, F, S) draw: the
+    time-sharded step where mesh.time > 1; across processes the
+    data-parallel step (this rank's rows, the loss and gradients averaged
+    over the ranks); else the unsharded step."""
+    if mesh is not None and mesh.time > 1:
+        return make_time_sharded_loss_and_grads(model, config, mesh)
     scales = tuple(config.train.scales)
     overlap = config.train.overlap
+    reducer = None if mesh is None or mesh.in_process else GradientReducer(mesh, mean=True)
+
+    def fn(state: TrainState, batch, noise):
+        if mesh is not None:
+            noise = mesh.data_rows(noise)
+        loss, grads = loss_and_grads(model, batch, state.mean_loudness, state.std_loudness,
+                                     scales, overlap, noise=noise)
+        if reducer is not None:
+            grads, loss = reducer(grads, loss)
+        return loss, grads
+
+    return fn
+
+
+def draw_noise(model, generator: torch.Generator, batch, rows: int = 1) -> torch.Tensor:
+    """A step's (B · rows, F, block) noise from `generator`: the draw the
+    model makes itself for a (B · rows)-item batch (ops.uniform_noise)."""
+    b, f = batch["pitch"].shape[:2]
+    return uniform_noise((b * rows, f, model.block_size), generator, model.dtype, generator.device)
+
+
+def make_train_step(model, tx: Optimizer, config: Config, mesh: Optional[Mesh] = None) -> Callable:
+    """train_step(state, batch, noise=None) → metrics: one optimizer step
+    in place (train.py:109-134), under `mesh` as make_loss_and_grads says.
+    The noise is drawn from the state's generator on the device unless
+    `noise` (the global batch's) is injected."""
+    fn = make_loss_and_grads(model, config, mesh)
+    rows = 1 if mesh is None else mesh.data_procs
 
     def train_step(state: TrainState, batch, noise: Optional[torch.Tensor] = None):
-        loss, grads = loss_and_grads(
-            model, batch, state.mean_loudness, state.std_loudness, scales, overlap,
-            noise=noise, generator=None if noise is not None else state.generator,
-        )
+        if noise is None:
+            noise = draw_noise(model, state.generator, batch, rows)
+        loss, grads = fn(state, batch, noise)
         return apply_gradient_update(state, tx, loss, grads)
 
     return train_step
+
+
+def refuse_gloo_capture(model, mesh: Optional[Mesh]) -> None:
+    """Raise where a MultiStep would have to capture gloo collectives in a
+    CUDA graph (the model on the card, a mesh across gloo processes)."""
+    if (mesh is not None and not mesh.in_process and next(model.parameters()).is_cuda
+            and torch.distributed.get_backend(mesh.group) == "gloo"):
+        raise RuntimeError(
+            "MultiStep: gloo collectives cannot be captured in a CUDA graph; "
+            "train with steps_per_call 1 on gloo, or use NCCL"
+        )
 
 
 class MultiStep:
@@ -202,10 +261,16 @@ of any keys (the autoencoder's carry `mfcc`).
     Launch counts: a replay launches what the capture recorded
     (`captured`, per kernel), and adds that to the kernel wrapper's
     `replayed` count.
+
+    Under a mesh each step is make_loss_and_grads(mesh)'s; on an in-process
+    mesh and on NCCL its collectives are captured with it.  A gloo group
+    cannot be captured, so a MultiStep on the card across gloo processes
+    raises rather than run eager steps.
     """
 
     def __init__(self, model, tx: Optimizer, config: Config, n_steps: int,
-                 unroll: int = 1, indexed: bool = False):
+                 unroll: int = 1, indexed: bool = False, mesh: Optional[Mesh] = None):
+        refuse_gloo_capture(model, mesh)
         if n_steps < 1 or unroll < 1:
             raise ValueError(f"need steps_per_call ≥ 1 and scan_unroll ≥ 1, got {n_steps}, {unroll}")
         if n_steps % unroll:
@@ -217,8 +282,8 @@ of any keys (the autoencoder's carry `mfcc`).
         self.n_steps = n_steps
         self.unroll = unroll
         self.indexed = indexed
-        self.scales = tuple(config.train.scales)
-        self.overlap = config.train.overlap
+        self._loss_and_grads = make_loss_and_grads(model, config, mesh)
+        self._rows = 1 if mesh is None else mesh.data_procs
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured: Dict[str, int] = {}
         self.capture_s: Optional[float] = None  # capture and instantiation
@@ -228,8 +293,7 @@ of any keys (the autoencoder's carry `mfcc`).
 
     # ----------------------------------------------------------- one step
     def _body(self, state: TrainState, batch, noise) -> torch.Tensor:
-        loss, grads = loss_and_grads(self.model, batch, state.mean_loudness, state.std_loudness,
-                                     self.scales, self.overlap, noise=noise)
+        loss, grads = self._loss_and_grads(state, batch, noise)
         return metrics_row(_update_in_place(state, self.tx, loss, grads))
 
     def _draw_noise(self, state: TrainState, shape) -> torch.Tensor:
@@ -263,7 +327,7 @@ of any keys (the autoencoder's carry `mfcc`).
             raise ValueError(
                 f"super-batch has a leading axis of {lead}, expected steps_per_call={self.n_steps}"
             )
-        noise_shape = (*noise_shape, self.model.block_size)
+        noise_shape = (noise_shape[0] * self._rows, noise_shape[1], self.model.block_size)
         if next(self.model.parameters()).device.type == "cpu":
             rows = []
             for j in range(self.n_steps):
@@ -364,32 +428,34 @@ of any keys (the autoencoder's carry `mfcc`).
 
 
 def make_train_multi_step(model, tx: Optimizer, config: Config, n_steps: int,
-                          unroll: int = 1) -> MultiStep:
+                          unroll: int = 1, mesh: Optional[Mesh] = None) -> MultiStep:
     """multi_step(state, batches) → (n_steps, 3) metrics: `n_steps` steps
     from an (n_steps, B, ...) super-batch on the device (train.py:137-163)."""
-    return MultiStep(model, tx, config, n_steps, unroll, indexed=False)
+    return MultiStep(model, tx, config, n_steps, unroll, indexed=False, mesh=mesh)
 
 
 def make_train_multi_step_indexed(model, tx: Optimizer, config: Config, n_steps: int,
-                                  unroll: int = 1) -> MultiStep:
+                                  unroll: int = 1, mesh: Optional[Mesh] = None) -> MultiStep:
     """multi_step(state, data, idx2d) → (n_steps, 3) metrics: `n_steps`
     steps whose batches are gathered from the device-resident cache `data`
     inside the step, from the (n_steps, B) indices (train.py:166-196)."""
-    return MultiStep(model, tx, config, n_steps, unroll, indexed=True)
+    return MultiStep(model, tx, config, n_steps, unroll, indexed=True, mesh=mesh)
 
 
 def make_eval_step(model, config: Config) -> Callable:
     """eval_step(state, batch, generator) → the model's outputs plus the
     loss, both multiscale spectrograms (`sig_stft`, `rec_stft`), the target
     `sig` and the reconstruction `rec` (train.py:198-217), without
-    gradients: what validation and the media reports read."""
+    gradients: what validation and the media reports read.  The noise is
+    injected, or drawn from `generator`."""
     scales = tuple(config.train.scales)
     overlap = config.train.overlap
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch, generator: torch.Generator):
+    def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None):
         model_batch = _normalize_loudness(batch, state.mean_loudness, state.std_loudness)
-        out = model(model_batch, generator=generator)
+        out = model(model_batch, noise=noise, generator=generator)
         loss, ori, rec = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)
         out.update({"loss": loss, "sig_stft": ori, "rec_stft": rec, "sig": batch["sig"],
                     "rec": out["signal"]})
@@ -399,18 +465,29 @@ def make_eval_step(model, config: Config) -> Callable:
 
 
 class Trainer:
-    """The training loop for one device: logging, validation, checkpoints,
-    exact resume and preemption (train.py:220-905 without its mesh paths).
-    `eval_forwards` counts the model forwards it ran outside the train
-    steps (validation and the per-log-epoch eval); `_multi_step` is the
-    last fit's MultiStep (None when steps_per_call is 1)."""
+    """The training loop: logging, validation, checkpoints, exact resume
+    and preemption (train.py:220-905).  `mesh` (parallel/mesh.py) selects
+    the data-parallel or time-sharded step (train.py:236-305); without one
+    the Trainer trains unsharded, whatever config.mesh says, as the JAX
+    Trainer does with mesh=None.  `eval_forwards` counts the model forwards
+    it ran outside the train steps (validation and the per-log-epoch eval);
+    `_multi_step` is the last fit's MultiStep (None when steps_per_call is
+    1).
 
-    def __init__(self, config: Config, run_dir: str, *, device="cuda"):
-        if config.mesh.time > 1 or config.mesh.data > 1:
-            raise NotImplementedError(
-                f"mesh {config.mesh}: the port trains on one device; the data-parallel "
-                "and time-sharded steps wait for a later slice (ROADMAP.md)"
-            )
+    Across processes each rank gets its rows from the Datamodule (built
+    with the same mesh), every rank calls `fit`, and a preemption signal
+    must reach every rank (as torchrun forwards it), since the checkpoint
+    it triggers ends in a barrier."""
+
+    def __init__(self, config: Config, run_dir: str, *, device="cuda", mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            if config.train.batch % mesh.data:
+                raise ValueError(f"train.batch={config.train.batch} does not divide over "
+                                 f"mesh data={mesh.data}")
+            if mesh.time > 1:
+                validate_time_sharding(config, mesh)
+        self.mesh = mesh
+        self._is_primary = mesh is None or mesh.is_primary
         self._spc = max(1, config.train.steps_per_call)
         self._unroll = max(1, config.train.scan_unroll)
         if self._spc % self._unroll:
@@ -424,9 +501,12 @@ class Trainer:
         os.makedirs(run_dir, exist_ok=True)
         self.model = load_model(config.model.name, config.model.kwargs).to(self.device)
         self.tx = make_optimizer(config)
-        self.metrics = MetricsWriter(run_dir)
-        self.checkpointer = Checkpointer(run_dir, max_to_keep=config.train.keep_checkpoints)
-        self._train_step = make_train_step(self.model, self.tx, config)
+        if self._spc > 1:
+            refuse_gloo_capture(self.model, mesh)
+        self.metrics = MetricsWriter(run_dir, enabled=self._is_primary)
+        self.checkpointer = Checkpointer(run_dir, max_to_keep=config.train.keep_checkpoints,
+                                         mesh=mesh)
+        self._train_step = make_train_step(self.model, self.tx, config, mesh)
         self._eval_step = make_eval_step(self.model, config)
         self._multi_step: Optional[MultiStep] = None
         if self.device.type == "cuda":
@@ -441,7 +521,7 @@ class Trainer:
         generator that drew the weights then draws the noise."""
         generator = torch.Generator(self.device).manual_seed(self.config.train.seed)
         init_params(self.model, generator)
-        return TrainState(
+        state = TrainState(
             step=0,
             model=self.model,
             opt_state=self.tx.init([p for _, p in self.model.named_parameters()]),
@@ -449,6 +529,7 @@ class Trainer:
             mean_loudness=float(mean_loudness),
             std_loudness=float(std_loudness),
         )
+        return state if self.mesh is None else replicate_state(state, self.mesh)
 
     def resume_or_init(self, mean_loudness=0.0, std_loudness=1.0):
         """(state, resumed): the newest checkpoint if there is one, else a
@@ -469,7 +550,15 @@ class Trainer:
             fcfg = Config.from_yaml(frozen)
             mean_l, std_l = fcfg.data.mean_loudness, fcfg.data.std_loudness
         if mean_l is None or std_l is None:
-            if hasattr(train_loader, "loudness_stats"):
+            if self.mesh is not None and not self.mesh.in_process:
+                # each rank's loader holds its rows only: every rank takes the
+                # stats of the whole dataset, unshuffled at the global batch
+                # (train.py:652-668), so all normalize alike
+                from ddsp_pytorch_tpu_torch.data.dataset import DataLoader
+
+                mean_l, std_l = mean_std_loudness(
+                    DataLoader(train_loader.dataset, cfg.train.batch, shuffle=False))
+            elif hasattr(train_loader, "loudness_stats"):
                 mean_l, std_l = train_loader.loudness_stats()
             else:
                 mean_l, std_l = mean_std_loudness(train_loader)
@@ -531,7 +620,10 @@ class Trainer:
 
         mean_l, std_l = self._loudness_stats(train_loader)
         cfg.data.mean_loudness, cfg.data.std_loudness = mean_l, std_l
-        cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
+        if self.mesh is not None:
+            self.mesh.barrier()  # every rank has read the frozen config before rank 0 rewrites it
+        if self._is_primary:
+            cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
 
         state, resumed = self.resume_or_init(mean_l, std_l)
         start_step = state.step if resumed else 0
@@ -539,7 +631,7 @@ class Trainer:
         self._multi_step = None
         if self._spc > 1:
             make = make_train_multi_step_indexed if device_indexed else make_train_multi_step
-            self._multi_step = make(self.model, self.tx, cfg, self._spc, self._unroll)
+            self._multi_step = make(self.model, self.tx, cfg, self._spc, self._unroll, self.mesh)
         steps_per_epoch = max(1, len(train_loader))
         n_epochs = math.ceil(total_steps / steps_per_epoch)
         start_epoch = start_step // steps_per_epoch
@@ -664,9 +756,19 @@ class Trainer:
         return state
 
     def _eval(self, state, batch, seed: int):
+        """The eval step on this rank's rows, its noise drawn for the global
+        batch as one process on that batch draws it; under a mesh across
+        processes the loss is the mean over the ranks (the global batch's,
+        the ranks holding equal rows)."""
         self.eval_forwards += 1
+        batch = self._to_device(batch)
         generator = torch.Generator(self.device).manual_seed(seed)
-        return self._eval_step(state, self._to_device(batch), generator)
+        if self.mesh is None:
+            return self._eval_step(state, batch, generator)
+        noise = self.mesh.data_rows(draw_noise(self.model, generator, batch, self.mesh.data_procs))
+        out = self._eval_step(state, batch, noise=noise)
+        out["loss"] = self.mesh.mean(out["loss"])
+        return out
 
     def _run_validation(self, state, val_loader) -> None:
         losses, out = [], None
@@ -688,7 +790,10 @@ class Trainer:
 
     def _report(self, out, step: int, stage: str) -> None:
         """The first item's target and reconstruction as wavs, and the
-        reconstruction report as a figure where matplotlib imports."""
+        reconstruction report as a figure where matplotlib imports; rank 0
+        only."""
+        if not self._is_primary:
+            return
         sr = self.config.preprocess.sample_rate
         self.metrics.add_audio(f"sig/{stage}", out["sig"][0], step, sr)
         self.metrics.add_audio(f"rec/{stage}", out["rec"][0], step, sr)

@@ -679,3 +679,89 @@ def test_crepe_train_step_on_cuda_matches_cpu(cuda):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
     for k, v in want_stats.items():
         assert float((stats[k] - v).abs().max()) <= 1e-5, k
+
+
+@pytest.mark.parametrize("entry", ["time_sharded_trajectory", "time_sharded_trajectory-cli",
+                                   "train-cli-multihost", "Trainer-mesh"])
+def test_parallel_entry_points_raise_without_cuda(no_cuda, tmp_path, entry):
+    """The parallel layer's entry points default to the GPU and raise
+    without one, before writing anything or joining a process group."""
+    from ddsp_pytorch_tpu_torch import time_sharded_trajectory
+    from ddsp_pytorch_tpu_torch import train as train_cli
+    from ddsp_pytorch_tpu_torch.parallel import make_mesh
+
+    cfg_path = os.path.join(os.path.dirname(BUNDLE), "..", "configs", "config_timesharded.yaml")
+    entries = {
+        "time_sharded_trajectory": lambda: time_sharded_trajectory.run_trajectories(
+            cache_dir=str(tmp_path / "cache")),
+        "time_sharded_trajectory-cli": lambda: time_sharded_trajectory.main(["--out", str(tmp_path / "r.json")]),
+        "train-cli-multihost": lambda: train_cli.main(["--config", cfg_path, "--multihost", "--root",
+                                                       str(tmp_path / "runs")]),
+        "Trainer-mesh": lambda: Trainer(Config.from_yaml(cfg_path), str(tmp_path / "run"), mesh=make_mesh(1, 4)),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entries[entry]()
+    for written in ("cache", "r.json", "runs", "run"):
+        assert not (tmp_path / written).exists(), written
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1536, 6144])
+def test_kernels_at_sharded_row_counts_on_cuda(cuda, rows):
+    """Both kernels at the time-sharded step's rows (16 × 96 a rank with one
+    shard a rank, 4 × 16 × 96 with the shards stacked) against their plain
+    versions, at test_kernel_variants_match_plain_on_cuda's bounds."""
+    rng = np.random.default_rng(rows)
+    phi, omega, amp, g = _rows_on(cuda, rng, rows, 64, 512)
+    before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    y = osc.oscillator_bank(phi, omega, amp, 512)
+    grads = osc.oscillator_bank_bwd(phi, omega, amp, g, 512)
+    assert (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches) == (before[0] + 1, before[1] + 1)
+    y_plain = osc.oscillator_bank_plain(phi, omega, amp, 512)
+    grads_plain = osc.oscillator_bank_bwd_plain(phi, omega, amp, g, 512)
+    grads_64 = osc.oscillator_bank_bwd_plain(*(t.cpu().double() for t in (phi, omega, amp, g)), 512)
+    torch.cuda.synchronize()
+    assert float((y - y_plain).abs().max()) <= 5e-4
+    for a, b, ref in zip(grads, grads_plain, grads_64):
+        scale = float(ref.abs().max())
+        err = float((a.cpu().double() - ref).abs().max()) / scale
+        plain_err = float((b.cpu().double() - ref).abs().max()) / scale
+        assert err <= max(1e-4, 2.0 * plain_err), (err, plain_err)
+
+
+@pytest.mark.cuda
+def test_time_sharded_step_on_cuda_matches_cpu(cuda):
+    """The time-sharded step (data 2 × time 4 in process, 71 frames padded to
+    80, reverb) on the card against the same step on the CPU, same weights,
+    batch and noise: one launch of each kernel; the loss within 1e-4
+    relative and the whole gradient within 2e-2 relative L2 (chip_smoke.py
+    phase 5's bounds for a step on the card against the CPU)."""
+    from ddsp_pytorch_tpu_torch.parallel import make_mesh
+    from ddsp_pytorch_tpu_torch.training.state import TrainState
+    from ddsp_pytorch_tpu_torch.training.train import make_loss_and_grads
+
+    cfg = Config.from_dict({
+        "preprocess": {"sample_rate": 16000, "signal_length": 4544, "block_size": 64},
+        "model": {"name": "single-inst-decoder", "kwargs": {
+            "hidden_size": 32, "n_harmonic": 8, "n_bands": 9, "sample_rate": 16000, "block_size": 64,
+            "has_reverb": True}},
+        "train": {"scales": [512, 256], "overlap": 0.75, "batch": 4}})
+    rng = np.random.default_rng(0)
+    t = np.arange(4544) / 16000
+    batch = {"sig": (0.3 * np.sin(2 * np.pi * 220 * t)[None] + 0.01 * rng.standard_normal((4, 4544))),
+             "pitch": rng.uniform(150, 350, (4, 71, 1)), "loudness": rng.standard_normal((4, 71, 1)) - 4.0}
+    noise = rng.uniform(-1, 1, (4, 71, 64))
+    cpu_model = init_params(DDSPDecoder(**cfg.model.kwargs), torch.Generator().manual_seed(0))
+    out = {}
+    for dev, model in (("cpu", cpu_model), (cuda, copy.deepcopy(cpu_model).to(cuda))):
+        tb = {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
+        state = TrainState(0, model, {}, torch.Generator(dev), -4.0, 1.0)
+        before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+        loss, grads = make_loss_and_grads(model, cfg, make_mesh(2, 4))(
+            state, tb, torch.tensor(noise, dtype=torch.float32, device=dev))
+        launched = (osc.oscillator_bank.launches - before[0], osc.oscillator_bank_bwd.launches - before[1])
+        out[str(dev)] = (float(loss), torch.cat([g.flatten().cpu().double() for g in grads]), launched)
+    (loss_c, g_c, launched_c), (loss_g, g_g, launched_g) = out["cpu"], out[str(cuda)]
+    assert launched_c == (0, 0) and launched_g == (1, 1)
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    assert float((g_g - g_c).norm() / g_c.norm()) <= 2e-2
