@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, pitch-tracking, timbre-transfer,
-benchmark, drift-soak, native realtime, out-of-family evidence and parallel
-paths and check them.
+benchmark, drift-soak, native realtime, out-of-family evidence, parallel and
+bf16 paths, and the repository's benchmark scripts, and check them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -179,16 +179,37 @@ is printed):
  25. long-form: the violin bundle renders 8 voices × 60 s through
      LongFormSynthesizer on a time = 4 mesh against the unsharded render
      (2e-3 of the peak), its seconds and realtime factor;
- 26. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 26. the bf16 model dtype (model.kwargs.dtype bfloat16) at configs/
+     config.yaml's full width: one train step (16 × 375 frames) on the card
+     against the CPU's plain step, the CPU's float32 step the reference:
+     the MLPs and the GRU by the gap criterion of tests/test_torch_bf16.py,
+     the signal and loss within the bf16–f32 gap, the gradient within
+     phase 5's 2e-2; one launch of each kernel; again with
+     allow_bf16_reduced_precision_reduction
+     left on (no scope): its difference and bf16 GEMMs of the model's shapes
+     timed both ways; Trainer.fit for 40 steps (this slice's main path,
+     launches counted from zero around it: the loss falls, float32 state);
+     graphed against eager steps (1e-6) and ms per graphed step beside
+     phase 6's float32; export_run of that run (meta.json dtype bfloat16)
+     streamed 64 blocks card vs CPU (within the gap) and a VoicePool step;
+     one mfcc-autoencoder train step in bf16;
+ 27. the repository's benchmark scripts on the port, each line with the
+     card's name and power limit: bench_headline's five configs (config 1
+     on the CPU in its own process; reps cut to 0.34 of the JAX script's,
+     printed), bench_step_breakdown at batch 16 (ceilings, the stages, the
+     bf16 verdict; 10 iterations a stage) and bench_scaling at world size 1;
+ 28. report: one JSON line {"kernels": [...]} (all four kernels; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
      synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
      runtime_host, pitch_accuracy, train_oof, train_sigmund (this
      process's launches: the unsegmented run and the validation),
      time_sharded_fit, time_sharded_graphed, time_sharded_trajectory,
-     data_parallel_nccl_graphed, longform and, for the probes, roofline;
-     both oscillator kernels' `launches` are time_sharded_fit's, this
-     slice's main path; the forward's times at the headline's shape, the
+     data_parallel_nccl_graphed, longform, training_bf16,
+     training_bf16_graphed, serving_bf16, training_autoencoder_bf16 and, for
+     the probes, roofline; both oscillator kernels' `launches` are
+     training_bf16's, this slice's main path; the forward's times at the
+     headline's shape, the
      backward's at R = 3000, train_oof's; phase 2 also times both at the
      sharded rows 1536 and 6144), the card's name and power limit, and last
      {"ok": true, "device": {...}}.
@@ -199,6 +220,7 @@ Exits nonzero when torch.cuda.is_available() is false.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -217,7 +239,8 @@ import wave
 import numpy as np
 import torch
 
-from ddsp_pytorch_tpu_torch import bench, bench_roofline, export, performance, pitch_accuracy, runtime, serve, soak
+from ddsp_pytorch_tpu_torch import bench, bench_headline, bench_roofline, bench_scaling, bench_step_breakdown
+from ddsp_pytorch_tpu_torch import export, performance, pitch_accuracy, runtime, serve, soak
 from ddsp_pytorch_tpu_torch import train as train_cli
 from ddsp_pytorch_tpu_torch import time_sharded_trajectory, train_crepe, train_oof, train_pretrained, train_sigmund
 from ddsp_pytorch_tpu_torch import transfer, tune_hybrid_pitch
@@ -244,6 +267,7 @@ from ddsp_pytorch_tpu_torch.kernel_bench import (
 )
 from ddsp_pytorch_tpu_torch.inference import render, timbre_transfer, transfer_controls
 from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder, DDSPDecoder, crepe, init_params, load_model
+from ddsp_pytorch_tpu_torch.models.decoder import matmul_precision
 from ddsp_pytorch_tpu_torch.ops import fft_convolve, kernels, mean_std_loudness, multiscale_fft, roofline
 from ddsp_pytorch_tpu_torch.ops import uniform_noise
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
@@ -259,6 +283,7 @@ from ddsp_pytorch_tpu_torch.profile_serving import (
 from ddsp_pytorch_tpu_torch.parallel import LongFormSynthesizer, make_mesh
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
 from ddsp_pytorch_tpu_torch.runtime import ModelHost, selftest
+from ddsp_pytorch_tpu_torch.streaming import StreamingSynth
 from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
 from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer, profiling
 from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
@@ -500,6 +525,37 @@ DP_TIMEOUT_S = 600
 # (tests/test_longform.py:92)
 LONGFORM_VOICES, LONGFORM_FRAMES = 8, 5632
 LONGFORM_REL_OF_PEAK = 2e-3
+# phase 26: the bf16 model dtype (model.kwargs.dtype bfloat16) at
+# configs/config.yaml's full width.  The card against the CPU by the gap
+# criterion of tests/test_torch_bf16.py: with gap = |cpu_bf16 − cpu_f32| and
+# err = |card_bf16 − cpu_bf16| elementwise, mean err ≤ BF16_GAP_MEAN × mean
+# gap, max err ≤ BF16_GAP_MAX × max gap, and mean |card_bf16 − cpu_f32|
+# within BF16_GAP_BAND × mean gap (the card carries bf16's error, not
+# float32's answer); the whole gradient's relative L2 error against the CPU's
+# bf16 one ≤ BF16_GAP_MEAN × that between the CPU's bf16 and f32 ones.
+BF16_GAP_MEAN, BF16_GAP_MAX, BF16_GAP_BAND = 0.25, 2.0, (0.5, 1.5)
+# The card's bf16 GEMMs (tensor cores) round ~0.05 % of their outputs to
+# another bf16 than the CPU's float32-accumulated ones (elementwise ops agree
+# bit for bit; measured, NVIDIA H100 80GB HBM3, 700.00 W), and every dense
+# layer after the GRU mixes those flips into most of its outputs: card
+# against CPU, the GRU's outputs are 0.07 of the gap apart, the decoder's
+# hidden state 0.28, the controls 0.48, the signal 0.70.  So the gap
+# criterion's mean bound holds stage by stage up to the GRU (the MLPs, the
+# GRU's input projection and its outputs), and the whole model's signal,
+# loss and streams are held to the card's bf16 being no farther from the
+# CPU's than bf16 is from float32 (BF16_CARD_MEAN), with the max and band
+# bounds as in the tests; the gradient to phase 5's float32 card-vs-CPU
+# bound (STEP_GRAD_REL: float32 gradients at fresh weights differ across
+# devices by ~1e-2 already).
+BF16_CARD_MEAN = 1.0
+BF16_STAGES_HELD = ("f0_mlp", "loudness_mlp", "gru")
+N_BF16_STEPS = 40  # Trainer.fit in bf16, as phase 5b's in float32
+# phase 27: the repository's benchmark scripts on the port.  bench_headline's
+# reps are cut to this share of the JAX script's (at least 1 a mean); the
+# step breakdown runs at batch 16 with this many chained iterations a stage
+# (the JAX script's 20 cut); bench_scaling at world size 1 (one card).
+BENCH_REPS_SCALE = 0.34
+BREAKDOWN_BATCH, BREAKDOWN_ITERS = 16, 10
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1092,7 +1148,8 @@ def _leaf_rel(a: torch.nn.Module, b: torch.nn.Module) -> dict:
             for (n, x), y in zip(a.named_parameters(), b.parameters())}
 
 
-def phase_graphed_vs_eager(device, cache: str, card: str) -> dict:
+def phase_graphed_vs_eager(device, cache: str, card: str, dtype: str = "float32",
+                           unrolls=(1, 2)) -> dict:
     """Phase 6: the train step as a CUDA graph against eager steps at
     configs/config.yaml's full width (batch 16 x 375 frames, hidden 512,
     K = 64, 65 bands, reverb on, six scales).  From one state and the same
@@ -1100,9 +1157,11 @@ def phase_graphed_vs_eager(device, cache: str, card: str) -> dict:
     steps, and one call of steps_per_call N_GRAPH_STEPS replaying a graph of
     U = 1 and of U = 2 steps; per-step losses and every parameter leaf
     within GRAPHED_REL relative.  Then ms per step, synced, for both, the
-    capture time, the graph pool and the peak memory of each.  Returns the
-    numbers for the report."""
+    capture time, the graph pool and the peak memory of each.  Phase 26
+    runs it with the model's dtype bfloat16 and U = 1.  Returns the numbers
+    for the report."""
     cfg = Config.from_yaml(CONFIG)
+    cfg.model.kwargs = {**cfg.model.kwargs, "dtype": dtype}
     loader = DeviceDataLoader(Dataset(os.path.join(cache, "train")), cfg.train.batch, shuffle=True,
                               drop_last=True, seed=SEED, device=device)
     idx2d = []
@@ -1110,7 +1169,8 @@ def phase_graphed_vs_eager(device, cache: str, card: str) -> dict:
         loader.set_epoch(epoch)
         idx2d += list(loader.index_batches())
     idx2d = np.stack(idx2d[:N_GRAPH_STEPS])
-    base = init_params(DDSPDecoder(**_full_kwargs()), torch.Generator().manual_seed(SEED)).to(device)
+    base = init_params(load_model(cfg.model.name, cfg.model.kwargs),
+                       torch.Generator().manual_seed(SEED)).to(device)
     meta = read_meta(BUNDLE)
 
     def fresh():
@@ -1127,7 +1187,7 @@ def phase_graphed_vs_eager(device, cache: str, card: str) -> dict:
     eager = torch.stack([metrics_row(step(state_e, loader.take(i))) for i in idx2d]).cpu()
     eager_peak = torch.cuda.max_memory_allocated(device)
     out = {"eager_peak_bytes": eager_peak}
-    for unroll in (1, 2):
+    for unroll in unrolls:
         model_g, tx_g, state_g = fresh()
         multi = make_train_multi_step_indexed(model_g, tx_g, cfg, N_GRAPH_STEPS, unroll)
         torch.cuda.reset_peak_memory_stats(device)
@@ -1150,7 +1210,7 @@ def phase_graphed_vs_eager(device, cache: str, card: str) -> dict:
             call_ms.append((time.perf_counter() - t1) * 1e3)
         step_ms = float(np.median(call_ms)) / N_GRAPH_STEPS
         print(
-            f"graphed vs eager step (configs/config.yaml full width, batch {cfg.train.batch} x "
+            f"graphed vs eager step (configs/config.yaml full width, {dtype}, batch {cfg.train.batch} x "
             f"{cfg.n_frames} frames, {N_GRAPH_STEPS} steps, U={unroll}): per-step loss max rel "
             f"{loss_rel:.3e}; worst leaf {worst} rel {leaf[worst]:.3e}; bitwise equal: {bitwise}; "
             f"generator state equal: {same_gen}; capture+instantiate s={multi.capture_s:.3f} "
@@ -1180,9 +1240,9 @@ def phase_graphed_vs_eager(device, cache: str, card: str) -> dict:
         eager_ms.append((time.perf_counter() - t1) * 1e3)
     out["eager_step_ms"] = float(np.median(eager_ms))
     print(
-        f"eager ms/step (median of {N_TIMED_EAGER} synced steps) = {out['eager_step_ms']:.3f} "
+        f"eager ms/step ({dtype}, median of {N_TIMED_EAGER} synced steps) = {out['eager_step_ms']:.3f} "
         f"(min {min(eager_ms):.3f} max {max(eager_ms):.3f}); peak bytes={eager_peak}; graphed "
-        f"U=1 {out[1]['step_ms']:.3f} U=2 {out[2]['step_ms']:.3f} ms/step; eager/graphed "
+        + " ".join(f"U={u} {out[u]['step_ms']:.3f}" for u in unrolls) + " ms/step; eager/graphed "
         f"{out['eager_step_ms'] / out[1]['step_ms']:.3f}x; card {card}",
         flush=True,
     )
@@ -3014,14 +3074,350 @@ def phase_longform(device, card: str) -> int:
     return launched["oscillator_fwd"]
 
 
+def _bf16_gap(got, want, ref) -> dict:
+    """The gap criterion's ratios (the constants above): mean and max err
+    over mean and max gap, and mean |got − ref| over mean gap."""
+    got, want, ref = (np.asarray(x, np.float64) for x in (got, want, ref))
+    gap, err = np.abs(want - ref), np.abs(got - want)
+    return {"mean": float(err.mean() / gap.mean()), "max": float(err.max() / gap.max()),
+            "band": float(np.abs(got - ref).mean() / gap.mean()), "gap_mean": float(gap.mean())}
+
+
+def _check_bf16_gap(r: dict, what: str, mean_bound: float = BF16_GAP_MEAN) -> None:
+    check(r["gap_mean"] > 0 and r["mean"] <= mean_bound and r["max"] <= BF16_GAP_MAX
+          and BF16_GAP_BAND[0] <= r["band"] <= BF16_GAP_BAND[1], f"{what}: bf16 gap criterion {r}")
+
+
+def _model_as(model, dtype: str, device):
+    """A copy of `model`'s parameters in a model of compute dtype `dtype`."""
+    cfg_kw = {"hidden_size": model.hidden_size, "n_harmonic": model.n_harmonic, "n_bands": model.n_bands,
+              "sample_rate": model.sample_rate, "block_size": model.block_size,
+              "has_reverb": model.has_reverb, "dtype": dtype}
+    name = "mfcc-autoencoder" if isinstance(model, DDSPAutoencoder) else "single-inst-decoder"
+    other = load_model(name, cfg_kw)
+    other.load_state_dict(model.state_dict())
+    return other.to(device)
+
+
+def phase_bf16_step(device, card: str) -> None:
+    """Phase 26a: one bf16 train step at configs/config.yaml's full width
+    (batch 16 x 375 frames) on the card against the same step on the CPU
+    (plain paths), from init_params weights, glides and injected noise:
+    the forward's signal by the gap criterion, the loss and the whole
+    gradient likewise, the CPU's float32 step the reference; one launch of
+    each kernel.  Then the same step with the bf16 reduced-precision
+    reduction left on (the models' matmul_precision scope disabled, the
+    global flag on): its difference from the scoped step, and a bf16 GEMM
+    of the GRU's shapes timed both ways."""
+    from ddsp_pytorch_tpu_torch.bench_step_breakdown import timed_loop
+    from ddsp_pytorch_tpu_torch.models import decoder as decoder_module
+    from ddsp_pytorch_tpu_torch.models import encoder as encoder_module
+    from ddsp_pytorch_tpu_torch.training import train as train_module
+
+    cfg = Config.from_yaml(CONFIG)
+    kw = dict(cfg.model.kwargs)
+    block, sr = kw["block_size"], kw["sample_rate"]
+    b, frames = cfg.train.batch, cfg.n_frames
+    meta = read_meta(BUNDLE)
+    mean, std = meta["mean_loudness"], meta["std_loudness"]
+    pitch, loud = glide_controls(b, frames, block, sr, seed=SEED + 30, mean_loudness=mean, std_loudness=std)
+    rng = np.random.default_rng(SEED + 31)
+    t = np.arange(frames * block) / sr
+    sig = 0.3 * np.sin(2 * np.pi * 330.0 * t)[None] + 0.01 * rng.standard_normal((b, t.size))
+    noise = rng.uniform(-1.0, 1.0, (b, frames, block)).astype(np.float32)
+    batch = {"pitch": pitch[..., None], "loudness": loud[..., None], "sig": sig.astype(np.float32)}
+    base = init_params(load_model(cfg.model.name, kw), torch.Generator().manual_seed(SEED))
+
+    def run(model, dev):
+        tb = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+        nz = torch.tensor(noise, device=dev)
+        f0, ld = tb["pitch"], (tb["loudness"] - mean) / std
+        with torch.no_grad():
+            signal = model({**tb, "loudness": ld}, noise=nz)["signal"]
+            with matmul_precision():  # the NN's stages
+                d = model.decoder
+                stage = {"f0_mlp": d.f0_mlp(f0), "loudness_mlp": d.loudness_mlp(ld)}
+                stage["gru"] = d.gru(torch.cat([stage["f0_mlp"], stage["loudness_mlp"]], -1))[0]
+                stage["hidden"] = d(f0, ld)[0]
+            stage["controls"] = model.frame_controls(f0, ld)[0]["harmonic_distribution"]
+        osc.reset_kernel_counts()
+        loss, grads = loss_and_grads(model, tb, mean, std, cfg.train.scales, cfg.train.overlap, noise=nz)
+        launched = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+        names = [n for n, _ in model.named_parameters()]
+        check(all(g.dtype == torch.float32 for g in grads), "a bf16 step's gradient is not float32")
+        return (signal.cpu().double().numpy(), float(loss),
+                {n: g.detach().cpu().double() for n, g in zip(names, grads)},
+                {k: v.float().cpu().numpy() for k, v in stage.items()}, launched)
+
+    card_model = _model_as(base, "bfloat16", device)
+    t0 = time.perf_counter()
+    on_card = run(card_model, device)
+    card_s = time.perf_counter() - t0
+    launched = on_card[4]
+    t0 = time.perf_counter()
+    cpu = run(_model_as(base, "bfloat16", "cpu"), "cpu")
+    cpu_s = time.perf_counter() - t0
+    ref = run(_model_as(base, "float32", "cpu"), "cpu")
+    stages = {k: _bf16_gap(on_card[3][k], cpu[3][k], ref[3][k]) for k in ref[3]}
+    signal = _bf16_gap(on_card[0], cpu[0], ref[0])
+    loss = _bf16_gap([on_card[1]], [cpu[1]], [ref[1]])
+    whole, _, _ = _grad_errors(on_card[2], cpu[2])
+    grad_gap, _, _ = _grad_errors(cpu[2], ref[2])
+    print(f"bf16 train step card vs CPU (configs/config.yaml, batch {b} x {frames} frames, init_params "
+          f"weights): loss card={on_card[1]:.7f} cpu bf16={cpu[1]:.7f} cpu f32={ref[1]:.7f}; stage gap ratios "
+          f"{stages}; signal {signal}; loss {loss}; whole gradient rel L2 card vs cpu bf16={whole:.3e}, cpu "
+          f"bf16 vs f32={grad_gap:.3e} (ratio {whole / grad_gap:.3f}); launches fwd={launched[0]} "
+          f"bwd={launched[1]}; host s card={card_s:.2f} cpu={cpu_s:.2f}; card {card}", flush=True)
+    check(np.isfinite(on_card[1]) and launched == (1, 1), f"bf16 card step: loss {on_card[1]}, launches {launched}")
+    for k in BF16_STAGES_HELD:
+        _check_bf16_gap(stages[k], f"bf16 {k} output, card vs CPU")
+    # where the card and the CPU part: the same bf16 ops and GEMMs, card vs CPU
+    g = torch.Generator().manual_seed(SEED)
+    x = (3.0 * torch.randn(200000, generator=g)).to(torch.bfloat16)
+    same = {name: float((fn(x) == fn(x.to(device)).cpu()).float().mean())
+            for name, fn in (("exp", torch.exp), ("reciprocal", lambda v: torch.reciprocal(v.abs() + 0.5)),
+                             ("tanh", torch.tanh), ("mul", lambda v: v * v.flip(0)))}
+    for name, (m, k, n) in (("gemm_gru_input", (b * frames, 1024, 1536)), ("gemm_gru_frame", (b, 512, 1536))):
+        a = torch.randn((m, k), generator=g).to(torch.bfloat16)
+        w = (0.05 * torch.randn((k, n), generator=g)).to(torch.bfloat16)
+        with matmul_precision():
+            same[name] = float(((a @ w) == (a.to(device) @ w.to(device)).cpu()).float().mean())
+    print(f"bf16 card vs CPU, share of equal outputs: {same}; stages held to the gap criterion: "
+          f"{BF16_STAGES_HELD}; card {card}", flush=True)
+    _check_bf16_gap(signal, "bf16 step signal, card vs CPU", BF16_CARD_MEAN)
+    _check_bf16_gap(loss, "bf16 step loss, card vs CPU", BF16_CARD_MEAN)
+    check(whole <= STEP_GRAD_REL, f"bf16 step whole gradient card vs CPU rel L2 {whole} > {STEP_GRAD_REL}")
+
+    # the reduced-precision reduction left on: no scope, the global flag on
+    def unscoped():
+        return contextlib.nullcontext()
+
+    scoped = {m: m.matmul_precision for m in (decoder_module, encoder_module, train_module)}
+    matmul = torch.backends.cuda.matmul
+    previous = matmul.allow_bf16_reduced_precision_reduction
+    try:
+        matmul.allow_bf16_reduced_precision_reduction = True
+        for m in scoped:
+            m.matmul_precision = unscoped
+        left_on = run(card_model, device)
+    finally:
+        for m, f in scoped.items():
+            m.matmul_precision = f
+        matmul.allow_bf16_reduced_precision_reduction = previous
+    on_whole, _, _ = _grad_errors(left_on[2], on_card[2])
+    bitwise = (np.array_equal(left_on[0], on_card[0]) and left_on[1] == on_card[1]
+               and all(torch.equal(left_on[2][n], on_card[2][n]) for n in on_card[2]))
+    gemm = {}
+    g = torch.Generator(device).manual_seed(SEED)
+    for name, (m, k, n) in (("gru_frame", (b, 512, 1536)), ("gru_input", (b * frames, 1024, 1536)),
+                            ("mlp", (b * frames, 512, 512))):
+        x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=g, device=device).to(torch.bfloat16)
+        for flag in (False, True, False, True):  # in turns
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            gemm.setdefault(f"{name}_{'on' if flag else 'off'}_us", []).append(
+                1e6 * timed_loop(lambda: x @ w, 50, device))
+    matmul.allow_bf16_reduced_precision_reduction = previous
+    print(f"bf16 step with allow_bf16_reduced_precision_reduction left on (no scope): bitwise equal to "
+          f"the scoped step: {bitwise}; loss {left_on[1]:.7f} vs {on_card[1]:.7f}; whole gradient rel L2 "
+          f"{on_whole:.3e}; max|signal diff| {float(np.abs(left_on[0] - on_card[0]).max()):.3e}; bf16 GEMM "
+          f"device us (off, on, in turns) {gemm}; card {card}", flush=True)
+    del card_model
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_fit(device, cache: str, tmp: str, card: str) -> tuple:
+    """Phase 26b, with the kernel counts set to 0 just before it: Trainer.fit
+    for N_BF16_STEPS steps at configs/config.yaml with model.kwargs.dtype
+    bfloat16 on the violin-rendered cache (as phase 5b): losses finite, the
+    loss falls by LOSS_FALL_FACTOR, one forward and one backward launch a
+    step (and a forward an eval), float32 parameters.  Returns ((forward,
+    backward launches), the run directory)."""
+    cfg = Config.from_yaml(CONFIG)
+    cfg.apply_overrides([
+        f"preprocess.out_dir={cache}", f"train.steps={N_BF16_STEPS}", "model.kwargs.dtype=bfloat16",
+        "train.val_interval_epochs=10", "train.log_interval_epochs=10",
+        "train.checkpoint_every_steps=0", "train.metrics_flush_steps=10",
+    ])
+    dm = Datamodule(cfg)
+    dm.setup()
+    run_dir = os.path.join(tmp, "run_bf16")
+    trainer = Trainer(cfg, run_dir, device=device)
+    check(trainer.model.compute_dtype == torch.bfloat16, "the bf16 config built a float32 model")
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd, bwd = osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches
+    trainer.close()
+    dtypes = {p.dtype for p in state.model.parameters()} | {t.dtype for t in tree_leaves(state.opt_state)}
+    losses = [v for _, v in read_metrics(run_dir, "loss")]
+    skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"bf16 training: {state.step} steps (batch {cfg.train.batch} x {cfg.n_frames} frames) in "
+          f"{fit_s:.2f} s; loss first5={first5:.5f} last5={last5:.5f} factor={first5 / last5:.4f}; "
+          f"launches fwd={fwd} bwd={bwd} eval_forwards={trainer.eval_forwards}; parameter and optimizer "
+          f"state dtypes {sorted(map(str, dtypes))}; card {card}", flush=True)
+    print("bf16 loss curve: " + " ".join(f"{v:.5f}" for v in losses), flush=True)
+    check(state.step == N_BF16_STEPS and len(losses) == N_BF16_STEPS, "bf16 steps run")
+    check(all(np.isfinite(losses)) and sum(skipped) == 0, "bf16 run: a loss not finite or a skip")
+    check(first5 >= LOSS_FALL_FACTOR * last5,
+          f"bf16 run: loss did not fall by {LOSS_FALL_FACTOR}x: first5 {first5} last5 {last5}")
+    check(bwd == N_BF16_STEPS and fwd == N_BF16_STEPS + trainer.eval_forwards,
+          f"bf16 run launched fwd {fwd}, bwd {bwd} in {N_BF16_STEPS} steps")
+    check(torch.bfloat16 not in dtypes and torch.float32 in dtypes, f"bf16 run state dtypes {dtypes}")
+    del trainer, state, dm
+    torch.cuda.empty_cache()
+    return (fwd, bwd), run_dir
+
+
+def phase_bf16_export_serve(device, run_dir: str, cache: str, tmp: str, card: str) -> int:
+    """Phase 26d: export_run of the bf16 run (meta.json says bfloat16), its
+    bundle streamed N_BLOCKS blocks on the card against the CPU plain stream
+    by the gap criterion (the same parameters streamed in float32 on the CPU
+    the reference), one launch a block; then one VoicePool step of two
+    voices.  Returns oscillator_fwd's launches while serving."""
+    bundle = export_run(run_dir, os.path.join(tmp, "export_bf16"), name="bf16", device=device)
+    meta = read_meta(bundle)
+    check(meta["model"]["kwargs"].get("dtype") == "bfloat16", f"bf16 bundle meta {meta['model']}")
+    gpu = make_streaming_synth(bundle, device=device, noise_deterministic=True)
+    cpu = make_streaming_synth(bundle, device="cpu", noise_deterministic=True)
+    ref = StreamingSynth(_model_as(cpu.model, "float32", "cpu"), meta["mean_loudness"],
+                         meta["std_loudness"], noise_deterministic=True, device="cpu")
+    check(gpu.model.compute_dtype == torch.bfloat16 and ref.model.compute_dtype is None, "bf16 bundle models")
+    block = gpu.block_size
+    pitch, loud = (np.repeat(np.load(os.path.join(cache, "train", f"{name}.npy"))[:1, :N_BLOCKS], block, axis=1)
+                   for name in ("pitchs", "loudness"))
+    gpu.step_samples(pitch[:, :block], loud[:, :block])  # warm-up on a throwaway state
+    gpu.reset()
+    osc.reset_kernel_counts()
+    streams = {name: [] for name in ("gpu", "cpu", "ref")}
+    for i in range(N_BLOCKS):
+        sl = slice(i * block, (i + 1) * block)
+        for name, synth in (("gpu", gpu), ("cpu", cpu), ("ref", ref)):
+            streams[name].append(synth.step_samples(pitch[:, sl], loud[:, sl]).cpu().numpy())
+    streamed = osc.oscillator_bank.launches
+    got, want, f32 = (np.concatenate(streams[n], axis=-1) for n in ("gpu", "cpu", "ref"))
+    gap = _bf16_gap(got, want, f32)
+    pool = VoicePool(make_streaming_synth(bundle, batch=2, device=device))
+    slots = [pool.acquire(), pool.acquire()]
+    before = osc.oscillator_bank.launches
+    rows = pool.step({s: (pitch[0, :block:block, None], loud[0, :block:block, None]) for s in slots})
+    pooled = osc.oscillator_bank.launches - before
+    print(f"bf16 bundle {os.path.basename(bundle)} (meta dtype {meta['model']['kwargs']['dtype']}): "
+          f"{N_BLOCKS} blocks card vs CPU gap ratios {gap} (peak {float(np.abs(got).max()):.3e}); "
+          f"stream carry dtype {gpu.state.gru.dtype}; launches {streamed}; VoicePool(2) step: "
+          f"{pooled} launch, rows {[r.shape for r in rows.values()]}; card {card}", flush=True)
+    check(got.shape == (1, N_BLOCKS * block) and bool(np.isfinite(got).all()), "bf16 bundle stream")
+    _check_bf16_gap(gap, "bf16 bundle stream, card vs CPU", BF16_CARD_MEAN)
+    check(gpu.state.gru.dtype == torch.float32, "the bf16 stream's carry is not float32")
+    check(streamed == N_BLOCKS and pooled == 1, f"bf16 serving launched {streamed}, {pooled}")
+    check(all(r.shape == (block,) and np.isfinite(r).all() for r in rows.values()), "bf16 pool rows")
+    return streamed + pooled
+
+
+def phase_bf16_autoencoder_step(device, card: str) -> tuple:
+    """Phase 26e: one mfcc-autoencoder train step in bf16 at
+    configs/autoencoder.yaml's full width (batch 16 x 375 frames) on the
+    card, from init_params weights: a finite loss, float32 gradients, one
+    launch of each kernel; the float32 step from the same weights beside it.
+    Returns (forward, backward launches)."""
+    cfg = Config.from_yaml(AE_CONFIG)
+    b, frames = cfg.train.batch, cfg.n_frames
+    block, sr = cfg.preprocess.block_size, cfg.preprocess.sample_rate
+    pitch, loud = glide_controls(b, frames, block, sr, seed=SEED + 40)
+    rng = np.random.default_rng(SEED + 41)
+    t = np.arange(frames * block) / sr
+    batch = {"pitch": torch.tensor(pitch[..., None], device=device),
+             "loudness": torch.tensor(loud[..., None], device=device),
+             "mfcc": torch.tensor((10.0 * rng.standard_normal((b, frames, 30))).astype(np.float32), device=device),
+             "sig": torch.tensor((0.3 * np.sin(2 * np.pi * 330.0 * t)[None]
+                                  + 0.01 * rng.standard_normal((b, t.size))).astype(np.float32), device=device)}
+    noise = torch.tensor(rng.uniform(-1.0, 1.0, (b, frames, block)).astype(np.float32), device=device)
+    base = init_params(load_model(cfg.model.name, cfg.model.kwargs), torch.Generator().manual_seed(SEED))
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        model = _model_as(base, dtype, device)
+        osc.reset_kernel_counts()
+        loss, grads = loss_and_grads(model, batch, -7.9, 0.55, cfg.train.scales, cfg.train.overlap, noise=noise)
+        out[dtype] = (float(loss), float(global_norm(grads)), all(g.dtype == torch.float32 for g in grads),
+                      all(bool(torch.isfinite(g).all()) for g in grads),
+                      (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches))
+    print(f"bf16 autoencoder train step ({AE_CONFIG}, batch {b} x {frames} frames): (loss, grad norm, "
+          f"grads float32, grads finite, launches) bf16 {out['bfloat16']}, float32 {out['float32']}; "
+          f"card {card}", flush=True)
+    loss, _, f32, finite, launched = out["bfloat16"]
+    check(np.isfinite(loss) and f32 and finite and launched == (1, 1), f"bf16 AE step {out['bfloat16']}")
+    return launched
+
+
+def phase_bf16(device, cache: str, tmp: str, card: str, f32_graphed: dict) -> dict:
+    """Phase 26: the bf16 model dtype on the card (26a-e).  Returns the
+    launches of its paths for the report."""
+    phase_bf16_step(device, card)
+    (fit_fwd, fit_bwd), run_dir = phase_bf16_fit(device, cache, tmp, card)
+    osc.reset_kernel_counts()
+    graphed = phase_graphed_vs_eager(device, cache, card, dtype="bfloat16", unrolls=(1,))
+    graphed_counts = _wrapper_counts()
+    print(f"ms per graphed step (U = 1) at configs/config.yaml: bfloat16 {graphed[1]['step_ms']:.3f}, "
+          f"float32 {f32_graphed[1]['step_ms']:.3f} (phase 6), bf16/f32 "
+          f"{graphed[1]['step_ms'] / f32_graphed[1]['step_ms']:.4f}; eager bfloat16 "
+          f"{graphed['eager_step_ms']:.3f}, float32 {f32_graphed['eager_step_ms']:.3f}; card {card}", flush=True)
+    serving = phase_bf16_export_serve(device, run_dir, cache, tmp, card)
+    ae = phase_bf16_autoencoder_step(device, card)
+    return {"fit": {"oscillator_fwd": fit_fwd, "oscillator_bwd": fit_bwd}, "graphed": graphed_counts,
+            "serving": serving, "autoencoder_step": {"oscillator_fwd": ae[0], "oscillator_bwd": ae[1]}}
+
+
+def phase_benchmarks(device, card: str) -> None:
+    """Phase 27: the repository's benchmark scripts on the port, each line
+    with the card's name and power limit: bench_headline's five configs
+    (reps cut to BENCH_REPS_SCALE), bench_step_breakdown at
+    BREAKDOWN_BATCH with its ceilings and bf16 verdict (BREAKDOWN_ITERS
+    iterations a stage), bench_scaling at world size 1."""
+    cut = {n: max(1, round(r * BENCH_REPS_SCALE)) for n, r in bench_headline.REPS.items()}
+    print(f"bench_headline: reps cut to {BENCH_REPS_SCALE} of the JAX script's {bench_headline.REPS}: {cut}; "
+          f"card {card}", flush=True)
+    lines = bench_headline.main(["--configs", "1,2,3,4,5", "--reps-scale", str(BENCH_REPS_SCALE)])
+    check([x["config"] for x in lines] == [1, 2, 3, 4, 5], "bench_headline lines")
+    for x in lines:
+        times = [v for k, v in x.items() if k in ("ms", "ms_per_call", "ms_per_step")]
+        check(len(times) == 1 and np.isfinite(times[0]) and times[0] > 0, f"bench_headline line {x}")
+    check(lines[0]["device"] == "cpu" and all(x["card"] == card for x in lines[1:]), "bench_headline devices")
+    check(lines[2]["step"] == lines[3]["step"] == "graphed", "bench_headline's training lines not graphed")
+    print(f"bench_step_breakdown: batch {BREAKDOWN_BATCH}, {BREAKDOWN_ITERS} iterations a stage (the JAX "
+          f"script's 20 cut); card {card}", flush=True)
+    ceilings = bench_step_breakdown.measure_ceilings(device)
+    print(json.dumps({"step_breakdown_ceilings": ceilings, "card": card}), flush=True)
+    entry = bench_step_breakdown.batch_entry(BREAKDOWN_BATCH, BREAKDOWN_ITERS, device)
+    print(json.dumps({"step_breakdown": {str(BREAKDOWN_BATCH): entry}, "card": card}), flush=True)
+    print(f"bf16 verdict at batch {BREAKDOWN_BATCH}: full step float32 {entry['stages_ms']['full_step']:.3f} "
+          f"ms, bfloat16 {entry['full_step_ms_bf16']:.3f} ms (speed-up {entry['bf16_speedup_full_step']:.4f}); "
+          f"GRU stage float32 {entry['stages_ms']['gru_controls']:.3f} ms, bfloat16 {entry['gru_ms_bf16']:.3f} "
+          f"ms (speed-up {entry['bf16_speedup_gru']:.4f}); card {card}", flush=True)
+    check(all(np.isfinite(v) and v > 0 for v in [*ceilings.values(), *entry["stages_ms"].values(),
+                                                 entry["full_step_ms_bf16"], entry["gru_ms_bf16"]]),
+          "a step-breakdown number is not finite")
+    payload = bench_scaling.main(["--world-sizes", "1"])
+    (r,) = payload["results"]
+    print(f"bench_scaling: world size 1 ({r['backend']}, {r['step']}) {r['step_ms']:.3f} ms a step, "
+          f"{r['samples_per_s']:.1f} samples/s; {payload['note']}; card {card}", flush=True)
+    check(r["backend"] == "nccl" and r["efficiency"] == 1.0 and np.isfinite(r["step_ms"]), "bench_scaling")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    # parity settings: full-precision f32 matmuls and convolutions
+    # parity settings: full-precision f32 matmuls and convolutions; bf16
+    # GEMMs keep PyTorch's default (reduced-precision split-K reductions
+    # allowed), set here so that the models' own scope (models/decoder.py
+    # matmul_precision) is what turns it off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
     device = torch.device("cuda", 0)
 
     card = card_line()
@@ -3050,7 +3446,7 @@ def main() -> int:
         write_cache(cache, device)
         train_fwd, train_bwd = phase_training(device, cache, tmp)
         check(train_fwd > 0 and train_bwd > 0, "a kernel was not launched on the training path")
-        phase_graphed_vs_eager(device, cache, card)
+        f32_graphed = phase_graphed_vs_eager(device, cache, card)
         graphed, run_dir = phase_violin_run(device, cache, tmp)
         check(all(n > 0 for n in graphed.values()), "a kernel was not launched on the graphed path")
         exported_fwd = phase_export_serve(device, run_dir, cache, tmp)
@@ -3093,11 +3489,18 @@ def main() -> int:
         trajectory = phase_trajectory(device, tmp, card)
         nccl = phase_data_parallel(device, cache, tmp, card)
     longform_fwd = phase_longform(device, card)
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_bf16_") as tmp:
+        cache = os.path.join(tmp, "cache")
+        write_cache(cache, device)
+        bf16 = phase_bf16(device, cache, tmp, card, f32_graphed)
+    check(all(n > 0 for path in ("fit", "graphed", "autoencoder_step") for n in bf16[path].values())
+          and bf16["serving"] > 0, "a kernel was not launched on a bf16 path")
+    phase_benchmarks(device, card)
     check(all(n > 0 for n in sharded["fit"].values()), "a kernel was not launched on the time-sharded path")
     check(all(n > 0 for n in nccl.values()) and longform_fwd > 0,
           "a kernel was not launched on the NCCL data-parallel or long-form path")
-    # launches: this slice's main path, the time-sharded Trainer.fit
-    fwd_entry["launches"] = sharded["fit"]["oscillator_fwd"]
+    # launches: this slice's main path, the bf16 Trainer.fit
+    fwd_entry["launches"] = bf16["fit"]["oscillator_fwd"]
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
                                      "serving_exported": exported_fwd, "serving_pool": pool_fwd,
@@ -3111,8 +3514,11 @@ def main() -> int:
                                      "time_sharded_graphed": sharded["graphed"]["oscillator_fwd"],
                                      "time_sharded_trajectory": trajectory["oscillator_fwd"],
                                      "data_parallel_nccl_graphed": nccl["oscillator_fwd"],
-                                     "longform": longform_fwd}
-    bwd_entry["launches"] = sharded["fit"]["oscillator_bwd"]
+                                     "longform": longform_fwd, "training_bf16": bf16["fit"]["oscillator_fwd"],
+                                     "training_bf16_graphed": bf16["graphed"]["oscillator_fwd"],
+                                     "serving_bf16": bf16["serving"],
+                                     "training_autoencoder_bf16": bf16["autoencoder_step"]["oscillator_fwd"]}
+    bwd_entry["launches"] = bf16["fit"]["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
                                      "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0,
@@ -3123,7 +3529,11 @@ def main() -> int:
                                      "time_sharded_fit": sharded["fit"]["oscillator_bwd"],
                                      "time_sharded_graphed": sharded["graphed"]["oscillator_bwd"],
                                      "time_sharded_trajectory": trajectory["oscillator_bwd"],
-                                     "data_parallel_nccl_graphed": nccl["oscillator_bwd"], "longform": 0}
+                                     "data_parallel_nccl_graphed": nccl["oscillator_bwd"], "longform": 0,
+                                     "training_bf16": bf16["fit"]["oscillator_bwd"],
+                                     "training_bf16_graphed": bf16["graphed"]["oscillator_bwd"],
+                                     "serving_bf16": 0,
+                                     "training_autoencoder_bf16": bf16["autoencoder_step"]["oscillator_bwd"]}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)

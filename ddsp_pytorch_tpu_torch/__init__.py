@@ -9,8 +9,8 @@ it in PyTorch for an NVIDIA Hopper GPU, slice by slice (ROADMAP.md):
                 CUDA tensors, plain PyTorch on CPU tensors), FIR noise,
                 FFTs, MFCCs, loudness, YIN pitch
   models/       L1+L2 HarmonicSynth / FilteredNoise / Reverb, GRU decoder,
-                MFCC encoder and autoencoder; the CREPE pitch tracker and
-                its fusion with YIN (crepe.py)
+                MFCC encoder and autoencoder (float32 or a bf16 NN); the
+                CREPE pitch tracker and its fusion with YIN (crepe.py)
   data/         feature cache loaders, synthetic corpus, preprocessing,
                 sigmund-wav ingestion, NSynth views, the out-of-family
                 fixture corpus and its pitch scoring (fixtures.py)
@@ -26,6 +26,8 @@ it in PyTorch for an NVIDIA Hopper GPU, slice by slice (ROADMAP.md):
   train.py, preprocess.py, train_pretrained.py, transfer.py,
   nsynth_inst_split.py, train_oof.py, train_sigmund.py, train_crepe.py,
   pitch_accuracy.py, tune_hybrid_pitch.py, time_sharded_trajectory.py: the CLIs
+  bench.py, bench_headline.py, bench_step_breakdown.py, bench_scaling.py,
+  profile_*.py, kernel_bench.py, bench_roofline.py: the measurements
 
 It imports torch, numpy and the standard library only — never jax, flax,
 msgpack, yaml or ddsp_pytorch_tpu.  Entry points take an explicit `device`

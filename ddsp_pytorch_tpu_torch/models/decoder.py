@@ -6,10 +6,32 @@ parameter tree maps onto the state_dict by renaming leaves only
 (weights.py).  The GRU is written as matmuls plus gates, like the JAX one
 (`:86-94`), rather than nn.GRU: the same arithmetic, and no cuDNN path
 whose TF32 default would change the numbers on the GPU.
+
+The NN may compute in bfloat16 (`compute_dtype`, the JAX models' `dtype`;
+decoder.py:15-16) while the parameters stay float32, as flax's
+`param_dtype` keeps them.  The rounding points are those of the compiled
+JAX model, which the CPU tests hold bit for bit:
+  * each Dense casts its input, kernel and bias to bf16 and adds the bias
+    to the rounded product (flax's `nn.Dense(dtype=bf16)`); where only a
+    cast to float32 reads the sum (LayerNorm, the controls) XLA keeps it
+    unrounded, and so does `dense(upcast=True)`;
+  * LayerNorm takes its statistics in float32 (E[x²] − E[x]², clamped at
+    0) and returns bf16 (flax 0.12's `_compute_stats`/`_normalize`);
+  * the leaky ReLU's slope is rounded to bf16, as JAX's weakly typed 0.01;
+  * the GRU's projections, carry and gates are bf16, the carry rounded
+    every frame, σ as XLA expands it, 1 / (1 + exp(−x)) rounded at each
+    operation (`_Logistic`);
+  * the projections' outputs are cast back to the parameters' type before
+    the synths, and everything after them (oscillator, noise, reverb,
+    loss) is as in float32.
+The gradients reach the float32 parameters through the casts.  Without a
+compute dtype the modules compute in their parameters' type (float32, or
+float64 after `.double()`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -24,21 +46,92 @@ LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default; F.layer_norm's is 1e-5
 LEAKY_RELU_SLOPE = 0.01  # flax.linen.leaky_relu's default
 
 
-class MLP(nn.Module):
-    """n_layers × [Dense → LayerNorm(ε=1e-6) → LeakyReLU] (decoder.py:32-45)."""
+@contextlib.contextmanager
+def matmul_precision():
+    """The scope the models' products run in, forward and backward: cuBLAS
+    reduces bf16 GEMMs in float32, as XLA does, whatever
+    `torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`
+    says outside it (its default lets split-K reduce in bf16)."""
+    matmul = torch.backends.cuda.matmul
+    previous = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = previous
 
-    def __init__(self, in_size: int, hidden_size: int, n_layers: int = N_LAYERS):
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype],
+          upcast: bool = False) -> torch.Tensor:
+    """flax's nn.Dense(dtype=dtype) with the layer's parameters: input,
+    kernel and bias cast to `dtype`, the bias added after the product.
+
+    `upcast`: the caller casts the result up at once (LayerNorm's float32
+    statistics, the controls' cast).  Compiled, the JAX model then keeps
+    that sum unrounded (XLA drops a bf16 rounding that only a cast to
+    float32 reads), so the bias is added in float32 to the bf16 product."""
+    if dtype is None:
+        return layer(x)
+    y = x.to(dtype) @ layer.weight.to(dtype).T
+    if upcast:
+        return y.float() + layer.bias.to(dtype).float()
+    return y + layer.bias.to(dtype)
+
+
+def layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax's nn.LayerNorm(dtype=dtype) over the last axis: statistics in
+    at least float32 with the fast variance E[x²] − E[x]² clamped at 0,
+    (x − mean) · (rsqrt(var + ε) · scale) + bias in that type, the result
+    cast to `dtype`."""
+    if dtype is None:
+        return layer(x)
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = x.mean(-1, keepdim=True)
+    var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + layer.eps) * layer.weight
+    return ((x - mean) * mul + layer.bias).to(dtype)
+
+
+class _Logistic(torch.autograd.Function):
+    """σ(x) as XLA computes a bf16 `lax.logistic`: 1 / (1 + exp(−x)), each
+    operation rounded to x's type; the backward is JAX's rule for it,
+    g · (σ · (1 − σ)), in that type."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(torch.exp(-x) + 1.0)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        return grad * (y * (1.0 - y))
+
+
+class MLP(nn.Module):
+    """n_layers × [Dense → LayerNorm(ε=1e-6) → LeakyReLU] (decoder.py:32-45).
+    With a compute dtype the leaky ReLU's slope is rounded to it, as JAX's
+    weakly typed 0.01 is."""
+
+    def __init__(self, in_size: int, hidden_size: int, n_layers: int = N_LAYERS,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_layers = n_layers
+        self.compute_dtype = compute_dtype
+        self.slope = LEAKY_RELU_SLOPE
+        if compute_dtype is not None:
+            self.slope = float(torch.tensor(LEAKY_RELU_SLOPE, dtype=compute_dtype))
         for i in range(n_layers):
             self.add_module(f"Dense_{i}", nn.Linear(in_size if i == 0 else hidden_size, hidden_size))
             self.add_module(f"LayerNorm_{i}", nn.LayerNorm(hidden_size, eps=LAYER_NORM_EPS))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
         for i in range(self.n_layers):
-            x = getattr(self, f"Dense_{i}")(x)
-            x = getattr(self, f"LayerNorm_{i}")(x)
-            x = F.leaky_relu(x, LEAKY_RELU_SLOPE)
+            x = dense(getattr(self, f"Dense_{i}"), x, dt, upcast=True)
+            x = layer_norm(getattr(self, f"LayerNorm_{i}"), x, dt)
+            x = F.leaky_relu(x, self.slope)
         return x
 
 
@@ -55,11 +148,14 @@ class GRU(nn.Module):
     gradients into one tensor; slicing `x_proj[:, t]` inside the loop would
     give each frame a zero-filled gradient of the whole (B, F, 3H) tensor
     and sum F of them, O(F²) work.  The JAX GRU scans over the same split
-    (decoder.py:97)."""
+    (decoder.py:97).  With a compute dtype the projections, the carry
+    (the initial state cast to it, as `h0.astype(dt)`) and every gate are
+    in that type (decoder.py:72-94), σ as XLA expands it (`_Logistic`)."""
 
-    def __init__(self, input_size: int, hidden_size: int):
+    def __init__(self, input_size: int, hidden_size: int, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.hidden_size = hidden_size
+        self.compute_dtype = compute_dtype
         self.weight_ih = nn.Parameter(torch.zeros(3 * hidden_size, input_size))
         self.weight_hh = nn.Parameter(torch.zeros(3 * hidden_size, hidden_size))
         self.bias_ih = nn.Parameter(torch.zeros(3 * hidden_size))
@@ -68,19 +164,29 @@ class GRU(nn.Module):
     def forward(self, x: torch.Tensor, initial_state: Optional[torch.Tensor] = None):
         """x (B, F, in) → (outputs (B, F, H), final_state (B, H))."""
         b = x.shape[0]
-        x_proj = x @ self.weight_ih.T + self.bias_ih
+        w_ih, w_hh, b_ih, b_hh = self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh
+        dt = self.compute_dtype
+        if dt is not None:
+            # cast inside the call: a captured step reads the updated parameters
+            x, w_ih, w_hh, b_ih, b_hh = (t.to(dt) for t in (x, w_ih, w_hh, b_ih, b_hh))
+        x_proj = x @ w_ih.T + b_ih
         if initial_state is None:
             h = torch.zeros((b, self.hidden_size), dtype=x.dtype, device=x.device)
         else:
-            h = initial_state
-        w_hh_t = self.weight_hh.T
+            h = initial_state.to(x.dtype) if dt is not None else initial_state
+        w_hh_t = w_hh.T
         outputs = []
+        rz_n = (2 * self.hidden_size, self.hidden_size)
         for x_t in x_proj.unbind(1):
-            h_proj = h @ w_hh_t + self.bias_hh
-            xr, xz, xn = x_t.chunk(3, dim=-1)
-            hr, hz, hn = h_proj.chunk(3, dim=-1)
-            r = torch.sigmoid(xr + hr)
-            z = torch.sigmoid(xz + hz)
+            h_proj = h @ w_hh_t + b_hh
+            if dt is None:
+                xr, xz, xn = x_t.chunk(3, dim=-1)
+                hr, hz, hn = h_proj.chunk(3, dim=-1)
+                r = torch.sigmoid(xr + hr)
+                z = torch.sigmoid(xz + hz)
+            else:  # both gates in one call of XLA's logistic
+                (xrz, xn), (hrz, hn) = x_t.split(rz_n, dim=-1), h_proj.split(rz_n, dim=-1)
+                r, z = _Logistic.apply(xrz + hrz).chunk(2, dim=-1)
             n = torch.tanh(xn + r * hn)
             h = (1.0 - z) * n + z * h
             outputs.append(h)
@@ -89,18 +195,21 @@ class GRU(nn.Module):
 
 class GRUDecoder(nn.Module):
     """f0 and loudness MLPs (and a z MLP when z_dim is set) → GRU →
-    skip-concat of raw f0/loudness → output MLP (decoder.py:101-143)."""
+    skip-concat of raw f0/loudness → output MLP (decoder.py:101-143).  The
+    skip inputs take the GRU output's type (bf16 rounds f0 near 440 Hz to
+    2 Hz steps, as the JAX decoder does, `:137`)."""
 
-    def __init__(self, hidden_size: int, z_dim: Optional[int] = None):
+    def __init__(self, hidden_size: int, z_dim: Optional[int] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.z_dim = z_dim
-        self.f0_mlp = MLP(1, hidden_size)
-        self.loudness_mlp = MLP(1, hidden_size)
+        self.f0_mlp = MLP(1, hidden_size, compute_dtype=compute_dtype)
+        self.loudness_mlp = MLP(1, hidden_size, compute_dtype=compute_dtype)
         if z_dim is not None:
-            self.z_mlp = MLP(z_dim, hidden_size)
+            self.z_mlp = MLP(z_dim, hidden_size, compute_dtype=compute_dtype)
         n_parts = 2 if z_dim is None else 3
-        self.gru = GRU(n_parts * hidden_size, hidden_size)
-        self.out_mlp = MLP(hidden_size + 2, hidden_size)
+        self.gru = GRU(n_parts * hidden_size, hidden_size, compute_dtype)
+        self.out_mlp = MLP(hidden_size + 2, hidden_size, compute_dtype=compute_dtype)
 
     def forward(
         self,
@@ -118,12 +227,14 @@ class GRUDecoder(nn.Module):
             parts.append(self.z_mlp(z))
         hidden = torch.cat(parts, dim=-1)
         gru_out, state = self.gru(hidden, gru_state)
-        hidden = torch.cat([gru_out, f0, loudness], dim=-1)
+        hidden = torch.cat([gru_out, f0.to(gru_out.dtype), loudness.to(gru_out.dtype)], dim=-1)
         return self.out_mlp(hidden), state
 
 
 class DDSPDecoder(nn.Module):
-    """The "single-inst-decoder" model (decoder.py:182-277)."""
+    """The "single-inst-decoder" model (decoder.py:182-277).  `compute_dtype`
+    (None or torch.bfloat16) is the NN's type; the parameters, the synths
+    and the outputs keep the parameters' type (`dtype`)."""
 
     def __init__(
         self,
@@ -133,6 +244,7 @@ class DDSPDecoder(nn.Module):
         sample_rate: int,
         block_size: int,
         has_reverb: bool,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.hidden_size = int(hidden_size)
@@ -141,7 +253,8 @@ class DDSPDecoder(nn.Module):
         self.sample_rate = int(sample_rate)
         self.block_size = int(block_size)
         self.has_reverb = bool(has_reverb)
-        self.decoder = GRUDecoder(self.hidden_size)
+        self.compute_dtype = compute_dtype
+        self.decoder = GRUDecoder(self.hidden_size, compute_dtype=compute_dtype)
         # column 0 of harmonic_proj = global amplitude, rest = distribution
         self.harmonic_proj = nn.Linear(self.hidden_size, self.n_harmonic + 1)
         self.noise_proj = nn.Linear(self.hidden_size, self.n_bands)
@@ -158,12 +271,15 @@ class DDSPDecoder(nn.Module):
 
     def _controls(self, hidden: torch.Tensor, f0: torch.Tensor):
         """Decoder hidden state → (harmonic controls, noise controls)
-        (decoder.py:156-168)."""
-        param = self.harmonic_proj(hidden)
+        (decoder.py:156-168); the projections in the compute dtype, cast
+        back to the parameters' type before the synths."""
+        dt = self.compute_dtype
+        param = dense(self.harmonic_proj, hidden, dt, upcast=True).to(self.dtype)
         harmonic_ctrls = self.harmonic_synth.get_controls(
             param[..., :1], param[..., 1:], f0
         )
-        noise_ctrls = self.noise_synth.get_controls(self.noise_proj(hidden))
+        magnitudes = dense(self.noise_proj, hidden, dt, upcast=True).to(self.dtype)
+        noise_ctrls = self.noise_synth.get_controls(magnitudes)
         return harmonic_ctrls, noise_ctrls
 
     def frame_controls(self, f0: torch.Tensor, loudness: torch.Tensor):
@@ -171,8 +287,9 @@ class DDSPDecoder(nn.Module):
         loudness (B, F, 1) → (harmonic controls, noise controls).  The NN
         stage of the time-sharded step and of long-form synthesis."""
         f0 = f0.to(self.dtype)
-        hidden, _ = self.decoder(f0, loudness)
-        return self._controls(hidden, f0)
+        with matmul_precision():
+            hidden, _ = self.decoder(f0, loudness)
+            return self._controls(hidden, f0)
 
     def sample_noise(self, f0: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         """(B, F, block_size) uniform noise in [-1, 1): the draw `forward`
@@ -226,8 +343,9 @@ class DDSPDecoder(nn.Module):
         new GRU carry, new phase).  No reverb (applied externally in the
         realtime contract)."""
         f0 = f0.to(self.dtype)
-        hidden, new_gru_state = self.decoder(f0, loudness, gru_state)
-        harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
+        with matmul_precision():
+            hidden, new_gru_state = self.decoder(f0, loudness, gru_state)
+            harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
         harmonic, new_phase = self.harmonic_synth(
             **harmonic_ctrls, phase0=phase, return_phase=True
         )

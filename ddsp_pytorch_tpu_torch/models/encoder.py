@@ -13,7 +13,15 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from ddsp_pytorch_tpu_torch.models.decoder import GRU, LAYER_NORM_EPS, DDSPDecoder, GRUDecoder
+from ddsp_pytorch_tpu_torch.models.decoder import (
+    GRU,
+    LAYER_NORM_EPS,
+    DDSPDecoder,
+    GRUDecoder,
+    dense,
+    layer_norm,
+    matmul_precision,
+)
 from ddsp_pytorch_tpu_torch.models.modules import FilteredNoise, HarmonicSynth, Reverb
 
 N_MFCCS = 30  # encoder.py:23
@@ -22,18 +30,22 @@ Z_DIM = 16  # encoder.py:24
 
 class MFCCEncoder(nn.Module):
     """(B, F, n_mfccs) MFCC frames → LayerNorm(ε=1e-6) → GRU → Dense →
-    (B, F, z_dim) latent (encoder.py:27-57)."""
+    (B, F, z_dim) latent (encoder.py:27-57), each in `compute_dtype` as
+    the decoder's modules are (models/decoder.py)."""
 
-    def __init__(self, hidden_size: int, n_mfccs: int = N_MFCCS, z_dim: int = Z_DIM):
+    def __init__(self, hidden_size: int, n_mfccs: int = N_MFCCS, z_dim: int = Z_DIM,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.LayerNorm_0 = nn.LayerNorm(n_mfccs, eps=LAYER_NORM_EPS)
-        self.GRU_0 = GRU(n_mfccs, hidden_size)
+        self.GRU_0 = GRU(n_mfccs, hidden_size, compute_dtype)
         self.Dense_0 = nn.Linear(hidden_size, z_dim)
 
     def forward(self, mfccs: torch.Tensor, gru_state: Optional[torch.Tensor] = None):
         """→ (z (B, F, z_dim), encoder GRU state (B, H))."""
-        x, state = self.GRU_0(self.LayerNorm_0(mfccs), gru_state)
-        return self.Dense_0(x), state
+        dt = self.compute_dtype
+        x, state = self.GRU_0(layer_norm(self.LayerNorm_0, mfccs, dt), gru_state)
+        return dense(self.Dense_0, x, dt), state
 
 
 class DDSPAutoencoder(nn.Module):
@@ -54,6 +66,7 @@ class DDSPAutoencoder(nn.Module):
         sample_rate: int,
         block_size: int,
         has_reverb: bool,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.hidden_size = int(hidden_size)
@@ -63,8 +76,9 @@ class DDSPAutoencoder(nn.Module):
         self.block_size = int(block_size)
         self.has_reverb = bool(has_reverb)
         self.n_mfccs = N_MFCCS
-        self.encoder = MFCCEncoder(self.hidden_size)
-        self.decoder = GRUDecoder(self.hidden_size, z_dim=Z_DIM)
+        self.compute_dtype = compute_dtype
+        self.encoder = MFCCEncoder(self.hidden_size, compute_dtype=compute_dtype)
+        self.decoder = GRUDecoder(self.hidden_size, z_dim=Z_DIM, compute_dtype=compute_dtype)
         self.harmonic_proj = nn.Linear(self.hidden_size, self.n_harmonic + 1)
         self.noise_proj = nn.Linear(self.hidden_size, self.n_bands)
         self.harmonic_synth = HarmonicSynth(self.block_size, self.sample_rate)
@@ -76,9 +90,10 @@ class DDSPAutoencoder(nn.Module):
         """Encoder + decoder + projections, no synthesis (encoder.py:98-107):
         → (harmonic controls, noise controls)."""
         f0 = f0.to(self.dtype)
-        z, _ = self.encoder(mfcc)
-        hidden, _ = self.decoder(f0, loudness, z=z)
-        return self._controls(hidden, f0)
+        with matmul_precision():
+            z, _ = self.encoder(mfcc)
+            hidden, _ = self.decoder(f0, loudness, z=z)
+            return self._controls(hidden, f0)
 
     def forward(
         self,
@@ -90,9 +105,10 @@ class DDSPAutoencoder(nn.Module):
         DDSPDecoder.forward's dict plus 'z' (encoder.py:109-132).  noise
         (B, F, S) is injected, or drawn from `generator`."""
         f0, loudness, mfcc = batch["pitch"].to(self.dtype), batch["loudness"], batch["mfcc"]
-        z, _ = self.encoder(mfcc)
-        hidden, _ = self.decoder(f0, loudness, z=z)
-        harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
+        with matmul_precision():
+            z, _ = self.encoder(mfcc)
+            hidden, _ = self.decoder(f0, loudness, z=z)
+            harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
         harmonic = self.harmonic_synth(**harmonic_ctrls)
         noise_audio = self.noise_synth(**noise_ctrls, noise=noise, generator=generator)
         signal = harmonic + noise_audio
@@ -126,9 +142,10 @@ class DDSPAutoencoder(nn.Module):
         decoder carry, new phase).  No reverb (StreamingSynth applies it
         in-stream when asked)."""
         f0 = f0.to(self.dtype)
-        z, new_enc_state = self.encoder(mfcc, enc_gru_state)
-        hidden, new_gru_state = self.decoder(f0, loudness, gru_state, z=z)
-        harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
+        with matmul_precision():
+            z, new_enc_state = self.encoder(mfcc, enc_gru_state)
+            hidden, new_gru_state = self.decoder(f0, loudness, gru_state, z=z)
+            harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
         harmonic, new_phase = self.harmonic_synth(**harmonic_ctrls, phase0=phase, return_phase=True)
         noise_audio = self.noise_synth(**noise_ctrls, noise=noise, generator=generator)
         return harmonic + noise_audio, new_enc_state, new_gru_state, new_phase

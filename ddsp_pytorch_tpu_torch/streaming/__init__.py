@@ -133,7 +133,10 @@ class StreamingSynth:
         f0 = self._as_f32(f0_frames)
         loudness = self._as_f32(loudness_frames)
         with torch.inference_mode():
-            loudness = (loudness - self.mean_loudness) / self.std_loudness
+            # times the reciprocal: what XLA compiles the JAX step's division
+            # by a constant to, bit for bit (a bf16 model would turn one
+            # float32 ulp here into a bf16 rounding of its first layer)
+            loudness = (loudness - self.mean_loudness) * (1.0 / self.std_loudness)
             b, f = f0.shape[0], f0.shape[1]
             noise_state = state.noise_state
             if self.noise_deterministic:
@@ -157,6 +160,12 @@ class StreamingSynth:
                 audio, gru, phase = self.model.streaming_step(
                     f0, loudness, state.gru, state.phase, noise
                 )
+            # a bf16 model returns its carries in bf16; the state keeps
+            # float32, which holds them exactly (the JAX pool's jnp.where
+            # promotes them so, streaming/__init__.py:175-184)
+            gru = gru.to(state.gru.dtype)
+            if enc_gru is not None:
+                enc_gru = enc_gru.to(state.enc_gru.dtype)
             reverb = state.reverb
             if self._pir is not None:
                 audio, reverb = pconv.streaming_convolve(self._pir, state.reverb, audio)

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ddsp_pytorch_tpu_torch.config import Config
+from ddsp_pytorch_tpu_torch.models.decoder import matmul_precision
 from ddsp_pytorch_tpu_torch.models.encoder import DDSPAutoencoder
 from ddsp_pytorch_tpu_torch.ops.filters import filtered_noise
 from ddsp_pytorch_tpu_torch.parallel.mesh import Mesh
@@ -190,7 +191,8 @@ def make_time_sharded_loss_and_grads(model, config: Config, mesh: Mesh) -> Calla
             audio = reflect_tail_into_pad(audio, plan.t_valid, axis)
             target = reflect_tail_into_pad(target, plan.t_valid, axis)
         loss = sharded_multiscale_spec_loss(target, audio, scales, overlap, mesh, plan.t_valid)
-        grads = list(torch.autograd.grad(loss, [p for _, p in model.named_parameters()]))
+        with matmul_precision():  # the NN stage's backward, as its forward
+            grads = list(torch.autograd.grad(loss, [p for _, p in model.named_parameters()]))
         if reducer is not None:
             grads, _ = reducer(grads)
         return loss.detach(), grads

@@ -49,6 +49,7 @@ import torch
 from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.models import init_params, load_model
+from ddsp_pytorch_tpu_torch.models.decoder import matmul_precision
 from ddsp_pytorch_tpu_torch.ops import mean_std_loudness, uniform_noise
 from ddsp_pytorch_tpu_torch.ops.oscillator import KERNEL_WRAPPERS
 from ddsp_pytorch_tpu_torch.parallel.mesh import Mesh
@@ -132,12 +133,16 @@ def loss_and_grads(
 ):
     """The train step's loss and the gradient of every parameter, in
     `model.named_parameters()` order (train.py:119-131).  The filtered
-    noise is `noise` (B, F, block) if given, else drawn from `generator`."""
+    noise is `noise` (B, F, block) if given, else drawn from `generator`.
+    A bf16 model's parameters are cast inside this call (models/decoder.py),
+    so a captured step never reads a stale copy; its backward runs in the
+    models' matmul precision as its forward does."""
     model_batch = _normalize_loudness(batch, mean_loudness, std_loudness)
-    out = model(model_batch, noise=noise, generator=generator)
-    loss, _, _ = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)
-    params = [p for _, p in model.named_parameters()]
-    grads = torch.autograd.grad(loss, params)
+    with matmul_precision():
+        out = model(model_batch, noise=noise, generator=generator)
+        loss, _, _ = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)
+        params = [p for _, p in model.named_parameters()]
+        grads = torch.autograd.grad(loss, params)
     return loss.detach(), list(grads)
 
 

@@ -413,18 +413,21 @@ def test_exact_resume(cache, tmp_path):
 
 @pytest.mark.parametrize("mesh", [{"time": 4}, {"data": 2}], ids=["time4", "data2"])
 def test_trainer_refuses_what_waits(cache, tmp_path, mesh):
-    """A config.mesh is no longer refused: without a mesh the Trainer trains
-    unsharded, as the JAX Trainer does with mesh=None (the mesh paths are
-    tests/test_torch_time_sharded.py's and test_torch_multiproc.py's).
-    What still waits is a model dtype other than float32 (ROADMAP.md §1)."""
+    """Nothing here is refused any more.  A config.mesh without a mesh
+    trains unsharded, as the JAX Trainer does with mesh=None (the mesh
+    paths are tests/test_torch_time_sharded.py's and
+    test_torch_multiproc.py's), and a bf16 model dtype builds a model that
+    computes in bf16 on float32 parameters (tests/test_torch_bf16.py)."""
     cfg = _tiny_config(cache)
     cfg.mesh = dataclasses.replace(cfg.mesh, **mesh)
     trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
-    assert trainer.mesh is None
+    assert trainer.mesh is None and trainer.model.compute_dtype is None
     trainer.close()
     cfg.model.kwargs = {**cfg.model.kwargs, "dtype": "bfloat16"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    trainer = Trainer(cfg, str(tmp_path / "run_bf16"), device="cpu")
+    assert trainer.mesh is None and trainer.model.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
+    trainer.close()
 
 
 class _Widened:
