@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, pitch-tracking, timbre-transfer,
 benchmark, drift-soak, native realtime, out-of-family evidence, parallel and
-bf16 paths, and the repository's benchmark scripts, and check them.
+bf16 paths, the repository's benchmark scripts and its run-level tools, and
+check them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -198,7 +199,25 @@ is printed):
      on the CPU in its own process; reps cut to 0.34 of the JAX script's,
      printed), bench_step_breakdown at batch 16 (ceilings, the stages, the
      bf16 verdict; 10 iterations a stage) and bench_scaling at world size 1;
- 28. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 28. the run-level tools, at the reference workload (workload.py:
+     configs/config.yaml's widths, batch 16 × 375 frames, R = 6000 rows of
+     the oscillator a step), each launch counted in the child processes
+     that make it (ops/oscillator.py COUNTS_FILE_ENV): the trainrun
+     rehearsal (hybrid prep of the 24 + 4 note fixture corpus on the card,
+     200 steps in segments of 100 at steps_per_call 50, validation; every
+     segment exits 0, the losses finite and falling, each segment's graph
+     replays one forward and one backward launch a step, the report's keys
+     TRAINRUN_r05.json's plus `card`); the ceiling sweep at 50:1 and 1:1,
+     100 probe steps (both rates a child, the capture, peak memory, SM
+     clock); the CLI journey of e2e_smoke.py on the card (every CLI exits
+     0, its artifacts there); CREPE(dtype="bfloat16"), the shipped tiny,
+     on the card against the CPU's bf16 plain path in eval mode and in
+     train mode with injected dropout masks, by the gap criterion of
+     tests/test_torch_bf16.py (the CPU's float32 the reference); the
+     engine's unit tests under ThreadSanitizer and AddressSanitizer + UBSan
+     on the card's host (clean: every test passes, no report); the phase's
+     seconds;
+ 29. report: one JSON line {"kernels": [...]} (all four kernels; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
      synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
@@ -206,9 +225,10 @@ is printed):
      process's launches: the unsegmented run and the validation),
      time_sharded_fit, time_sharded_graphed, time_sharded_trajectory,
      data_parallel_nccl_graphed, longform, training_bf16,
-     training_bf16_graphed, serving_bf16, training_autoencoder_bf16 and, for
+     training_bf16_graphed, serving_bf16, training_autoencoder_bf16,
+     trainrun, ceiling and e2e_journey (phase 28's child processes) and, for
      the probes, roofline; both oscillator kernels' `launches` are
-     training_bf16's, this slice's main path; the forward's times at the
+     trainrun's, this slice's main path; the forward's times at the
      headline's shape, the
      backward's at R = 3000, train_oof's; phase 2 also times both at the
      sharded rows 1536 and 6144), the card's name and power limit, and last
@@ -240,6 +260,7 @@ import numpy as np
 import torch
 
 from ddsp_pytorch_tpu_torch import bench, bench_headline, bench_roofline, bench_scaling, bench_step_breakdown
+from ddsp_pytorch_tpu_torch import ceiling_probe, e2e_smoke, trainrun
 from ddsp_pytorch_tpu_torch import export, performance, pitch_accuracy, runtime, serve, soak
 from ddsp_pytorch_tpu_torch import train as train_cli
 from ddsp_pytorch_tpu_torch import time_sharded_trajectory, train_crepe, train_oof, train_pretrained, train_sigmund
@@ -292,6 +313,7 @@ from ddsp_pytorch_tpu_torch.training.optim import Optimizer, global_norm, tree_l
 from ddsp_pytorch_tpu_torch.training.state import TrainState
 from ddsp_pytorch_tpu_torch.training.time_sharded import plan_time_padding
 from ddsp_pytorch_tpu_torch.training.train import (
+    WARMUP_RUNS,
     loss_and_grads,
     make_loss_and_grads,
     make_train_multi_step,
@@ -556,6 +578,14 @@ N_BF16_STEPS = 40  # Trainer.fit in bf16, as phase 5b's in float32
 # (the JAX script's 20 cut); bench_scaling at world size 1 (one card).
 BENCH_REPS_SCALE = 0.34
 BREAKDOWN_BATCH, BREAKDOWN_ITERS = 16, 10
+# phase 28: the run-level tools at the reference workload.  The trainrun
+# rehearsal: 200 steps in segments of 100 at steps_per_call 50; the ceiling
+# sweep at 50:1 and 1:1 with 100 probe steps; CREPE bf16 (the shipped tiny)
+# on CREPE_BF16_FRAMES frames in eval mode and CREPE_BF16_BATCH in train
+# mode, by the gap criterion above (BF16_GAP_*).
+TRAINRUN_STEPS, TRAINRUN_SCHEDULE, TRAINRUN_SPC = 200, "100,100", 50
+CEILING_CONFIGS, CEILING_PROBE_STEPS = "50:1,1:1", 100
+CREPE_BF16_FRAMES, CREPE_BF16_BATCH = 256, 256
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3406,6 +3436,197 @@ def phase_benchmarks(device, card: str) -> None:
     check(r["backend"] == "nccl" and r["efficiency"] == 1.0 and np.isfinite(r["step_ms"]), "bench_scaling")
 
 
+def _child_launches(path: str) -> dict:
+    """{kernel: launches + replays} summed over the child processes that
+    appended their counts to `path` (ops/oscillator.py COUNTS_FILE_ENV)."""
+    total = {name: 0 for name in osc.KERNEL_WRAPPERS}
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                for name, c in json.loads(line)["counts"].items():
+                    total[name] += c["launches"] + c["replayed"]
+    return total
+
+
+@contextlib.contextmanager
+def _counted_children(path: str):
+    """Child processes started inside append their kernel counts to `path`
+    (emptied first); yields a function that sums them."""
+    if os.path.exists(path):
+        os.remove(path)
+    os.environ[osc.COUNTS_FILE_ENV] = path
+    try:
+        yield lambda: _child_launches(path)
+    finally:
+        del os.environ[osc.COUNTS_FILE_ENV]
+
+
+def phase_trainrun(device, card: str, tmp: str) -> dict:
+    """Phase 28a: the trainrun rehearsal on the card.  Returns its children's
+    launches."""
+    root = os.path.join(tmp, "runs")
+    with _counted_children(os.path.join(tmp, "trainrun_counts.jsonl")) as launched:
+        t0 = time.perf_counter()
+        report = trainrun.main(["--device", str(device), "--steps", str(TRAINRUN_STEPS), "--segment-schedule",
+                                TRAINRUN_SCHEDULE, "--steps-per-call", str(TRAINRUN_SPC), "--root", root,
+                                "--out", os.path.join(tmp, "trainrun.json")])
+        secs = time.perf_counter() - t0
+        counts = launched()
+    run_dir = os.path.join(root, "runs", trainrun.RUN_NAME)
+    with open(os.path.join(run_dir, "segments.jsonl")) as f:
+        segs = [json.loads(line) for line in f]
+    losses = [v for _, v in read_metrics(run_dir, "loss")]
+    with open("TRAINRUN_r05.json") as f:
+        tpu_keys = set(json.load(f))
+    print(json.dumps({"phase": "trainrun_rehearsal", "seconds": round(secs, 3), "card": card, "segments": segs,
+                      "per_segment": report["per_segment"], "loss_first10_mean": report["loss_first10_mean"],
+                      "loss_last100_mean": report["loss_last100_mean"], "final_val_loss": report["final_val_loss"],
+                      "sustained_steps_per_s_train_segments": report["sustained_steps_per_s_train_segments"],
+                      "launches_in_children": counts}), flush=True)
+    bounds = [0, *np.cumsum([int(n) for n in TRAINRUN_SCHEDULE.split(",")]).tolist()]
+    check(all(s["returncode"] == 0 for s in segs) and [s["to_step"] for s in segs] == bounds,
+          f"trainrun segments {segs}")
+    check(len(losses) == TRAINRUN_STEPS and all(np.isfinite(losses)), "trainrun losses not finite")
+    check(np.mean(losses[-20:]) < np.mean(losses[:20]), "trainrun loss did not fall")
+    check(np.isfinite(report["final_val_loss"]), "trainrun validation loss")
+    check(set(report) == tpu_keys | {"card"} and report["card"] == card, "trainrun report keys")
+    for row in report["per_segment"]:
+        warm = WARMUP_RUNS * 1  # scan_unroll 1
+        check(row["kernel_replayed"] == {"oscillator_fwd": row["steps"], "oscillator_bwd": row["steps"]}
+              and row["kernel_launches"] == {"oscillator_fwd": warm, "oscillator_bwd": warm},
+              f"trainrun segment launches {row['kernel_launches']}, replayed {row['kernel_replayed']}")
+    return counts
+
+
+def phase_ceiling(device, card: str, tmp: str) -> dict:
+    """Phase 28b: the ceiling sweep on the card (CEILING_CONFIGS, the
+    trainrun's corpus and cache reused).  Returns its children's launches."""
+    with _counted_children(os.path.join(tmp, "ceiling_counts.jsonl")) as launched:
+        t0 = time.perf_counter()
+        report = ceiling_probe.main(["--device", str(device), "--configs", CEILING_CONFIGS, "--probe-steps",
+                                     str(CEILING_PROBE_STEPS), "--root", os.path.join(tmp, "runs"),
+                                     "--out", os.path.join(tmp, "ceiling.json")])
+        secs = time.perf_counter() - t0
+        counts = launched()
+    for row in report["rows"]:
+        print(f"ceiling spc={row['steps_per_call']} u={row['unroll']}: {row['status']}, "
+              f"{row['steps_per_s_wall']} steps/s over the child's wall clock, "
+              f"{row['steps_per_s_train_window']} over its train window (steady {row['steady_ms_per_step']} "
+              f"ms a step), capture {row['graph_capture_s']} s, peak {row['max_memory_allocated_bytes']} B, "
+              f"SM {row.get('sm_clock_mhz_start')}-{row.get('sm_clock_mhz_end')} MHz, launches "
+              f"{row['kernel_launches']}, replayed {row['kernel_replayed']}; card {card}", flush=True)
+    print(json.dumps({"phase": "ceiling_sweep", "seconds": round(secs, 3), "prime_wall_s": report["prime_wall_s"],
+                      "launches_in_children": counts, "card": card}), flush=True)
+    check([(r["steps_per_call"], r["unroll"], r["status"]) for r in report["rows"]]
+          == [(spc, u, "ok") for spc, u in ceiling_probe.parse_configs(CEILING_CONFIGS)],
+          f"ceiling rows {report['rows']}")
+    for row in report["rows"]:
+        n = row["measured_steps"]
+        check(row["steps_per_s_wall"] > 0 and row["steps_per_s_train_window"] > row["steps_per_s_wall"],
+              f"ceiling rates {row}")
+        fwd = row["kernel_launches"]["oscillator_fwd"] + row["kernel_replayed"]["oscillator_fwd"]
+        bwd = row["kernel_launches"]["oscillator_bwd"] + row["kernel_replayed"]["oscillator_bwd"]
+        extra = WARMUP_RUNS * row["unroll"] if row["steps_per_call"] > 1 else 0
+        check(fwd == bwd == n + extra, f"ceiling child launches {fwd}, {bwd} for {n} steps")
+    return counts
+
+
+def phase_e2e(device, card: str, tmp: str) -> dict:
+    """Phase 28c: the CLI journey on the card.  Returns its children's
+    launches."""
+    with _counted_children(os.path.join(tmp, "e2e_counts.jsonl")) as launched:
+        secs = e2e_smoke.main(["--device", str(device)])
+        counts = launched()
+    print(json.dumps({"phase": "e2e_journey", "seconds": {k: round(v, 3) for k, v in secs.items()},
+                      "launches_in_children": counts, "card": card}), flush=True)
+    check(list(secs) == ["preprocess", "train", "export", "transfer", "performance"], "e2e steps")
+    return counts
+
+
+def _crepe_gap(got, want, ref, what: str, card: str) -> dict:
+    r = _bf16_gap(got, want, ref)
+    bitwise = float((np.asarray(got) == np.asarray(want)).mean())
+    print(f"CREPE bf16 {what}: card vs CPU bf16 mean err {r['mean']:.4f} of the mean bf16-f32 gap "
+          f"({r['gap_mean']:.3e}), max err {r['max']:.4f} of the max gap, the card {r['band']:.4f} gaps from "
+          f"float32, {bitwise:.4f} of the logits bit for bit; card {card}", flush=True)
+    _check_bf16_gap(r, f"CREPE bf16 {what}")
+    return r
+
+
+def phase_crepe_bf16(device, card: str) -> None:
+    """Phase 28d: CREPE(dtype="bfloat16"), the shipped tiny, on the card
+    against the CPU's bf16 plain path, the CPU's float32 the reference: eval
+    mode on CREPE_BF16_FRAMES frames of a glide with pink noise, train mode
+    on CREPE_BF16_BATCH of them with the same dropout masks (and the running
+    statistics it moves)."""
+    hop = 160
+    x16, _ = _pink_glide(crepe.MODEL_SRATE, (CREPE_BF16_FRAMES - 1) * hop, 31, 110.0, 880.0, -20.0)
+    pad = crepe.FRAME_LENGTH // 2
+    idx = np.arange(CREPE_BF16_FRAMES)[:, None] * hop + np.arange(crepe.FRAME_LENGTH)[None, :]
+    frames = torch.tensor(np.pad(x16, (pad, pad))[idx])
+    shipped = crepe.load_crepe(CREPE_PARAMS, device="cpu").state_dict()
+
+    def model(dtype, dev):
+        m = crepe.CREPE("tiny", dtype=dtype)
+        m.load_state_dict(shipped)
+        return m.to(dev)
+
+    gen = torch.Generator().manual_seed(SEED + 28)
+    masks = [torch.rand(shape, generator=gen) < 1.0 - crepe.DROPOUT_RATE
+             for shape in crepe.CREPE("tiny").block_shapes(CREPE_BF16_BATCH)]
+    batch = frames[:CREPE_BF16_BATCH]
+    with torch.inference_mode():
+        ref = model("float32", "cpu")(frames)
+        want = model("bfloat16", "cpu")(frames)
+        on_card = model("bfloat16", device)
+        got = on_card(frames.to(device)).cpu()
+        check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()), "CREPE bf16 logits")
+        _crepe_gap(got, want, ref, f"eval, {CREPE_BF16_FRAMES} frames", card)
+        runs = {}
+        for name, dtype, dev in (("f32", "float32", "cpu"), ("cpu", "bfloat16", "cpu"), ("card", "bfloat16", device)):
+            m = model(dtype, dev)
+            out = m(batch.to(dev), train=True, dropout_masks=[k.to(dev) for k in masks]).cpu()
+            runs[name] = (out, {k: v.cpu() for k, v in m.state_dict().items() if k.endswith(("running_mean",
+                                                                                            "running_var"))})
+    (ref_t, _), (want_t, stats_cpu), (got_t, stats_card) = runs["f32"], runs["cpu"], runs["card"]
+    _crepe_gap(got_t, want_t, ref_t, f"train mode, batch {CREPE_BF16_BATCH}, injected masks", card)
+    stats_err = max(float((stats_card[k] - stats_cpu[k]).abs().max() / stats_cpu[k].abs().max()) for k in stats_cpu)
+    print(f"CREPE bf16 train mode: running statistics card vs CPU within {stats_err:.3e} of their largest "
+          f"magnitude; float32 parameters: {all(p.dtype == torch.float32 for p in on_card.parameters())}; "
+          f"card {card}", flush=True)
+    check(all(p.dtype == torch.float32 for p in on_card.parameters()), "CREPE bf16 parameters")
+
+
+def phase_sanitizers(card: str) -> None:
+    """Phase 28e: the engine's unit tests built under ThreadSanitizer and
+    under AddressSanitizer + UBSan on this host: every test passes and no
+    sanitizer report."""
+    for sanitize, (_, name, flags) in sorted(runtime.SANITIZERS.items()):
+        t0 = time.perf_counter()
+        rc, out, run_s = runtime.run_binary(name, timeout=300)
+        reports = [r for r in runtime.SANITIZER_REPORTS if r in out]
+        print(f"{name} ({' '.join(flags)}): exit {rc}, built and run in {time.perf_counter() - t0:.2f} s "
+              f"(run {run_s:.2f} s) on the host of card {card}, reports {reports}: "
+              + " | ".join(out.strip().splitlines()[-2:]), flush=True)
+        check(rc == 0 and "stream_test: PASS (5 tests)" in out and not reports, f"{name}:\n{out}")
+
+
+def phase_run_tools(device, card: str) -> dict:
+    """Phase 28: the run-level tools (see the module docstring).  Returns
+    {path: {kernel: launches}} of its child processes."""
+    torch.cuda.empty_cache()  # the children share the card with this process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_runs_") as tmp:
+        launches = {"trainrun": phase_trainrun(device, card, tmp), "ceiling": phase_ceiling(device, card, tmp),
+                    "e2e_journey": phase_e2e(device, card, tmp)}
+    phase_crepe_bf16(device, card)
+    phase_sanitizers(card)
+    for path, counts in launches.items():
+        check(all(n > 0 for n in counts.values()), f"a kernel was not launched on the {path} path: {counts}")
+    print(f"phase 28 (run-level tools) seconds={time.perf_counter() - t0:.1f}; card {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -3496,11 +3717,12 @@ def main() -> int:
     check(all(n > 0 for path in ("fit", "graphed", "autoencoder_step") for n in bf16[path].values())
           and bf16["serving"] > 0, "a kernel was not launched on a bf16 path")
     phase_benchmarks(device, card)
+    tools = phase_run_tools(device, card)
     check(all(n > 0 for n in sharded["fit"].values()), "a kernel was not launched on the time-sharded path")
     check(all(n > 0 for n in nccl.values()) and longform_fwd > 0,
           "a kernel was not launched on the NCCL data-parallel or long-form path")
-    # launches: this slice's main path, the bf16 Trainer.fit
-    fwd_entry["launches"] = bf16["fit"]["oscillator_fwd"]
+    # launches: this slice's main path, the trainrun rehearsal's children
+    fwd_entry["launches"] = tools["trainrun"]["oscillator_fwd"]
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
                                      "serving_exported": exported_fwd, "serving_pool": pool_fwd,
@@ -3517,8 +3739,9 @@ def main() -> int:
                                      "longform": longform_fwd, "training_bf16": bf16["fit"]["oscillator_fwd"],
                                      "training_bf16_graphed": bf16["graphed"]["oscillator_fwd"],
                                      "serving_bf16": bf16["serving"],
-                                     "training_autoencoder_bf16": bf16["autoencoder_step"]["oscillator_fwd"]}
-    bwd_entry["launches"] = bf16["fit"]["oscillator_bwd"]
+                                     "training_autoencoder_bf16": bf16["autoencoder_step"]["oscillator_fwd"],
+                                     **{path: c["oscillator_fwd"] for path, c in tools.items()}}
+    bwd_entry["launches"] = tools["trainrun"]["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
                                      "serving_exported": 0, "serving_pool": 0, "serving_autoencoder": 0,
@@ -3533,7 +3756,8 @@ def main() -> int:
                                      "training_bf16": bf16["fit"]["oscillator_bwd"],
                                      "training_bf16_graphed": bf16["graphed"]["oscillator_bwd"],
                                      "serving_bf16": 0,
-                                     "training_autoencoder_bf16": bf16["autoencoder_step"]["oscillator_bwd"]}
+                                     "training_autoencoder_bf16": bf16["autoencoder_step"]["oscillator_bwd"],
+                                     **{path: c["oscillator_bwd"] for path, c in tools.items()}}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)

@@ -28,6 +28,9 @@ it in PyTorch for an NVIDIA Hopper GPU, slice by slice (ROADMAP.md):
   pitch_accuracy.py, tune_hybrid_pitch.py, time_sharded_trajectory.py: the CLIs
   bench.py, bench_headline.py, bench_step_breakdown.py, bench_scaling.py,
   profile_*.py, kernel_bench.py, bench_roofline.py: the measurements
+  trainrun.py, ceiling_probe.py, e2e_smoke.py, ci.py: the run-level tools
+  (a sustained run, the steps_per_call × unroll sweep, the CLI journey,
+  the one-command verification)
 
 It imports torch, numpy and the standard library only — never jax, flax,
 msgpack, yaml or ddsp_pytorch_tpu.  Entry points take an explicit `device`

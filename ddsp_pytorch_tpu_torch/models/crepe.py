@@ -39,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddsp_pytorch_tpu_torch import resolve_device
+from ddsp_pytorch_tpu_torch.models import COMPUTE_DTYPES
+from ddsp_pytorch_tpu_torch.models.decoder import dense, matmul_precision
 from ddsp_pytorch_tpu_torch.ops.pitch import first_argmin, pitch_grid, switch_cost, viterbi, yin_emission
 
 MODEL_SRATE = 16000  # CREPE operates on 16 kHz frames
@@ -57,7 +59,7 @@ _STRIDES = (4, 1, 1, 1, 1, 1)
 # flax nn.BatchNorm's default epsilon and momentum
 BATCH_NORM_EPS = 1e-5
 BATCH_NORM_MOMENTUM = 0.99
-# the JAX CREPE's dropout rate after every block
+# the JAX CREPE's default dropout rate after every block
 DROPOUT_RATE = 0.25
 # the cost that keeps a bin out of the fused decode (crepe.py:494-497)
 MASKED_COST = 1e6
@@ -94,6 +96,31 @@ def conv_precision():
     return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
 
 
+def _xla_cpu_mean(x: torch.Tensor, window: int = 32) -> torch.Tensor:
+    """The mean of float32 (B, C, T) over B and T, summed in the order of
+    XLA's CPU reduction (its tree-reduction rewrite): each reduced axis
+    longer than `window` cut into windows of `window` (zero-padded), each
+    window summed one element after another, b outer and t inner, the
+    window sums reduced the same way, then times 1/(B·T) in float32.  Bit
+    for bit jnp.mean's at CREPE's batch statistics (batch ≤ 32), where a
+    float32 sum in another order flips bf16 roundings that the next
+    layers' batch statistics spread over every element."""
+    n = x.shape[0] * x.shape[2]
+    x = x.transpose(1, 2)  # (B, T, C)
+    while True:
+        r0, r1, c = x.shape
+        w0, w1 = (window if r0 > window else r0), (window if r1 > window else r1)
+        n0, n1 = -(-r0 // w0), -(-r1 // w1)
+        x = F.pad(x, (0, 0, 0, n1 * w1 - r1, 0, n0 * w0 - r0)).reshape(n0, w0, n1, w1, c)
+        acc = torch.zeros(n0, n1, c, dtype=x.dtype)
+        for i in range(w0):
+            for j in range(w1):
+                acc = acc + x[:, i, :, j]
+        if n0 == n1 == 1:
+            return acc[0, 0] * torch.tensor(1.0 / n, dtype=x.dtype)
+        x = acc
+
+
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm over the channel axis of (B, C, T).
 
@@ -102,7 +129,13 @@ class BatchNorm(nn.Module):
     variance (flax's E[x²] − E[x]², floored at 0) normalize, and the
     running statistics move in place to momentum · running + (1 −
     momentum) · batch, the variance biased too (torch's own running update
-    would take the unbiased one)."""
+    would take the unbiased one).
+
+    A bf16 input is flax's nn.BatchNorm(dtype=bf16): the statistics (batch
+    or running) in float32 (on the CPU the batch's summed in XLA's order,
+    `_xla_cpu_mean`), (x − mean) · (rsqrt(var + ε) · scale) + bias in
+    float32 on the input cast up, the result cast to bf16
+    (flax.linen.normalization `_compute_stats` and `_normalize`)."""
 
     def __init__(self, channels: int, eps: float = BATCH_NORM_EPS,
                  momentum: float = BATCH_NORM_MOMENTUM):
@@ -115,16 +148,44 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if not train:
+        out_dtype = x.dtype
+        if out_dtype == torch.bfloat16:
+            x = x.float()
+        elif not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps)
-        mean = x.mean(dim=(0, 2))
-        var = torch.clamp(torch.square(x).mean(dim=(0, 2)) - torch.square(mean), min=0.0)
+        if not train:
+            scale = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x - self.running_mean[:, None]) * scale[:, None] + self.bias[:, None]).to(out_dtype)
+        if out_dtype == torch.bfloat16 and x.device.type == "cpu":
+            mean, mean_sq = _xla_cpu_mean(x), _xla_cpu_mean(torch.square(x))
+        else:
+            mean, mean_sq = x.mean(dim=(0, 2)), torch.square(x).mean(dim=(0, 2))
+        var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(self.momentum * self.running_mean + (1.0 - self.momentum) * mean)
             self.running_var.copy_(self.momentum * self.running_var + (1.0 - self.momentum) * var)
         scale = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None]) * scale[:, None] + self.bias[:, None]
+        return ((x - mean[:, None]) * scale[:, None] + self.bias[:, None]).to(out_dtype)
+
+
+def _conv_low(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax's nn.Conv(dtype=dtype) with the layer's parameters: the product
+    of the `dtype` input and kernel, accumulated in float32 and rounded to
+    `dtype`, then the `dtype` bias added.  On the card cuDNN computes it in
+    `dtype`; on the CPU the product is a float32 contraction of the
+    rounded operands' windows (unfold, einsum), which sums in the order of
+    XLA's CPU convolution (bit for bit the compiled JAX CREPE on the CPU
+    tests' inputs), since torch's CPU bf16 conv1d is wrong at CREPE's
+    narrow layers (errors as large as the outputs at 4 input and 4 output
+    channels, torch 2.13)."""
+    w = conv.weight.to(dtype)
+    if x.device.type == "cpu":
+        windows = x.float().unfold(-1, w.shape[-1], conv.stride[0])  # (B, C, T, K)
+        y = torch.einsum("bctk,ock->bot", windows, w.float()).to(dtype)
+    else:
+        y = F.conv1d(x, w, None, conv.stride)
+    return y + conv.bias.to(dtype)[:, None]
 
 
 class CREPE(nn.Module):
@@ -139,20 +200,37 @@ class CREPE(nn.Module):
     In eval mode (the default) BatchNorm uses its running statistics and
     dropout is the identity.  With train=True BatchNorm normalizes by the
     batch and updates its running statistics in place (`BatchNorm`), and
-    dropout keeps each activation with probability 1 − DROPOUT_RATE,
-    scaling the kept ones by 1 / (1 − DROPOUT_RATE), as flax's nn.Dropout
-    does.  Its keep masks are `dropout_masks` (one bool tensor a block, in
-    the block's (B, C, T) layout: flax's (B, T, C) mask transposed) where
-    given, else drawn from `generator`.
+    dropout keeps each activation with probability 1 − `dropout`, scaling
+    the kept ones by 1 / (1 − `dropout`), as flax's nn.Dropout does (rate
+    0: the identity; rate 1: zeros).  Its keep masks are `dropout_masks`
+    (one bool tensor a block, in the block's (B, C, T) layout: flax's (B,
+    T, C) mask transposed) where given, else drawn from `generator`.
+
+    `dtype` is the JAX module's (crepe.py:70-103), "float32" or "bfloat16"
+    (None: the parameters' own type, as for float64 checks).  In bf16 the
+    frames are normalized in float32 and cast; each convolution takes bf16
+    input, kernel and bias and adds the bias to the rounded product (flax's
+    nn.Conv(dtype=bf16)); ReLU, max-pool and dropout run in bf16;
+    BatchNorm as `BatchNorm` says; the classifier is decoder.py's `dense`
+    with its float32 upcast (the logits are cast to float32 at once, so
+    compiled JAX keeps that sum unrounded), its product reduced in float32
+    (`matmul_precision`).  Parameters and running statistics stay float32.
 
     Submodules are named as in the flax tree (conv1..conv6, bn1..bn6,
     classifier); weights.crepe_state_dict_from_flax maps a tree onto them."""
 
-    def __init__(self, capacity: str = "tiny"):
+    def __init__(self, capacity: str = "tiny", dropout: float = DROPOUT_RATE, dtype: Optional[str] = "float32"):
         super().__init__()
         if capacity not in CAPACITIES:
             raise ValueError(f"unknown CREPE capacity {capacity!r} ({'|'.join(CAPACITIES)})")
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"CREPE dtype {dtype!r} is not one of {sorted(k for k in COMPUTE_DTYPES if k)}")
+        if not 0.0 <= dropout <= 1.0:
+            raise ValueError(f"CREPE dropout {dropout} is not a rate in [0, 1]")
         self.capacity = capacity
+        self.dropout = float(dropout)
+        self.dtype = dtype
+        self.compute_dtype = COMPUTE_DTYPES[dtype]
         mult = CAPACITIES[capacity]
         channels, length = 1, FRAME_LENGTH
         self._pads = []
@@ -175,23 +253,37 @@ class CREPE(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if train and dropout_masks is None and generator is None:
             raise ValueError("CREPE(train=True) needs dropout_masks or a generator to draw them")
-        keep = 1.0 - DROPOUT_RATE
+        dt = self.compute_dtype
         mean = frames.mean(dim=-1, keepdim=True)
         std = frames.std(dim=-1, keepdim=True, correction=0)
         x = ((frames - mean) / torch.clamp(std, min=1e-6))[:, None, :]  # (B, 1, T)
-        with conv_precision():
+        if dt is not None:
+            x = x.to(dt)
+        with conv_precision(), matmul_precision():
             for i, pad in enumerate(self._pads):
-                x = getattr(self, f"conv{i + 1}")(F.pad(x, pad))
+                conv = getattr(self, f"conv{i + 1}")
+                x = conv(F.pad(x, pad)) if dt is None else _conv_low(conv, F.pad(x, pad), dt)
                 x = getattr(self, f"bn{i + 1}")(F.relu(x), train)
                 x = F.max_pool1d(x, 2, 2)
                 if train:
-                    if dropout_masks is not None:
-                        mask = dropout_masks[i].to(x.device)
-                    else:
-                        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-                    x = torch.where(mask, x / keep, torch.zeros_like(x))
-            x = x.transpose(1, 2).reshape(x.shape[0], -1, 1)  # (B, 4 · C, 1), time-major
-            return F.conv1d(x, self.classifier.weight[:, :, None], self.classifier.bias)[:, :, 0]
+                    x = self._dropout(x, i, dropout_masks, generator)
+            x = x.transpose(1, 2).reshape(x.shape[0], -1)  # (B, 4 · C), time-major
+            if dt is not None:
+                return dense(self.classifier, x, dt, upcast=True)
+            return F.conv1d(x[:, :, None], self.classifier.weight[:, :, None], self.classifier.bias)[:, :, 0]
+
+    def _dropout(self, x: torch.Tensor, i: int, dropout_masks, generator) -> torch.Tensor:
+        """flax's nn.Dropout(self.dropout) on block i's output, in x's type."""
+        if self.dropout == 0.0:
+            return x
+        if self.dropout == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.dropout
+        if dropout_masks is not None:
+            mask = dropout_masks[i].to(x.device)
+        else:
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def _capacity_of(tree: dict) -> str:

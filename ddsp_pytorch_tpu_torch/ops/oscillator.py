@@ -24,7 +24,11 @@ saves φ, ω, A and recomputes the sines in backward.
 
 from __future__ import annotations
 
+import atexit
+import json
 import math
+import os
+import sys
 from typing import Optional
 
 import torch
@@ -275,6 +279,28 @@ KERNEL_WRAPPERS = {"oscillator_fwd": oscillator_bank, "oscillator_bwd": oscillat
 def reset_kernel_counts() -> None:
     for wrapper in KERNEL_WRAPPERS.values():
         wrapper.launches = wrapper.captured = wrapper.replayed = 0
+
+
+# where a process appends its kernel counts when it exits, one JSON line,
+# if this variable names a file: a parent that drives the port through
+# child processes (the CLIs, segmented runs) sums them
+COUNTS_FILE_ENV = "DDSP_KERNEL_COUNTS_FILE"
+
+
+def kernel_counts() -> dict:
+    """{kernel: {launches, captured, replayed}} of this process."""
+    return {name: {"launches": w.launches, "captured": w.captured, "replayed": w.replayed}
+            for name, w in KERNEL_WRAPPERS.items()}
+
+
+def _append_counts_at_exit() -> None:
+    path = os.environ.get(COUNTS_FILE_ENV)
+    if path:
+        with open(path, "a") as f:
+            f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv, "counts": kernel_counts()}) + "\n")
+
+
+atexit.register(_append_counts_at_exit)
 
 
 class OscillatorBank(torch.autograd.Function):

@@ -20,6 +20,13 @@ running interpreter's embedding flags, at first use, into
   ddsp~.pd_linux      the Pd external
   pd_mock_test        loads ddsp~.pd_linux the way Pd does and drives it
 
+`build_runtime(sanitize="thread")` and `build_runtime(sanitize="address")`
+build, into `_build/<hash>-tsan/` and `_build/<hash>-asan/` beside the
+release build, the engine's unit tests under ThreadSanitizer
+(`stream_test_tsan`) and under AddressSanitizer with UBSan
+(`stream_test_asan`), as runtime/CMakeLists.txt:58-77 of the JAX package
+does; `run_binary("stream_test_tsan")` builds and runs one.
+
 `StreamEngine` binds the engine with a Python render callback;
 `ModelHost` binds the model host in this process (the model then runs in
 this interpreter, so its kernel launch counters are visible here).
@@ -46,6 +53,15 @@ CXX_FLAGS = ["-std=c++17", "-O3", "-pthread", "-Wall"]
 SOURCES = ("ddsp_stream.h", "ddsp_stream.cpp", "ddsp_model.h", "ddsp_model.cpp", "ddsp_host.cpp",
            "stream_test.cpp", "pd_ddsp_tilde.cpp", "pd_mock_test.cpp", "pd/m_pd.h")
 COMPILE_TIMEOUT_S = 300
+# sanitize= → (suffix of its build directory, executable, compile and link flags)
+SANITIZERS = {
+    "thread": ("tsan", "stream_test_tsan", ["-fsanitize=thread", "-g", "-O1"]),
+    "address": ("asan", "stream_test_asan",
+                ["-fsanitize=address,undefined", "-g", "-O1", "-fno-omit-frame-pointer"]),
+}
+# what a sanitizer prints when it finds a fault (the exit code is nonzero too)
+SANITIZER_REPORTS = ("WARNING: ThreadSanitizer", "ERROR: AddressSanitizer", "runtime error:",
+                     "ERROR: LeakSanitizer")
 
 _FP = ctypes.POINTER(ctypes.c_float)
 _RENDER_CB = ctypes.CFUNCTYPE(None, _FP, _FP, _FP, ctypes.c_int, ctypes.c_void_p)
@@ -86,16 +102,29 @@ def _targets(cflags: list, ldflags: list) -> list:
     ]
 
 
-def build_dir() -> str:
+def _sanitizer_targets(sanitize: str) -> list:
+    """The one stage of a sanitizer build: the engine's unit tests linked
+    with the engine's source, both compiled with the sanitizer's flags."""
+    _, out, flags = SANITIZERS[sanitize]
+    return [[(out, ["stream_test.cpp", "ddsp_stream.cpp"], flags)]]
+
+
+def build_dir(sanitize: Optional[str] = None) -> str:
     """Where this checkout's runtime is (or will be) built: a directory named
-    by a hash of the sources, the flags, the compiler and the interpreter."""
+    by a hash of the sources, the flags, the compiler and the interpreter;
+    a sanitizer build's name ends in its suffix."""
     cflags, ldflags = _python_flags()
     digest = hashlib.sha256()
     for name in SOURCES:
         with open(os.path.join(_DIR, name), "rb") as f:
             digest.update(name.encode() + f.read())
     digest.update(" ".join(CXX_FLAGS + cflags + ldflags + [_cxx()]).encode())
-    return os.path.join(BUILD_ROOT, digest.hexdigest()[:16])
+    name = digest.hexdigest()[:16]
+    if sanitize is not None:
+        if sanitize not in SANITIZERS:
+            raise ValueError(f"sanitize={sanitize!r} is not one of {sorted(SANITIZERS)}")
+        name += "-" + SANITIZERS[sanitize][0]
+    return os.path.join(BUILD_ROOT, name)
 
 
 def _cxx() -> str:
@@ -105,22 +134,25 @@ def _cxx() -> str:
     return found
 
 
-def build_runtime() -> str:
+def build_runtime(sanitize: Optional[str] = None) -> str:
     """Build the native runtime from this checkout's sources if it is not
-    built yet; returns its directory.
+    built yet; returns its directory.  sanitize="thread" or "address"
+    builds only the engine's unit tests under that sanitizer
+    (`SANITIZERS`), in a directory of its own.
 
     Safe when several processes build at once: each compiles into a
     directory of its own and renames it into place (an atomic rename of a
     directory); the first to finish wins and the others use its build.
     Raises RuntimeError with the compiler's output when a build fails."""
-    final = build_dir()
+    final = build_dir(sanitize)
     if os.path.isdir(final):
         return final
     cflags, ldflags = _python_flags()
     tmp = f"{final}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
     os.makedirs(tmp)
+    stages = _targets(cflags, ldflags) if sanitize is None else _sanitizer_targets(sanitize)
     try:
-        for stage in _targets(cflags, ldflags):
+        for stage in stages:
             procs = []
             for out, srcs, extra in stage:
                 cmd = [_cxx(), *CXX_FLAGS, "-o", os.path.join(tmp, out),
@@ -144,8 +176,12 @@ def build_runtime() -> str:
 
 
 def runtime_path(name: str) -> str:
-    """The built file `name` (e.g. "ddsp_host", "ddsp~.pd_linux"), building
-    the runtime if needed."""
+    """The built file `name` (e.g. "ddsp_host", "ddsp~.pd_linux",
+    "stream_test_tsan"), building the runtime, or the sanitizer build that
+    makes it, if needed."""
+    for sanitize, (_, out, _) in SANITIZERS.items():
+        if name == out:
+            return os.path.join(build_runtime(sanitize), name)
     return os.path.join(build_runtime(), name)
 
 

@@ -291,6 +291,7 @@ of any keys (the autoencoder's carry `mfcc`).
         self._rows = 1 if mesh is None else mesh.data_procs
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured: Dict[str, int] = {}
+        self.warmup_s: Optional[float] = None  # the eager warm-up runs before the capture
         self.capture_s: Optional[float] = None  # capture and instantiation
         self.pool_bytes: Optional[int] = None  # device memory the capture reserved
         self.replays = 0
@@ -387,6 +388,7 @@ of any keys (the autoencoder's carry `mfcc`).
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
+        t0 = time.perf_counter()
         with torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS):
                 self._bodies(state)
@@ -396,6 +398,7 @@ of any keys (the autoencoder's carry `mfcc`).
                 t.copy_(s)
         del saved
         torch.cuda.synchronize(device)
+        self.warmup_s = time.perf_counter() - t0
         torch.cuda.empty_cache()  # as torch.cuda.graph does, before the pool is counted
         before = {name: w.captured for name, w in KERNEL_WRAPPERS.items()}
         reserved = torch.cuda.memory_reserved(device)
@@ -690,6 +693,9 @@ class Trainer:
                 t_last, s_last = now, state.step
             return state.step >= total_steps
 
+        kernels_before = {name: (w.launches, w.replayed) for name, w in KERNEL_WRAPPERS.items()}
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
         t_start = time.perf_counter()
         buf = []  # batches (or index arrays) awaiting a full call
         for epoch in range(start_epoch, n_epochs):
@@ -757,8 +763,25 @@ class Trainer:
             self.metrics.add_scalar(
                 "train_window_steps_per_s", (state.step - start_step) / max(window, 1e-9), state.step
             )
+            self._log_window_costs(state.step, kernels_before)
         self.checkpointer.save(state)
         return state
+
+    def _log_window_costs(self, step: int, kernels_before: dict) -> None:
+        """What the train window spent besides steps: the CUDA graph's eager
+        warm-up runs and its capture (seconds each), the peak of allocated
+        device memory, and each kernel's launches in the window, eager
+        (single steps and a capture's warm-up runs) and replayed in graphs."""
+        if self._multi_step is not None and self._multi_step.capture_s is not None:
+            self.metrics.add_scalar("graph_warmup_s", self._multi_step.warmup_s, step)
+            self.metrics.add_scalar("graph_capture_s", self._multi_step.capture_s, step)
+        if self.device.type == "cuda":
+            self.metrics.add_scalar("max_memory_allocated_bytes", torch.cuda.max_memory_allocated(self.device),
+                                    step)
+        for name, (launches, replayed) in kernels_before.items():
+            w = KERNEL_WRAPPERS[name]
+            self.metrics.add_scalar(f"kernel_launches/{name}", w.launches - launches, step)
+            self.metrics.add_scalar(f"kernel_replayed/{name}", w.replayed - replayed, step)
 
     def _eval(self, state, batch, seed: int):
         """The eval step on this rank's rows, its noise drawn for the global

@@ -13,7 +13,19 @@ Tolerances:
     result by more than 1e-4 alone), Viterbi paths equal on every frame,
     f0 within 1e-5 relative;
   * the trackers on a glide with pink noise: Viterbi paths equal, f0
-    within 1e-4 relative, both evidence maps within 1e-5.
+    within 1e-4 relative, both evidence maps within 1e-5;
+  * CREPE(dtype="bfloat16") against CREPE(dtype=jnp.bfloat16) under
+    jax.jit: a fresh `micro` in eval mode bit for bit; in train mode with
+    the same injected dropout masks by tests/test_torch_bf16.py's gap
+    criterion (mean error ≤ 0.25 of the bf16–f32 gap, max ≤ 2×, the port
+    0.5–1.5 gaps from float32) and ≥ 99.9 % of the logits bit for bit
+    (measured: all but 1 of 5760; a convolution's float32 sum order flips
+    a rare bf16 rounding), the updated running statistics within 1e-6 of
+    their largest magnitude; the shipped `tiny` in eval mode by the gap
+    criterion (measured 0.04 of the gap);
+  * `dropout`: rates of 0.5 and 0 keep and scale as flax's own
+    nn.Dropout does with the same masks (train mode in float64, logits
+    within 1e-10).
 """
 
 import functools
@@ -52,6 +64,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "pretrained", "crepe_tiny.msgpack")
 LOGITS_ATOL, SALIENCE_ATOL, FRESH_ATOL, LAYER_ATOL = 1e-4, 1e-5, 1e-5, 1e-5
 CENTS_ATOL, CENTS_RTOL, F0_DECODE_RTOL, F0_TRACK_RTOL, EVIDENCE_ATOL = 1e-4, 2.4e-7, 1e-5, 1e-4, 1e-5
+GAP_MEAN, GAP_MAX, GAP_BAND = 0.25, 2.0, (0.5, 1.5)  # tests/test_torch_bf16.py's
+STATS_REL = 1e-6
 
 
 @functools.lru_cache(maxsize=None)
@@ -434,3 +448,141 @@ def test_make_pitch_fn_falls_back_to_the_shipped_file(tmp_path, monkeypatch):
 def test_make_pitch_fn_unknown_tracker_raises():
     with pytest.raises(ValueError, match="unknown pitch_tracker"):
         make_pitch_fn(Config.from_dict(_cfg_raw("pyin")), device="cpu")
+
+
+# ------------------------------------------------------------- bf16, dropout
+
+
+def _jax_apply_train(capacity, dtype, masks, tree, frames, rate=None):
+    """(logits, updated batch_stats) of the JAX CREPE(capacity, dtype) in
+    train mode under jax.jit, each nn.Dropout's keep mask replaced by
+    `masks` (flax's (B, T, C) layout): jax.random.bernoulli, which flax's
+    nn.Dropout draws its mask with, returns them in call order, so flax's
+    own keep-and-scale runs."""
+    model = J.CREPE(capacity=capacity, dtype=dtype, **({} if rate is None else {"dropout": rate}))
+    it = iter(masks)
+    real = jax.random.bernoulli
+
+    def fake(key, p, shape):
+        mask = next(it)
+        assert tuple(shape) == mask.shape
+        return jnp.asarray(mask)
+
+    jax.random.bernoulli = fake
+    try:
+        fn = jax.jit(lambda t, f: model.apply(t, f, train=True, mutable=["batch_stats"],
+                                              rngs={"dropout": jax.random.PRNGKey(0)}))
+        logits, updates = fn({"params": tree["params"], "batch_stats": tree["batch_stats"]}, jnp.asarray(frames))
+    finally:
+        jax.random.bernoulli = real
+    return np.asarray(logits), jax.tree_util.tree_map(np.asarray, updates["batch_stats"])
+
+
+def _port_train(tree, frames, masks, **kwargs):
+    model = P.crepe_from_tree(tree, device="cpu")
+    port = P.CREPE(model.capacity, **kwargs)
+    port.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        logits = port(torch.tensor(frames), train=True,
+                      dropout_masks=[torch.tensor(m).transpose(1, 2) for m in masks])
+    return logits.numpy(), port
+
+
+def _flax_masks(capacity, batch, seed, keep):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(size=(b, t, c)) < keep for b, c, t in P.CREPE(capacity).block_shapes(batch)]
+
+
+def _assert_gap(got, want, ref):
+    """tests/test_torch_bf16.py's gap criterion: got (port bf16) against
+    want (JAX bf16), measured in the gap between want and ref (JAX f32)."""
+    err, gap = np.abs(got - want), np.abs(want - ref)
+    assert gap.mean() > 0, "bf16 and float32 agree exactly; the criterion cannot test"
+    assert err.mean() <= GAP_MEAN * gap.mean(), (err.mean(), gap.mean())
+    assert err.max() <= GAP_MAX * gap.max(), (err.max(), gap.max())
+    assert GAP_BAND[0] <= np.abs(got - ref).mean() / gap.mean() <= GAP_BAND[1]
+
+
+def _assert_stats(port, stats):
+    for layer, leaves in stats.items():
+        bn = getattr(port, layer)
+        for name, got in (("mean", bn.running_mean), ("var", bn.running_var)):
+            want = leaves[name]
+            assert got.numpy().dtype == want.dtype
+            np.testing.assert_allclose(got.numpy(), want, atol=STATS_REL * np.abs(want).max(), rtol=0)
+
+
+def test_bf16_micro_eval_is_bitwise_jax():
+    tree = _fresh_flax("micro")
+    frames = np.random.default_rng(11).standard_normal((16, P.FRAME_LENGTH)).astype(np.float32)
+    model = P.crepe_from_tree(tree, device="cpu")
+    port = P.CREPE("micro", dtype="bfloat16")
+    port.load_state_dict(model.state_dict())
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+    got = _port_logits(port.eval(), frames)
+    want = np.asarray(jax.jit(J.CREPE("micro", dtype=jnp.bfloat16).apply)(
+        {"params": tree["params"], "batch_stats": tree["batch_stats"]}, jnp.asarray(frames)))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(want - _jax_logits(tree, "micro", frames)).mean() > 0  # bf16 rounds
+
+
+def test_bf16_micro_train_matches_jax_with_injected_masks():
+    tree = _fresh_flax("micro")
+    frames = np.random.default_rng(12).standard_normal((16, P.FRAME_LENGTH)).astype(np.float32)
+    masks = _flax_masks("micro", 16, 13, 1.0 - P.DROPOUT_RATE)
+    want, stats = _jax_apply_train("micro", jnp.bfloat16, masks, tree, frames)
+    got, port = _port_train(tree, frames, masks, dtype="bfloat16")
+    want32, _ = _jax_apply_train("micro", jnp.float32, masks, tree, frames)
+    _assert_gap(got, want, want32)
+    assert (got == want).mean() >= 0.999, (got == want).mean()
+    _assert_stats(port, stats)
+
+
+def test_bf16_shipped_tiny_eval_meets_the_gap_criterion():
+    frames = np.random.default_rng(14).standard_normal((64, P.FRAME_LENGTH)).astype(np.float32)
+    tree = _shipped_tree()
+    port = P.CREPE("tiny", dtype="bfloat16")
+    port.load_state_dict(_shipped_model().state_dict())
+    got = _port_logits(port.eval(), frames)
+    want = np.asarray(jax.jit(J.CREPE("tiny", dtype=jnp.bfloat16).apply)(
+        {"params": tree["params"], "batch_stats": tree["batch_stats"]}, jnp.asarray(frames)))
+    _assert_gap(got, want, _jax_logits(tree, "tiny", frames))
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.0])
+def test_dropout_rate_keeps_and_scales_as_flax(rate):
+    """In float64 (train-mode batch statistics in float32 spread rounding
+    over every element): the logits within 1e-10 and the running
+    statistics within STATS_REL of flax's own nn.Dropout(rate) fed the same
+    masks; a rate of 0 draws no mask."""
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), _fresh_flax("micro"))
+    frames = np.random.default_rng(15).standard_normal((8, P.FRAME_LENGTH))
+    masks = _flax_masks("micro", 8, 16, 1.0 - rate)
+    with jax.enable_x64(True):
+        if rate == 0.0:
+            masks = [np.zeros_like(m) for m in masks]  # dropped where used: none may be
+            want, stats = jax.jit(lambda t, f: J.CREPE("micro", dropout=0.0, dtype=jnp.float64).apply(
+                t, f, train=True, mutable=["batch_stats"]))(tree, jnp.asarray(frames))
+            want, stats = np.asarray(want, np.float64), jax.tree_util.tree_map(np.asarray, stats["batch_stats"])
+        else:
+            want, stats = _jax_apply_train("micro", jnp.float64, masks, tree, frames, rate=rate)
+    model = P.CREPE("micro", dropout=rate, dtype=None).double()
+    model.load_state_dict(P.crepe_from_tree(tree, device="cpu").double().state_dict())
+    with torch.no_grad():
+        got = model(torch.tensor(frames), train=True,
+                    dropout_masks=[torch.tensor(m).transpose(1, 2) for m in masks]).numpy()
+    assert model.dropout == rate
+    np.testing.assert_allclose(got, want, atol=1e-10)
+    _assert_stats(model, stats)
+
+
+def test_crepe_fields_are_checked():
+    with pytest.raises(ValueError, match="dtype"):
+        P.CREPE("micro", dtype="float16")
+    with pytest.raises(ValueError, match="dropout"):
+        P.CREPE("micro", dropout=1.5)
+    model = P.CREPE("micro", dropout=1.0, dtype="bfloat16")
+    masks = [torch.ones(s, dtype=torch.bool) for s in model.block_shapes(2)]
+    out = model(torch.randn(2, P.FRAME_LENGTH), train=True, dropout_masks=masks)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()

@@ -4,6 +4,10 @@ its C++ unit test, the Pd external through the mock Pd host, the
 CPython-embedded model host in this process and as the standalone
 ddsp_host, and the selftest.  The model host runs with DDSP_DEVICE=cpu.
 
+The engine's unit tests also run built under ThreadSanitizer and under
+AddressSanitizer + UBSan, with no report; a planted race and a planted
+heap overflow show that those builds' flags report one.
+
 The engine's underrun counter is read and printed, never asserted: whether
 the worker kept up depends on the host's load, not on the code (the same
 assertion in tests/test_export_runtime.py fails under a loaded host).
@@ -15,6 +19,7 @@ generator) within 1e-5, as tests/test_export_runtime.py holds the JAX host.
 """
 
 import os
+import subprocess
 import threading
 
 import numpy as np
@@ -140,6 +145,60 @@ def test_stream_test_binary(built):
     rc, out, _ = runtime.run_binary("stream_test", timeout=BINARY_TIMEOUT_S)
     print(out)
     assert rc == 0 and "stream_test: PASS (5 tests)" in out
+
+
+@pytest.mark.parametrize("sanitize", sorted(runtime.SANITIZERS))
+def test_stream_test_under_sanitizer(sanitize):
+    """The engine's unit tests built under ThreadSanitizer and under
+    AddressSanitizer + UBSan (runtime/CMakeLists.txt:58-77 of the JAX
+    package) pass every test, with no sanitizer report, in a build
+    directory of their own beside the release build."""
+    _, name, _ = runtime.SANITIZERS[sanitize]
+    rc, out, _ = runtime.run_binary(name, timeout=BINARY_TIMEOUT_S)
+    print(out)
+    assert rc == 0 and "stream_test: PASS (5 tests)" in out, out
+    assert not [r for r in runtime.SANITIZER_REPORTS if r in out], out
+    directory = runtime.build_runtime(sanitize)
+    assert directory == runtime.build_dir(sanitize) != runtime.build_dir()
+    assert sorted(os.listdir(directory)) == [name]
+
+
+PLANTED = {
+    "thread": ("""
+#include <thread>
+int counter = 0;
+int main() {
+  std::thread t([] { for (int i = 0; i < 100000; ++i) ++counter; });
+  for (int i = 0; i < 100000; ++i) ++counter;
+  t.join();
+  return counter == 0;
+}
+""", "WARNING: ThreadSanitizer: data race"),
+    "address": ("""
+#include <cstdlib>
+int main(int argc, char **) {
+  int *a = static_cast<int *>(std::malloc(4 * sizeof(int)));
+  a[argc + 3] = 1;
+  int v = a[0];
+  std::free(a);
+  return v;
+}
+""", "ERROR: AddressSanitizer: heap-buffer-overflow"),
+}
+
+
+@pytest.mark.parametrize("sanitize", sorted(PLANTED))
+def test_sanitizer_flags_report_a_planted_fault(sanitize, tmp_path):
+    """The sanitizer builds' flags do catch a fault: a tiny program with a
+    planted data race (thread) or heap overflow (address), compiled as
+    build_runtime(sanitize=...) compiles the engine, reports it and fails."""
+    source, report = PLANTED[sanitize]
+    src, exe = tmp_path / "planted.cpp", tmp_path / "planted"
+    src.write_text(source)
+    subprocess.run([runtime._cxx(), *runtime.CXX_FLAGS, *runtime.SANITIZERS[sanitize][2], "-o", str(exe), str(src)],
+                   check=True, timeout=BINARY_TIMEOUT_S)
+    r = subprocess.run([str(exe)], capture_output=True, text=True, timeout=BINARY_TIMEOUT_S)
+    assert r.returncode != 0 and report in r.stderr, r.stderr
 
 
 def test_pd_external_without_model(built, cpu_env):
