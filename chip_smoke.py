@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, pitch-tracking, timbre-transfer,
 benchmark, drift-soak, native realtime, out-of-family evidence, parallel and
-bf16 paths, the repository's benchmark scripts and its run-level tools, and
-check them.
+bf16 paths, the repository's benchmark scripts, its run-level tools and the
+last modules of the JAX package (the public ops, the voice ramp, the
+reference head-to-head), and check them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -208,7 +209,7 @@ is printed):
      segment exits 0, the losses finite and falling, each segment's graph
      replays one forward and one backward launch a step, the report's keys
      TRAINRUN_r05.json's plus `card`); the ceiling sweep at 50:1 and 1:1,
-     100 probe steps (both rates a child, the capture, peak memory, SM
+     50 probe steps (both rates a child, the capture, peak memory, SM
      clock); the CLI journey of e2e_smoke.py on the card (every CLI exits
      0, its artifacts there); CREPE(dtype="bfloat16"), the shipped tiny,
      on the card against the CPU's bf16 plain path in eval mode and in
@@ -217,7 +218,19 @@ is printed):
      engine's unit tests under ThreadSanitizer and AddressSanitizer + UBSan
      on the card's host (clean: every test passes, no report); the phase's
      seconds;
- 29. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 29. the last modules of the JAX package, with the kernel counts set to 0
+     just before each path and read just after it: the public sample-rate
+     ops (upsample, resample, harmonic_synth, amplitude_to_db) on the card
+     against the CPU, harmonic_synth also against the float64 oracle
+     (2e-4); init_stream_state feeding one StreamingSynth.step of the
+     violin bundle, equal bit for bit to a step from fresh_state;
+     voice_ramp.py at its defaults (a fresh 100-harmonic, hidden-512 voice,
+     pool 32, V = 1 … 32, 8-frame steps, best and mean of 6) and at pool
+     1024 (V = 32, 128, 512, 1024), both reports printed, one forward
+     launch a pool step; bench_reference.py on the card (the reference's
+     restated forward against the port's, both configs, one forward launch
+     a call of the port's side); the phase's seconds;
+ 30. report: one JSON line {"kernels": [...]} (all four kernels; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
      synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
@@ -226,10 +239,11 @@ is printed):
      time_sharded_fit, time_sharded_graphed, time_sharded_trajectory,
      data_parallel_nccl_graphed, longform, training_bf16,
      training_bf16_graphed, serving_bf16, training_autoencoder_bf16,
-     trainrun, ceiling and e2e_journey (phase 28's child processes) and, for
-     the probes, roofline; both oscillator kernels' `launches` are
-     trainrun's, this slice's main path; the forward's times at the
-     headline's shape, the
+     trainrun, ceiling and e2e_journey (phase 28's child processes),
+     init_stream_state, voice_ramp and bench_reference (phase 29) and, for
+     the probes, roofline; the forward's `launches` are phase 29's, this
+     slice's main path, the backward's trainrun's (phase 29 trains
+     nothing); the forward's times at the headline's shape, the
      backward's at R = 3000, train_oof's; phase 2 also times both at the
      sharded rows 1536 and 6144), the card's name and power limit, and last
      {"ok": true, "device": {...}}.
@@ -259,12 +273,14 @@ import wave
 import numpy as np
 import torch
 
-from ddsp_pytorch_tpu_torch import bench, bench_headline, bench_roofline, bench_scaling, bench_step_breakdown
+from ddsp_pytorch_tpu_torch import bench, bench_headline, bench_reference, bench_roofline, bench_scaling
+from ddsp_pytorch_tpu_torch import bench_step_breakdown
 from ddsp_pytorch_tpu_torch import ceiling_probe, e2e_smoke, trainrun
 from ddsp_pytorch_tpu_torch import export, performance, pitch_accuracy, runtime, serve, soak
 from ddsp_pytorch_tpu_torch import train as train_cli
 from ddsp_pytorch_tpu_torch import time_sharded_trajectory, train_crepe, train_oof, train_pretrained, train_sigmund
-from ddsp_pytorch_tpu_torch import transfer, tune_hybrid_pitch
+from ddsp_pytorch_tpu_torch import ops, transfer, tune_hybrid_pitch
+from ddsp_pytorch_tpu_torch import voice_ramp as voice_ramp_cli
 from ddsp_pytorch_tpu_torch.bundle import read_meta
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import DataLoader, Datamodule, Dataset, DeviceDataLoader, make_synthetic_dataset
@@ -304,7 +320,7 @@ from ddsp_pytorch_tpu_torch.profile_serving import (
 from ddsp_pytorch_tpu_torch.parallel import LongFormSynthesizer, make_mesh
 from ddsp_pytorch_tpu_torch.profile_training import glide_controls
 from ddsp_pytorch_tpu_torch.runtime import ModelHost, selftest
-from ddsp_pytorch_tpu_torch.streaming import StreamingSynth
+from ddsp_pytorch_tpu_torch.streaming import StreamingSynth, init_stream_state
 from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
 from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer, profiling
 from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
@@ -584,7 +600,14 @@ BREAKDOWN_BATCH, BREAKDOWN_ITERS = 16, 10
 # on CREPE_BF16_FRAMES frames in eval mode and CREPE_BF16_BATCH in train
 # mode, by the gap criterion above (BF16_GAP_*).
 TRAINRUN_STEPS, TRAINRUN_SCHEDULE, TRAINRUN_SPC = 200, "100,100", 50
-CEILING_CONFIGS, CEILING_PROBE_STEPS = "50:1,1:1", 100
+CEILING_CONFIGS, CEILING_PROBE_STEPS = "50:1,1:1", 50
+# phase 29: the public sample-rate ops on the card against the CPU (the
+# JAX suite's tolerances: tests/test_ops_core.py:97 for resample; 2e-4, the
+# float64 oracle's bound at tests/test_oscillator.py:47-53, for
+# harmonic_synth, whose float32 cumsum runs in another order on the card)
+OPS_RESAMPLE_RTOL, OPS_RESAMPLE_ATOL, OPS_ORACLE_ATOL, OPS_DB_ATOL = 1e-4, 1e-5, 2e-4, 1e-5
+# the voice ramp at its defaults, then one wider pool
+WIDE_RAMP = ["--pool", "1024", "--ramp", "32,128,512,1024"]
 CREPE_BF16_FRAMES, CREPE_BF16_BATCH = 256, 256
 
 
@@ -3627,6 +3650,122 @@ def phase_run_tools(device, card: str) -> dict:
     return launches
 
 
+def _oracle_f64(f0_frames, amp_frames, block: int, sr: int) -> np.ndarray:
+    """The literal sample-rate bank in float64 (tests/test_oscillator.py:22-28)."""
+    f0 = np.repeat(np.asarray(f0_frames, np.float64), block, axis=1)
+    amp = np.repeat(np.asarray(amp_frames, np.float64), block, axis=1)
+    omega = np.cumsum(2 * np.pi * f0 / sr, axis=1)
+    return (np.sin(omega[..., None] * np.arange(1, amp.shape[-1] + 1)) * amp).sum(-1)
+
+
+def phase_public_ops(device, card: str) -> int:
+    """Phase 29a: upsample, resample, harmonic_synth and amplitude_to_db on
+    the card against the same calls on the CPU (harmonic_synth also against
+    the float64 oracle), then init_stream_state feeding one
+    StreamingSynth.step of the violin bundle (noise on), equal bit for bit
+    to a step from fresh_state.  Returns its forward launches."""
+    rng = np.random.default_rng(SEED + 29)
+    x = torch.tensor(rng.standard_normal((4, 128, 3)).astype(np.float32))
+    up = ops.upsample(x.to(device), 512).cpu()
+    check(torch.equal(up, ops.upsample(x, 512)), "upsample card vs CPU")
+    got, want = ops.resample(x.to(device), 64).cpu(), ops.resample(x, 64)
+    res_err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=OPS_RESAMPLE_RTOL, atol=OPS_RESAMPLE_ATOL), f"resample card vs CPU {res_err}")
+    b, f, k, block, sr = 2, 25, 8, 64, 16000
+    f0 = rng.uniform(100, 400, (b, f)).astype(np.float32)
+    amp = (rng.random((b, f, k)) / k).astype(np.float32)
+    f0_up, amp_up = ops.upsample(torch.tensor(f0)[..., None], block), ops.upsample(torch.tensor(amp), block)
+    t0 = time.perf_counter()
+    on_card = ops.harmonic_synth(f0_up.to(device), amp_up.to(device), sr)
+    _sync(device)
+    synth_s = time.perf_counter() - t0
+    on_card, on_cpu = on_card.cpu()[..., 0].numpy(), ops.harmonic_synth(f0_up, amp_up, sr)[..., 0].numpy()
+    oracle = _oracle_f64(f0, amp, block, sr)
+    synth_err = (float(np.abs(on_card - on_cpu).max()), float(np.abs(on_card - oracle).max()))
+    check(synth_err[0] <= OPS_ORACLE_ATOL and synth_err[1] <= OPS_ORACLE_ATOL
+          and float(np.abs(on_cpu - oracle).max()) <= OPS_ORACLE_ATOL, f"harmonic_synth errors {synth_err}")
+    mag = torch.tensor(np.abs(rng.standard_normal((2, 513, 94))).astype(np.float32))
+    db_err = float((ops.amplitude_to_db(mag.to(device)).cpu() - ops.amplitude_to_db(mag)).abs().max())
+    check(db_err <= OPS_DB_ATOL, f"amplitude_to_db card vs CPU {db_err}")
+
+    synth = make_streaming_synth(BUNDLE, batch=2, seed=29, device=device)
+    glide_f0 = np.linspace(220.0, 440.0, 2 * 8, dtype=np.float32).reshape(2, 8, 1)
+    loud = np.full((2, 8, 1), -3.0, np.float32)
+    osc.reset_kernel_counts()
+    synth.state = init_stream_state(synth.model.hidden_size, 2, 29, device=device)
+    a = synth.step(glide_f0, loud)
+    synth.reset(29)
+    b_ = synth.step(glide_f0, loud)
+    launches = osc.oscillator_bank.launches
+    check(torch.equal(a, b_) and float(a.abs().max()) > 0, "init_stream_state step != fresh_state step")
+    print(f"public ops on the card vs the CPU: upsample bit for bit, resample max |err| {res_err:.3e}, "
+          f"harmonic_synth (B 2, T 1600, K 8) {synth_err[0]:.3e} from the CPU and {synth_err[1]:.3e} from the "
+          f"float64 oracle ({1e3 * synth_s:.3f} ms), amplitude_to_db {db_err:.3e}; init_stream_state's step "
+          f"equals fresh_state's bit for bit (peak {float(a.abs().max()):.4f}); forward launches {launches}; "
+          f"card {card}", flush=True)
+    return launches
+
+
+def phase_voice_ramp(device, card: str, tmp: str) -> int:
+    """Phase 29b: voice_ramp at its defaults (pool 32, V = 1 … 32) and at
+    one wider pool (1024; V = 32, 128, 512, 1024), each report printed
+    whole.  Returns their forward launches (one a pool step)."""
+    osc.reset_kernel_counts()
+    reports = {}
+    for name, extra in (("defaults", []), ("pool_1024", WIDE_RAMP)):
+        t0 = time.perf_counter()
+        reports[name] = voice_ramp_cli.main(["--device", str(device), *extra,
+                                             "--out", os.path.join(tmp, f"voice_ramp_{name}.json")])
+        print(json.dumps({"phase": f"voice_ramp_{name}", "seconds": round(time.perf_counter() - t0, 3),
+                          "report": reports[name]}), flush=True)
+    launches = osc.oscillator_bank.launches
+    with open("pretrained/voice_ramp_cpu.json") as f:
+        record = json.load(f)
+    steps = 0
+    for name, report in reports.items():
+        check(set(report) == set(record) | {"card"} and report["card"] == card, f"voice ramp {name} keys")
+        check(all(set(r) == set(record["rows"][0]) and r["block_ms_best"] > 0 for r in report["rows"]),
+              f"voice ramp {name} rows")
+        steps += len(report["rows"]) * (1 + 6)
+    check(launches == steps, f"voice ramp: {launches} forward launches for {steps} pool steps")
+    return launches
+
+
+def phase_bench_reference(device, card: str, tmp: str) -> int:
+    """Phase 29c: bench_reference on the card, both configs' rows printed.
+    Returns the port side's forward launches (one a call)."""
+    osc.reset_kernel_counts()
+    t0 = time.perf_counter()
+    report = bench_reference.main(["--device", str(device), "--out", os.path.join(tmp, "bench_reference.json")])
+    launches = osc.oscillator_bank.launches
+    with open("REFBENCH_r05.json") as f:
+        record = json.load(f)
+    for row in report["configs"]:
+        print(json.dumps({"phase": "bench_reference", "row": row, "card": card}), flush=True)
+    print(f"bench_reference: {time.perf_counter() - t0:.1f} s; forward launches {launches}", flush=True)
+    check(set(report) == set(record) | {"card"} and report["card"] == card, "bench_reference keys")
+    for row in report["configs"]:
+        check(set(row) - {"ours_cuda", "speedup_same_cuda"} == set(record["configs"][0])
+              - {"ours_cpu", "speedup_same_cpu"} and row["ours_cuda"]["mean_ms"] > 0
+              and row["torch_reference"]["mean_ms"] > 0, f"bench_reference row {row['name']}")
+    calls = len(report["configs"]) * (1 + report["n_run"] * report["protocol_runs"])
+    check(launches == calls, f"bench_reference: {launches} forward launches for {calls} calls")
+    return launches
+
+
+def phase_last_modules(device, card: str) -> dict:
+    """Phase 29: the last modules of the JAX package on the card (see the
+    module docstring).  Returns {path: forward launches}."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ddsp_chip_smoke_last_") as tmp:
+        launches = {"init_stream_state": phase_public_ops(device, card),
+                    "voice_ramp": phase_voice_ramp(device, card, tmp),
+                    "bench_reference": phase_bench_reference(device, card, tmp)}
+    check(all(n > 0 for n in launches.values()), f"oscillator_fwd not launched on a phase 29 path: {launches}")
+    print(f"phase 29 (the last modules) seconds={time.perf_counter() - t0:.1f}; card {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -3718,11 +3857,13 @@ def main() -> int:
           and bf16["serving"] > 0, "a kernel was not launched on a bf16 path")
     phase_benchmarks(device, card)
     tools = phase_run_tools(device, card)
+    last = phase_last_modules(device, card)
     check(all(n > 0 for n in sharded["fit"].values()), "a kernel was not launched on the time-sharded path")
     check(all(n > 0 for n in nccl.values()) and longform_fwd > 0,
           "a kernel was not launched on the NCCL data-parallel or long-form path")
-    # launches: this slice's main path, the trainrun rehearsal's children
-    fwd_entry["launches"] = tools["trainrun"]["oscillator_fwd"]
+    # launches: the forward's on this slice's main path (phase 29); the
+    # backward's on the newest path that trains (phase 28's trainrun children)
+    fwd_entry["launches"] = sum(last.values())
     fwd_entry["launches_by_path"] = {"serving": serving_fwd, "training": train_fwd,
                                      "training_graphed": graphed["oscillator_fwd"],
                                      "serving_exported": exported_fwd, "serving_pool": pool_fwd,
@@ -3740,7 +3881,7 @@ def main() -> int:
                                      "training_bf16_graphed": bf16["graphed"]["oscillator_fwd"],
                                      "serving_bf16": bf16["serving"],
                                      "training_autoencoder_bf16": bf16["autoencoder_step"]["oscillator_fwd"],
-                                     **{path: c["oscillator_fwd"] for path, c in tools.items()}}
+                                     **{path: c["oscillator_fwd"] for path, c in tools.items()}, **last}
     bwd_entry["launches"] = tools["trainrun"]["oscillator_bwd"]
     bwd_entry["launches_by_path"] = {"serving": 0, "training": train_bwd,
                                      "training_graphed": graphed["oscillator_bwd"],
@@ -3757,7 +3898,8 @@ def main() -> int:
                                      "training_bf16_graphed": bf16["graphed"]["oscillator_bwd"],
                                      "serving_bf16": 0,
                                      "training_autoencoder_bf16": bf16["autoencoder_step"]["oscillator_bwd"],
-                                     **{path: c["oscillator_bwd"] for path, c in tools.items()}}
+                                     **{path: c["oscillator_bwd"] for path, c in tools.items()},
+                                     **{path: 0 for path in last}}
 
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
     print(card, flush=True)

@@ -177,7 +177,7 @@ def time_train_step(config: Config, device, reps: int, eager_reps: Optional[int]
     eager_reps = reps if eager_reps is None else eager_reps
     batch = train_batch(config, device)
     with tempfile.TemporaryDirectory(prefix="ddsp_bench_") as tmp:
-        trainer = Trainer(config, tmp, device=device)
+        trainer = Trainer(config, tmp, device=device, use_tensorboard=False)
         try:
             state = trainer.init_state()
             eager = bestmean(lambda: trainer._train_step(state, batch), eager_reps, device)

@@ -152,7 +152,7 @@ def measure_stages(batch_size: int, iters: int, device, dtype: str = "float32",
     batch = train_batch(config, device)
     out = {}
     with tempfile.TemporaryDirectory(prefix="ddsp_breakdown_") as tmp, _no_tf32():
-        trainer = Trainer(config, tmp, device=device)
+        trainer = Trainer(config, tmp, device=device, use_tensorboard=False)
         try:
             state = trainer.init_state()
             model, tx = trainer.model, trainer.tx

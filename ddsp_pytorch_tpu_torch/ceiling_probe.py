@@ -125,7 +125,7 @@ def run_train_child(cfg_path: str, root: str, boundary: int, spc: int, unroll: i
     cmd = [sys.executable, "-m", "ddsp_pytorch_tpu_torch.train", "--config", cfg_path,
            "--root", os.path.join(root, "runs"), "--name", RUN_NAME, "--device-cache", "--device", device,
            "--steps", str(boundary), "--set", f"train.steps_per_call={spc}",
-           "--set", f"train.scan_unroll={unroll}"]
+           "--set", f"train.scan_unroll={unroll}", "--no-tensorboard"]
     t0 = time.time()
     with open(log, "w") as f, ClockPoller(poll_clock) as clocks:
         proc = subprocess.Popen(cmd, env=child_env(), stdout=f, stderr=subprocess.STDOUT)

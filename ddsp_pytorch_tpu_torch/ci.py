@@ -128,7 +128,7 @@ def step_multiprocess(device: str, world: int = 2, steps: int = 2) -> None:
         env = dict(child_env(), OMP_NUM_THREADS="1", MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
                    WORLD_SIZE=str(world))
         cmd = [sys.executable, "-m", "ddsp_pytorch_tpu_torch.train", "--config", config, "--name", "mp", "--root",
-               tmp, "--device", device, "--multihost", "--backend", "gloo", "--dist-timeout", "120"]
+               tmp, "--device", device, "--multihost", "--backend", "gloo", "--dist-timeout", "120", "--no-tensorboard"]
         procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True) for r in range(world)]
         logs = []

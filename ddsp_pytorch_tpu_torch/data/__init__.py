@@ -10,5 +10,5 @@ from ddsp_pytorch_tpu_torch.data.dataset import (  # noqa: F401
     Dataset,
     dict_collate,
 )
-from ddsp_pytorch_tpu_torch.data.preprocess import preprocess_folder  # noqa: F401
+from ddsp_pytorch_tpu_torch.data.preprocess import get_files, preprocess, preprocess_folder  # noqa: F401
 from ddsp_pytorch_tpu_torch.data.synthetic import INSTRUMENTS, make_synthetic_dataset  # noqa: F401

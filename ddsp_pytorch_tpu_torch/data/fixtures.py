@@ -27,15 +27,10 @@ import os
 import numpy as np
 
 from ddsp_pytorch_tpu_torch.utils.audio_io import save_wav
+from ddsp_pytorch_tpu_torch.utils.units import midi_to_hz
 
-MIDI_A4 = 69
-FREQ_A4 = 440.0
 # samples a block of lfilter's blocked recurrence
 _IIR_BLOCK = 256
-
-
-def midi_to_hz(m: float) -> float:
-    return FREQ_A4 * 2.0 ** ((m - MIDI_A4) / 12.0)
 
 
 # ------------------------------------------------------ scipy, in numpy
@@ -259,7 +254,7 @@ def make_oof_corpus(
         for i in range(count):
             family = families[i % len(families)]
             midi = rng.uniform(*midi_range)
-            f0 = midi_to_hz(midi)
+            f0 = float(midi_to_hz(midi))
             sig, f0_track = render_note(family, f0, n, sample_rate, rng)
             peak = np.max(np.abs(sig)) + 1e-9
             sig = 0.7 * sig / peak

@@ -9,18 +9,22 @@ steps), each CLI runs in its own process and must exit 0 and leave its
 artifacts behind:
 
   1. python -m ddsp_pytorch_tpu_torch.preprocess   → cache/{train,validation}/signals.npy
-  2. python -m ddsp_pytorch_tpu_torch.train --no-mesh → runs/smoke/config.yaml, runs/smoke/best/
+  2. python -m ddsp_pytorch_tpu_torch.train --no-mesh --no-tensorboard
+                                                   → runs/smoke/config.yaml, runs/smoke/best/
   3. python -m ddsp_pytorch_tpu_torch.export        → export/*_bundle/{params.msgpack,meta.json},
                                                         export/*_impulse.wav
   4. python -m ddsp_pytorch_tpu_torch.transfer      → transfer.wav (timbre transfer of the
                                                         validation tone), not empty
   5. python -m ddsp_pytorch_tpu_torch.performance --bundle B --n-run 2
 
---device is passed to every step.  The config is the JAX script's YAML
-text, `use_pallas: never` included: the port reads it and drops it (it
-chooses the oscillator by the tensors' device, models/__init__.py
-load_model).  Everything is written under a temporary directory, removed
-at the end.  The device defaults to the GPU and there is no fallback:
+--device is passed to every step.  The train step runs without the
+TensorBoard sink: the journey checks the CLIs' artifacts, and where
+`tensorboard` is installed its import loads TensorFlow into the child (the
+sink has tests of its own, tests/test_torch_tensorboard.py).  The config
+is the JAX script's YAML text, `use_pallas: never` included: the port
+reads it and drops it (it chooses the oscillator by the tensors' device,
+models/__init__.py load_model).  Everything is written under a temporary
+directory, removed at the end.  The device defaults to the GPU and there is no fallback:
 --device cpu runs the plain PyTorch path.
 """
 
@@ -122,7 +126,7 @@ def journey(tmp: str, device: str) -> dict:
 
     runs = os.path.join(tmp, "runs")
     secs["train"] = run_step("2/5 train", "train", "--config", cfg, "--name", "smoke", "--root", runs,
-                             "--no-mesh", *dev)
+                             "--no-mesh", "--no-tensorboard", *dev)
     _require(os.path.join(runs, "smoke", "config.yaml"))
     if not os.path.isdir(os.path.join(runs, "smoke", "best")):
         raise FileNotFoundError("e2e smoke: the train CLI left no best/ checkpoint")

@@ -19,6 +19,9 @@ MODEL_REGISTRY = {"single-inst-decoder": DDSPDecoder, "mfcc-autoencoder": DDSPAu
 # NN's compute dtype (None: the parameters' own type)
 COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
+# after COMPUTE_DTYPES, which models/crepe.py reads from this package
+from ddsp_pytorch_tpu_torch.models.crepe import CREPE, extract_pitch_crepe  # noqa: E402,F401
+
 
 def load_model(name: str, kwargs: dict):
     """Build a model by registry name from its kwargs (as in a bundle's

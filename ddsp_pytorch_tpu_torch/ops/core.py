@@ -1,7 +1,8 @@
 """Elementwise primitives of the DSP core.
 
-Port of ddsp_pytorch_tpu/ops/core.py:24-56 and :101-117 (safe_log,
-scale_function, remove_above_nyquist, mean_std_loudness).  Operation order follows the JAX functions so that
+Port of ddsp_pytorch_tpu/ops/core.py:24-117 (safe_log, scale_function,
+remove_above_nyquist, the sample-rate upsample and resample,
+mean_std_loudness).  Operation order follows the JAX functions so that
 float32 results agree to rounding.
 """
 
@@ -40,6 +41,30 @@ def remove_above_nyquist(
     pitches = f0 * harm_numbers
     mask = (pitches < sample_rate / 2.0).to(amplitudes.dtype) + 1e-4
     return amplitudes * mask
+
+
+def upsample(signal: torch.Tensor, factor: int) -> torch.Tensor:
+    """Frame rate → sample rate by nearest repeat along time (ops/core.py:59-66):
+    (B, F, C) → (B, F·factor, C)."""
+    return torch.repeat_interleave(signal, int(factor), dim=1)
+
+
+def resample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Frame rate → sample rate by zero-stuffing and Hann overlap-add
+    (ops/core.py:69-98): zero-stuff by `factor`, copy the last sample into
+    the final slot, pad by `factor` on each side, cross-correlate with a
+    periodic Hann of length 2·factor (F.conv1d does not flip its kernel)
+    and drop the last sample.  (B, F, C) → (B, F·factor, C)."""
+    batch, frames, channels = x.shape
+    y = x.transpose(1, 2).reshape(batch * channels, frames)
+    stuffed = x.new_zeros((batch * channels, frames * factor))
+    stuffed[:, ::factor] = y
+    stuffed[:, -1] = y[:, -1]
+    n = torch.arange(2 * factor, dtype=x.dtype, device=x.device)
+    window = 0.5 * (1.0 - torch.cos(2.0 * math.pi * n / (2 * factor)))
+    padded = F.pad(stuffed, (factor, factor))
+    out = F.conv1d(padded[:, None, :], window[None, None, :])[:, 0, :-1]
+    return out.reshape(batch, channels, frames * factor).transpose(1, 2)
 
 
 def batch_loudness_stats(loudness: torch.Tensor) -> torch.Tensor:

@@ -375,3 +375,21 @@ def harmonic_synth_frames(
     if return_phase:
         return audio, phase_out
     return audio
+
+
+def harmonic_synth(f0: torch.Tensor, amplitudes: torch.Tensor, sample_rate: float) -> torch.Tensor:
+    """The sample-rate oscillator bank with the reference's signature
+    (ops/oscillator.py:256-277): f0 (B, T, 1) Hz and amplitudes (B, T, K)
+    per sample → (B, T, 1) audio.  The literal formulation, an O(T) cumsum
+    of 2π·f0/sr and the materialized (B, T, K) sine bank; the JAX function
+    reaches no kernel, and neither does this one.  `harmonic_synth_frames`
+    is the production path; this one is API parity and the tests' oracle
+    at small sizes.  As in `phase_accumulate_frames`, the cumsum runs in
+    float64 and is rounded to f0's type once: a float32 GPU scan sums in
+    another order than a sequential sum, and its error, which the bank
+    multiplies by k, reached 1.3e-3 against the float64 oracle at T = 1600,
+    K = 8 on an NVIDIA H100 (the oracle's bound is 2e-4)."""
+    n_harmonic = amplitudes.shape[-1]
+    omega = torch.cumsum(2.0 * math.pi * f0.double() / sample_rate, dim=1).to(f0.dtype)
+    ks = torch.arange(1, n_harmonic + 1, dtype=f0.dtype, device=f0.device)
+    return torch.sum(torch.sin(omega * ks) * amplitudes, dim=-1, keepdim=True)

@@ -1,5 +1,6 @@
 """Spectral ops: Hann window, framing, STFT, multi-scale magnitude STFT,
-and the MFCC front end of the autoencoder (mel filterbank, DCT, dB).
+and the MFCC front end of the autoencoder (mel filterbank, DCT, dB, and
+the amplitude form of the dB conversion the plots use).
 
 Port of ddsp_pytorch_tpu/ops/spectral.py:26-245.  The STFT keeps the JAX
 function's (and torch.stft's) conventions: centered reflect pad of n_fft/2,
@@ -147,6 +148,12 @@ def power_to_db(s: torch.Tensor, amin: float = 1e-10, top_db: Optional[float] = 
             ref = torch.as_tensor(ref_db, dtype=log_spec.dtype, device=log_spec.device)
         log_spec = torch.maximum(log_spec, ref - top_db)
     return log_spec
+
+
+def amplitude_to_db(s: torch.Tensor, amin: float = 1e-5, top_db: Optional[float] = 80.0) -> torch.Tensor:
+    """librosa's amplitude_to_db: power_to_db of s² with the floor amin²
+    (spectral.py:197-199)."""
+    return power_to_db(torch.square(s), amin=amin * amin, top_db=top_db)
 
 
 def mfcc(signal: torch.Tensor, sample_rate: int, *, n_mfcc: int = 30, n_fft: int = 1024,

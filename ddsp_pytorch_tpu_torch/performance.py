@@ -59,17 +59,21 @@ def n_samples(sample_rate: int, block_size: int) -> int:
     return (n // block_size) * block_size
 
 
-def stage_controls(synth: StreamingSynth, batch: int) -> tuple:
-    """The protocol's random controls on the synth's device: pitch U(100,
-    400) Hz and standard-normal loudness at sample rate from
-    default_rng(0), stride-decimated to (batch, frames, 1) frame rate."""
-    n = n_samples(synth.sample_rate, synth.block_size)
+def protocol_controls(sample_rate: int, block_size: int, batch: int, device) -> tuple:
+    """The protocol's random controls on `device`: pitch U(100, 400) Hz and
+    standard-normal loudness at sample rate from default_rng(0),
+    stride-decimated to (batch, frames, 1) frame rate."""
+    n = n_samples(sample_rate, block_size)
     rng = np.random.default_rng(0)
     pitch = rng.uniform(100, 400, (batch, n)).astype(np.float32)
     loud = rng.standard_normal((batch, n)).astype(np.float32)
-    block = synth.block_size
-    return (torch.tensor(pitch[:, ::block, None], device=synth.device),
-            torch.tensor(loud[:, ::block, None], device=synth.device))
+    return (torch.tensor(pitch[:, ::block_size, None], device=device),
+            torch.tensor(loud[:, ::block_size, None], device=device))
+
+
+def stage_controls(synth: StreamingSynth, batch: int) -> tuple:
+    """`protocol_controls` at the synth's rate and block, on its device."""
+    return protocol_controls(synth.sample_rate, synth.block_size, batch, synth.device)
 
 
 def _sync(device: torch.device) -> None:

@@ -358,6 +358,12 @@ class StreamServer:
 
     def stop(self) -> None:
         self._stop.set()
+        # shutdown wakes the acceptor blocked in accept(); close alone does
+        # not on Linux, and the acceptor would outlive the server
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:

@@ -47,6 +47,30 @@ class StreamState:
     enc_gru: Optional[torch.Tensor] = None  # (B, hidden) encoder GRU carry (autoencoder)
 
 
+def init_stream_state(
+    hidden_size: int,
+    batch: int = 1,
+    seed: int = 0,
+    reverb_state: Optional[pconv.ConvState] = None,
+    enc_hidden_size: Optional[int] = None,
+    device="cuda",
+) -> StreamState:
+    """A stream's initial state (streaming/__init__.py:38-55): zero GRU and
+    phase carries, the noise generator on `device` seeded with `seed`, the
+    reverb's delay line as given, and a zero encoder carry where
+    enc_hidden_size is set (the autoencoder)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return StreamState(
+        gru=torch.zeros((batch, hidden_size), device=device),
+        phase=torch.zeros((batch,), device=device),
+        noise_state=gen.get_state(),
+        reverb=reverb_state,
+        enc_gru=None if enc_hidden_size is None else torch.zeros((batch, enc_hidden_size), device=device),
+    )
+
+
 def _keep(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     """Rows of `new` where `active`, rows of `old` elsewhere."""
     return torch.where(active.reshape(active.shape + (1,) * (new.dim() - 1)), new, old)
@@ -106,15 +130,13 @@ class StreamingSynth:
     def fresh_state(self, seed: int = 0) -> StreamState:
         """A new independent stream state (per-session state for servers
         that share this synth)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        carry = (self._batch, self.model.hidden_size)
-        return StreamState(
-            gru=torch.zeros(carry, device=self.device),
-            phase=torch.zeros((self._batch,), device=self.device),
-            noise_state=gen.get_state(),
-            reverb=None if self._pir is None else pconv.init_state(self._pir, (self._batch,)),
-            enc_gru=torch.zeros(carry, device=self.device) if self.autoencoder else None,
+        return init_stream_state(
+            self.model.hidden_size,
+            self._batch,
+            seed,
+            None if self._pir is None else pconv.init_state(self._pir, (self._batch,)),
+            enc_hidden_size=self.model.hidden_size if self.autoencoder else None,
+            device=self.device,
         )
 
     def reset(self, seed: int = 0) -> None:

@@ -5,7 +5,7 @@
         [--set key.path=value ...] [--device-cache] [--device cuda] \\
         [--profile] [--segment-steps N | --segment-schedule N1,N2,...] \\
         [--multihost [--backend nccl|gloo] [--dist-timeout S]] \\
-        [--mesh-data D] [--mesh-time T] [--no-mesh]
+        [--mesh-data D] [--mesh-time T] [--no-mesh] [--no-tensorboard]
 
 Loads the YAML config, builds the model by registry name, computes the
 dataset's loudness stats and runs the one-device Trainer on the feature
@@ -15,6 +15,10 @@ train.scan_unroll steps replayed on the card).  --device-cache uploads the
 train split to the device once and gathers each batch there.  Resumes from
 the newest checkpoint in <root>/<name>; SIGTERM or SIGINT checkpoints and
 stops at the next call.
+
+The metrics are mirrored to TensorBoard in the run directory where
+`tensorboard` imports (training/metrics.py), as in the JAX CLI;
+--no-tensorboard turns that sink off (metrics.jsonl is written either way).
 
 --profile traces the first 30 steps (torch.profiler, the card's kernels
 included) into <root>/<name>/trace/trace.json, then trains on.
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import gc
 import json
 import os
 import subprocess
@@ -83,6 +88,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-time", type=int, default=None,
                    help="mesh 'time' axis (default config.mesh.time); > 1: the time-sharded step")
     p.add_argument("--no-mesh", action="store_true", help="train unsharded")
+    p.add_argument("--no-tensorboard", action="store_true",
+                   help="no TensorBoard sink (metrics.jsonl only)")
     p.add_argument("--multihost", action="store_true",
                    help="join a torch.distributed group from RANK, WORLD_SIZE, MASTER_ADDR, "
                         "MASTER_PORT")
@@ -162,32 +169,43 @@ def main(argv=None):
     if segmented:
         return run_segmented(args, sys.argv[1:] if argv is None else list(argv))
 
-    from ddsp_pytorch_tpu_torch.data import Datamodule
-    from ddsp_pytorch_tpu_torch.training import Trainer
-    from ddsp_pytorch_tpu_torch.training.profiling import trace
-
     cfg = _load_config(args)
     run_dir = os.path.join(args.root, args.name)
     device = init_multihost(args) if args.multihost else args.device
     try:
-        mesh = build_mesh(args, cfg)
-        trainer = Trainer(cfg, run_dir, device=device, mesh=mesh)
-        datamodule = Datamodule(cfg, device_cache=args.device_cache, device=device, mesh=mesh)
-        datamodule.setup()
-        try:
-            if args.profile:
-                with trace(os.path.join(run_dir, "trace"), trainer.device):
-                    trainer.fit(datamodule, total_steps=min(PROFILE_STEPS, cfg.train.steps))
-            state = trainer.fit(datamodule)
-        finally:
-            trainer.close()
+        state = _fit(args, cfg, run_dir, device)
     finally:
         if args.multihost:
             import torch.distributed as dist
 
+            # what holds the group (the mesh, the trainer's steps, the
+            # loaders) went with _fit's frame; its reference cycles are
+            # freed here, while the process is whole, and not at interpreter
+            # exit, where a rank could end in std::terminate (gloo's threads
+            # still joinable)
+            gc.collect()
             dist.destroy_process_group()
     print(f"trained to step {state.step}; run directory {run_dir}")
     return state
+
+
+def _fit(args, cfg, run_dir: str, device):
+    """Build the mesh, the Trainer and the loaders and train; the state."""
+    from ddsp_pytorch_tpu_torch.data import Datamodule
+    from ddsp_pytorch_tpu_torch.training import Trainer
+    from ddsp_pytorch_tpu_torch.training.profiling import trace
+
+    mesh = build_mesh(args, cfg)
+    trainer = Trainer(cfg, run_dir, device=device, mesh=mesh, use_tensorboard=not args.no_tensorboard)
+    datamodule = Datamodule(cfg, device_cache=args.device_cache, device=device, mesh=mesh)
+    datamodule.setup()
+    try:
+        if args.profile:
+            with trace(os.path.join(run_dir, "trace"), trainer.device):
+                trainer.fit(datamodule, total_steps=min(PROFILE_STEPS, cfg.train.steps))
+        return trainer.fit(datamodule)
+    finally:
+        trainer.close()
 
 
 def segment_schedule(args) -> list:

@@ -136,7 +136,7 @@ def main(argv=None) -> dict:
     run_dir = os.path.join(args.root, "runs", args.tag)
     datamodule = Datamodule(cfg, device_cache=True, device=device)
     datamodule.setup()
-    trainer = Trainer(cfg, run_dir, device=device)
+    trainer = Trainer(cfg, run_dir, device=device, use_tensorboard=False)
     try:
         trainer.fit(datamodule)
     finally:

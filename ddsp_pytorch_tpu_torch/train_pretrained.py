@@ -133,7 +133,7 @@ def main(argv=None) -> str:
     run_dir = os.path.join(args.root, "runs", tag)
     dm = Datamodule(cfg, device_cache=True, device=args.device)
     dm.setup()
-    trainer = Trainer(cfg, run_dir, device=args.device)
+    trainer = Trainer(cfg, run_dir, device=args.device, use_tensorboard=False)
     try:
         trainer.fit(dm)
     finally:

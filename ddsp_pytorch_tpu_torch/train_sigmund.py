@@ -110,7 +110,7 @@ def validate_and_export(run_dir: str, out: str, tag: str, *, device="cuda") -> s
     cfg = Config.from_yaml(os.path.join(run_dir, "config.yaml"))
     datamodule = Datamodule(cfg, device=device)
     datamodule.setup()
-    trainer = Trainer(cfg, run_dir, device=device)
+    trainer = Trainer(cfg, run_dir, device=device, use_tensorboard=False)
     try:
         state, resumed = trainer.resume_or_init(cfg.data.mean_loudness, cfg.data.std_loudness)
         if not resumed:
@@ -152,7 +152,7 @@ def main(argv=None) -> dict:
     print("[sigmund] segmented training", flush=True)
     runs = os.path.join(args.root, "runs")
     train_cli.main(["--config", cfg_path, "--root", runs, "--name", args.tag, "--device-cache",
-                    "--device", str(args.device), "--segment-steps", str(args.segment_steps)])
+                    "--device", str(args.device), "--segment-steps", str(args.segment_steps), "--no-tensorboard"])
     run_dir = os.path.join(runs, args.tag)
     print("[sigmund] validate + export", flush=True)
     bundle = validate_and_export(run_dir, args.out, args.tag, device=device)

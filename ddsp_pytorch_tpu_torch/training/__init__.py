@@ -13,5 +13,6 @@ from ddsp_pytorch_tpu_torch.training.train import (  # noqa: F401
     apply_gradient_update,
     loss_and_grads,
     make_eval_step,
+    make_train_multi_step,
     make_train_step,
 )

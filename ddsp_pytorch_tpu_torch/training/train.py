@@ -480,14 +480,16 @@ class Trainer:
     Trainer does with mesh=None.  `eval_forwards` counts the model forwards
     it ran outside the train steps (validation and the per-log-epoch eval);
     `_multi_step` is the last fit's MultiStep (None when steps_per_call is
-    1).
+    1).  `use_tensorboard` mirrors the metrics to TensorBoard where it
+    imports (training/metrics.py); `fit` closes that writer when it returns.
 
     Across processes each rank gets its rows from the Datamodule (built
     with the same mesh), every rank calls `fit`, and a preemption signal
     must reach every rank (as torchrun forwards it), since the checkpoint
     it triggers ends in a barrier."""
 
-    def __init__(self, config: Config, run_dir: str, *, device="cuda", mesh: Optional[Mesh] = None):
+    def __init__(self, config: Config, run_dir: str, *, device="cuda", mesh: Optional[Mesh] = None,
+                 use_tensorboard: bool = True):
         if mesh is not None:
             if config.train.batch % mesh.data:
                 raise ValueError(f"train.batch={config.train.batch} does not divide over "
@@ -511,7 +513,7 @@ class Trainer:
         self.tx = make_optimizer(config)
         if self._spc > 1:
             refuse_gloo_capture(self.model, mesh)
-        self.metrics = MetricsWriter(run_dir, enabled=self._is_primary)
+        self.metrics = MetricsWriter(run_dir, use_tensorboard=use_tensorboard, enabled=self._is_primary)
         self.checkpointer = Checkpointer(run_dir, max_to_keep=config.train.keep_checkpoints,
                                          mesh=mesh)
         self._train_step = make_train_step(self.model, self.tx, config, mesh)
@@ -611,6 +613,7 @@ class Trainer:
         try:
             return self._fit(datamodule, total_steps, preempted)
         finally:
+            self.metrics.end_tensorboard()
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
 

@@ -144,7 +144,7 @@ def validate(run_dir: str, device="cuda") -> float:
     cfg = Config.from_yaml(os.path.join(run_dir, "config.yaml"))
     datamodule = Datamodule(cfg, device=device)
     datamodule.setup()
-    trainer = Trainer(cfg, run_dir, device=device)
+    trainer = Trainer(cfg, run_dir, device=device, use_tensorboard=False)
     try:
         state, resumed = trainer.resume_or_init(cfg.data.mean_loudness, cfg.data.std_loudness)
         if not resumed:
@@ -275,7 +275,7 @@ def main(argv=None) -> dict:
     seg_args = (["--segment-schedule", args.segment_schedule] if args.segment_schedule
                 else ["--segment-steps", str(args.segment_steps)])
     subprocess.run([sys.executable, "-m", "ddsp_pytorch_tpu_torch.train", "--config", cfg_path, "--root", runs,
-                    "--name", RUN_NAME, "--device-cache", "--device", args.device, *seg_args],
+                    "--name", RUN_NAME, "--device-cache", "--device", args.device, "--no-tensorboard", *seg_args],
                    env=child_env(), check=True)
     if not args.skip_validate:
         print(f"[trainrun] final validation ({args.device} child) ...", flush=True)

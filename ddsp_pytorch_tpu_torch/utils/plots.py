@@ -8,6 +8,10 @@ installed, `pyplot()` raises ImportError.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ddsp_pytorch_tpu_torch.ops import spectral
+from ddsp_pytorch_tpu_torch.utils.units import hz_to_midi, tonp
 
 
 def pyplot():
@@ -20,10 +24,6 @@ def pyplot():
     return plt
 
 
-def hz_to_midi(freqs):
-    return 12.0 * np.log2(np.asarray(freqs) / 440.0) + 69.0
-
-
 def plot_sig(sig, ax, stem: bool = False):
     if stem:
         ax.stem(np.asarray(sig))
@@ -34,11 +34,10 @@ def plot_sig(sig, ax, stem: bool = False):
 
 
 def amplitude_to_db(mag: np.ndarray) -> np.ndarray:
-    """20·log10 of the magnitudes (floored at 1e-10), clipped 80 dB below
-    their maximum."""
-    power = np.square(np.maximum(np.asarray(mag, np.float64), 1e-10))
-    db = 10.0 * np.log10(power)
-    return np.maximum(db, db.max() - 80.0)
+    """A (bins, frames) magnitude image in dB, in float64: 20·log10 of the
+    magnitudes floored at 1e-10, clipped 80 dB below their maximum
+    (ops/spectral.py amplitude_to_db)."""
+    return spectral.amplitude_to_db(torch.from_numpy(np.asarray(mag, np.float64)), amin=1e-10).numpy()
 
 
 def plot_spec(stft_mag, ax, amp_to_db: bool = True):
@@ -52,13 +51,13 @@ def plot_spec(stft_mag, ax, amp_to_db: bool = True):
 
 
 def plot_f0(ax, f0, index: int = 0):
-    f0 = np.asarray(f0)[index].squeeze(-1)
+    f0 = tonp(f0)[index].squeeze(-1)
     ax.set_title("F0 (MIDI)")
     ax.set_ylim([-1, 128])
     plot_sig(hz_to_midi(f0), ax)
 
 
 def plot_loudness(ax, loudness, index: int = 0):
-    loudness = np.asarray(loudness)[index].squeeze(-1)
+    loudness = tonp(loudness)[index].squeeze(-1)
     ax.set_title("Loudness")
     plot_sig(loudness, ax)

@@ -302,7 +302,7 @@ def test_trainer_and_export_run_refuse_the_autoencoder(tmp_path):
     (tests/test_torch_autoencoder_training.py and test_torch_export.py train
     and export one)."""
     cfg = Config.from_yaml(os.path.join(AE_BUNDLE, "config.yaml"))
-    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu", use_tensorboard=False)
     assert trainer.model.encoder.GRU_0.hidden_size == cfg.model.kwargs["hidden_size"]
     trainer.close()
     run = tmp_path / "ae_run"

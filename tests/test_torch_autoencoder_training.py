@@ -304,7 +304,7 @@ def test_trainer_fit_reduces_loss_and_resumes(cache, tmp_path):
     cfg = _ae_config(cache, steps=40, steps_per_call=4)
     dm = Datamodule(cfg, device_cache=True, device="cpu")
     dm.setup()
-    trainer = Trainer(cfg, str(tmp_path / "fit"), device="cpu")
+    trainer = Trainer(cfg, str(tmp_path / "fit"), device="cpu", use_tensorboard=False)
     state = trainer.fit(dm)
     trainer.close()
     losses = [v for _, v in read_metrics(str(tmp_path / "fit"), "loss")]
@@ -317,7 +317,7 @@ def test_trainer_fit_reduces_loss_and_resumes(cache, tmp_path):
             c = _ae_config(cache, steps=8, checkpoint_every_steps=100)
             d = Datamodule(c)
             d.setup()
-            t = Trainer(c, str(tmp_path / name), device="cpu")
+            t = Trainer(c, str(tmp_path / name), device="cpu", use_tensorboard=False)
             s = t.fit(d, total_steps=total)
             t.close()
         return s

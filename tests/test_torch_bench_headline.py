@@ -37,6 +37,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread_children(monkeypatch):
+    """Config 1's child process at one torch thread too (the CLI's own
+    default, every core, is for users): a full-width child on every core
+    starves the other workers' time-paced tests."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
 def _run(n: int, dtype: str = "float32") -> dict:
     kwargs = dict(TINY, dtype=dtype)
     if n == 1:

@@ -344,7 +344,7 @@ def _fit(cfg, run_dir, totals):
     for total in totals:
         dm = Datamodule(cfg)
         dm.setup()
-        trainer = Trainer(cfg, run_dir, device="cpu")
+        trainer = Trainer(cfg, run_dir, device="cpu", use_tensorboard=False)
         assert trainer.model.compute_dtype == torch.bfloat16
         state = trainer.fit(dm, total_steps=total)
         trainer.close()

@@ -30,6 +30,7 @@ Tolerances:
 
 import functools
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -44,11 +45,14 @@ from ddsp_pytorch_tpu.data.preprocess import make_pitch_fn as jax_make_pitch_fn
 from ddsp_pytorch_tpu.models import crepe as J
 from ddsp_pytorch_tpu.ops.pitch import _viterbi as jax_viterbi
 from ddsp_pytorch_tpu_torch.config import Config
-from ddsp_pytorch_tpu_torch.data import preprocess as port_preprocess
 from ddsp_pytorch_tpu_torch.data.preprocess import default_crepe_params, make_pitch_fn
 from ddsp_pytorch_tpu_torch.models import crepe as P
 from ddsp_pytorch_tpu_torch.ops.pitch import switch_cost
 from ddsp_pytorch_tpu_torch.weights import crepe_flax_from_state_dict, crepe_state_dict_from_flax
+
+# the module, not the function: ddsp_pytorch_tpu_torch.data exports the
+# function `preprocess` under the module's name, as ddsp_pytorch_tpu.data does
+port_preprocess = sys.modules["ddsp_pytorch_tpu_torch.data.preprocess"]
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

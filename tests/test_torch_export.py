@@ -119,7 +119,7 @@ def run(tmp_path_factory):
     dm = Datamodule(cfg)
     dm.setup()
     run_dir = str(root / "tiny")
-    trainer = Trainer(cfg, run_dir, device="cpu")
+    trainer = Trainer(cfg, run_dir, device="cpu", use_tensorboard=False)
     state = trainer.fit(dm)
     trainer.close()
     return run_dir, state
@@ -224,7 +224,7 @@ def ae_run(tmp_path_factory):
     dm = Datamodule(cfg)
     dm.setup()
     run_dir = str(root / "tiny_ae")
-    trainer = Trainer(cfg, run_dir, device="cpu")
+    trainer = Trainer(cfg, run_dir, device="cpu", use_tensorboard=False)
     trainer.fit(dm)
     trainer.close()
     return run_dir

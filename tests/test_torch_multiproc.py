@@ -89,7 +89,7 @@ def _run_cli(root, name, config, world, extra=()):
                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
                PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
     cmd = [sys.executable, "-m", "ddsp_pytorch_tpu_torch.train", "--config", config, "--name", name,
-           "--root", str(root), "--device", "cpu", *extra]
+           "--root", str(root), "--device", "cpu", "--no-tensorboard", *extra]
     if world > 1:
         cmd += ["--multihost", "--dist-timeout", str(COLLECTIVE_TIMEOUT_S)]
     procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r)), cwd=REPO, stdout=subprocess.PIPE,
@@ -261,6 +261,10 @@ total = mesh.psum((x * (me + 1.0)).sum())
 (g,) = torch.autograd.grad(total, x)
 assert float(total) == sum((r + 1.0) * float((torch.arange(6.0) + 10.0 * r).sum()) for r in range(3))
 assert torch.equal(g, torch.full_like(x, me + 1.0))  # identity backward: no world-size factor
+# the mesh holds the process group: released first, the group is freed by
+# destroy_process_group, not at interpreter exit, where gloo's threads can
+# still be joinable (std::terminate, a rank exiting -6)
+del mesh, axis
 dist.destroy_process_group()
 print("collectives ok", me)
 """

@@ -80,7 +80,7 @@ def _fit(cache, run_dir, device_cache=False, total_steps=None, **train):
     cfg = _config(cache, **train)
     dm = Datamodule(cfg, device_cache=device_cache, device="cpu")
     dm.setup()
-    trainer = Trainer(cfg, str(run_dir), device="cpu")
+    trainer = Trainer(cfg, str(run_dir), device="cpu", use_tensorboard=False)
     try:
         return trainer.fit(dm, total_steps=total_steps)
     finally:
@@ -230,8 +230,9 @@ def test_multi_step_checks_its_arguments(cache, tmp_path):
     with pytest.raises(ValueError, match="train.scan_unroll=3 must divide train.steps_per_call=4"):
         train_mod.make_train_multi_step(model, make_optimizer(cfg), cfg, 4, 3)
     with pytest.raises(ValueError, match="must divide"):
-        Trainer(_config(cache, steps_per_call=4, scan_unroll=3), str(tmp_path / "run"), device="cpu")
-    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
+        Trainer(_config(cache, steps_per_call=4, scan_unroll=3), str(tmp_path / "run"), device="cpu",
+                use_tensorboard=False)
+    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu", use_tensorboard=False)
     state = trainer.init_state()
     multi = train_mod.make_train_multi_step_indexed(trainer.model, trainer.tx, cfg, 4, 2)
     loader = DeviceDataLoader(Dataset(os.path.join(cache, "train")), BATCH, device="cpu")
@@ -249,7 +250,7 @@ def test_committed_run_configs_are_accepted(tmp_path):
     for name in names:
         cfg = Config.from_yaml(os.path.join(REPO, "pretrained", name))
         assert cfg.train.steps_per_call in (25, 50)
-        trainer = Trainer(cfg, str(tmp_path / name), device="cpu")
+        trainer = Trainer(cfg, str(tmp_path / name), device="cpu", use_tensorboard=False)
         assert (trainer._spc, trainer._unroll) == (cfg.train.steps_per_call, cfg.train.scan_unroll)
         trainer.close()
 

@@ -60,7 +60,7 @@ def _fit(cache, run_dir, steps=4):
     })
     datamodule = Datamodule(cfg, device="cpu")
     datamodule.setup()
-    trainer = Trainer(cfg, run_dir, device="cpu")
+    trainer = Trainer(cfg, run_dir, device="cpu", use_tensorboard=False)
     try:
         trainer.fit(datamodule)
     finally:
@@ -105,7 +105,7 @@ def test_reports_without_matplotlib_write_the_wavs(cache, tmp_path, monkeypatch)
 
 def test_eval_step_carries_the_spectrograms_and_audio(cache, tmp_path):
     cfg, datamodule = _fit(cache, str(tmp_path / "run"), steps=2)
-    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu", use_tensorboard=False)
     state, resumed = trainer.resume_or_init()
     assert resumed
     batch = next(iter(datamodule.val_dataloader()))

@@ -61,7 +61,7 @@ def tiny(tmp_path_factory):
 def _run(tiny, name, *extra):
     path, root = tiny
     return train_cli.main(["--config", path, "--root", os.path.join(root, "runs"), "--name", name,
-                           "--device", "cpu", *extra])
+                           "--device", "cpu", "--no-tensorboard", *extra])
 
 
 def _final(run_dir):

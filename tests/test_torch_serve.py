@@ -90,6 +90,22 @@ def test_deterministic_sessions_repeat():
         srv.stop()
 
 
+@pytest.mark.parametrize("voices", [1, 2])
+def test_stop_ends_every_server_thread(voices):
+    """stop() ends the acceptor (blocked in accept()), the session threads
+    and the pool's dispatcher: no thread of the server outlives it."""
+    srv = StreamServer(BUNDLE, port=0, voices=voices, device="cpu", noise_deterministic=True)
+    srv.start()
+    c = StreamClient(*srv.address)
+    c.render(*_controls(1))
+    c.close()
+    t0 = time.perf_counter()
+    srv.stop()
+    threads = [srv._acceptor, *srv._threads] + ([srv._dispatcher] if srv._dispatcher is not None else [])
+    assert not [t for t in threads if t.is_alive()]
+    assert time.perf_counter() - t0 < 2.0  # no join ran into its timeout
+
+
 def test_voice_pool_not_ported():
     """The VoicePool mode is ported (voices > 1, tests below); what is still
     refused is a server with no voice at all."""

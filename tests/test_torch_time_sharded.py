@@ -237,15 +237,15 @@ def test_trainer_accepts_the_timesharded_config(tmp_path):
     batch, or a workload that cannot shard, raises."""
     cfg = Config.from_yaml(os.path.join(REPO, "configs", "config_timesharded.yaml"))
     for mesh in (None, make_mesh(1, cfg.mesh.time), make_mesh(2, 4)):
-        trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu", mesh=mesh)
+        trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu", use_tensorboard=False, mesh=mesh)
         assert trainer.model.hidden_size == 512 and trainer.mesh is mesh
         trainer.close()
     with pytest.raises(ValueError, match="divide"):
-        Trainer(cfg, str(tmp_path / "run"), device="cpu", mesh=make_mesh(3, 4))
+        Trainer(cfg, str(tmp_path / "run"), device="cpu", use_tensorboard=False, mesh=make_mesh(3, 4))
     bad = Config.from_yaml(os.path.join(REPO, "configs", "config_timesharded.yaml"))
     bad.train.scales = [131072]
     with pytest.raises(ValueError, match="time sharding"):
-        Trainer(bad, str(tmp_path / "run"), device="cpu", mesh=make_mesh(1, 4))
+        Trainer(bad, str(tmp_path / "run"), device="cpu", use_tensorboard=False, mesh=make_mesh(1, 4))
 
 
 @pytest.fixture(scope="module")
@@ -277,7 +277,7 @@ def test_trainer_fit_time_sharded_and_resume(cache, tmp_path):
             cfg = _fit_config(cache, steps)
             dm = Datamodule(cfg, mesh=mesh)
             dm.setup()
-            trainer = Trainer(cfg, str(tmp_path / name), device="cpu",
+            trainer = Trainer(cfg, str(tmp_path / name), device="cpu", use_tensorboard=False,
                               mesh=None if name == "unsharded" else mesh)
             state = trainer.fit(dm)
             trainer.close()

@@ -371,7 +371,7 @@ def test_trainer_fit_reduces_loss(cache, tmp_path):
     cfg = _tiny_config(cache, steps=60)
     dm = Datamodule(cfg)
     dm.setup()
-    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu", use_tensorboard=False)
     state = trainer.fit(dm)
     trainer.close()
     assert state.step == 60
@@ -393,7 +393,7 @@ def test_exact_resume(cache, tmp_path):
             cfg = _tiny_config(cache, steps=6, checkpoint_every_steps=100)
             dm = Datamodule(cfg)
             dm.setup()
-            trainer = Trainer(cfg, str(tmp_path / name), device="cpu")
+            trainer = Trainer(cfg, str(tmp_path / name), device="cpu", use_tensorboard=False)
             state = trainer.fit(dm, total_steps=total)
             trainer.close()
         return state
@@ -420,11 +420,11 @@ def test_trainer_refuses_what_waits(cache, tmp_path, mesh):
     computes in bf16 on float32 parameters (tests/test_torch_bf16.py)."""
     cfg = _tiny_config(cache)
     cfg.mesh = dataclasses.replace(cfg.mesh, **mesh)
-    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu", use_tensorboard=False)
     assert trainer.mesh is None and trainer.model.compute_dtype is None
     trainer.close()
     cfg.model.kwargs = {**cfg.model.kwargs, "dtype": "bfloat16"}
-    trainer = Trainer(cfg, str(tmp_path / "run_bf16"), device="cpu")
+    trainer = Trainer(cfg, str(tmp_path / "run_bf16"), device="cpu", use_tensorboard=False)
     assert trainer.mesh is None and trainer.model.compute_dtype == torch.bfloat16
     assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
     trainer.close()
