@@ -1,0 +1,9 @@
+"""Device ms a step of the NN's backward inside the real train step: the
+step-mark phase `nn_bwd` (training/profiling.py); the median over the
+window's calls after the traced one."""
+
+from benchmark.lib.calls import median, phase_ms
+
+
+def read(run):
+    return median(run, lambda r: phase_ms(r, "nn_bwd"))

@@ -61,6 +61,25 @@ def matmul_precision():
         matmul.allow_bf16_reduced_precision_reduction = previous
 
 
+def controls_marked(harmonic_ctrls: Dict[str, torch.Tensor], noise_ctrls: Dict[str, torch.Tensor]) -> None:
+    """Step marks 1 (the NN's controls ready) and 5 (their gradients ready)
+    inside a MultiStep's step (training/profiling.py); nothing elsewhere."""
+    from ddsp_pytorch_tpu_torch.training import profiling  # here: training imports the models
+
+    profiling.mark(1)
+    profiling.mark_on_grad(5, harmonic_ctrls["harmonic_distribution"], harmonic_ctrls["amplitudes"],
+                           noise_ctrls["magnitudes"])
+
+
+def signal_marked(signal: torch.Tensor) -> None:
+    """Step marks 2 (the signal ready, after the reverb) and 4 (its
+    gradient ready) inside a MultiStep's step; nothing elsewhere."""
+    from ddsp_pytorch_tpu_torch.training import profiling
+
+    profiling.mark(2)
+    profiling.mark_on_grad(4, signal)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype],
           upcast: bool = False) -> torch.Tensor:
     """flax's nn.Dense(dtype=dtype) with the layer's parameters: input,
@@ -314,11 +333,13 @@ class DDSPDecoder(nn.Module):
         from `generator`."""
         f0, loudness = batch["pitch"].to(self.dtype), batch["loudness"]
         harmonic_ctrls, noise_ctrls = self.frame_controls(f0, loudness)
+        controls_marked(harmonic_ctrls, noise_ctrls)
         harmonic = self.harmonic_synth(**harmonic_ctrls)
         noise_audio = self.noise_synth(**noise_ctrls, noise=noise, generator=generator)
         signal = harmonic + noise_audio
         if self.has_reverb:
             signal = self.reverb(signal)
+        signal_marked(signal)
         return {
             "f0": f0,
             "loudness": loudness,

@@ -18,9 +18,11 @@ from ddsp_pytorch_tpu_torch.models.decoder import (
     LAYER_NORM_EPS,
     DDSPDecoder,
     GRUDecoder,
+    controls_marked,
     dense,
     layer_norm,
     matmul_precision,
+    signal_marked,
 )
 from ddsp_pytorch_tpu_torch.models.modules import FilteredNoise, HarmonicSynth, Reverb
 
@@ -109,11 +111,13 @@ class DDSPAutoencoder(nn.Module):
             z, _ = self.encoder(mfcc)
             hidden, _ = self.decoder(f0, loudness, z=z)
             harmonic_ctrls, noise_ctrls = self._controls(hidden, f0)
+        controls_marked(harmonic_ctrls, noise_ctrls)
         harmonic = self.harmonic_synth(**harmonic_ctrls)
         noise_audio = self.noise_synth(**noise_ctrls, noise=noise, generator=generator)
         signal = harmonic + noise_audio
         if self.has_reverb:
             signal = self.reverb(signal)
+        signal_marked(signal)
         return {
             "f0": f0,
             "loudness": loudness,

@@ -54,6 +54,7 @@ from ddsp_pytorch_tpu_torch.ops import mean_std_loudness, uniform_noise
 from ddsp_pytorch_tpu_torch.ops.oscillator import KERNEL_WRAPPERS
 from ddsp_pytorch_tpu_torch.parallel.mesh import Mesh
 from ddsp_pytorch_tpu_torch.parallel.sharding import GradientReducer, replicate_state
+from ddsp_pytorch_tpu_torch.training import profiling
 from ddsp_pytorch_tpu_torch.training.loss import spectral_loss_from_signals
 from ddsp_pytorch_tpu_torch.training.metrics import MetricsWriter
 from ddsp_pytorch_tpu_torch.training.optim import (
@@ -141,8 +142,10 @@ def loss_and_grads(
     with matmul_precision():
         out = model(model_batch, noise=noise, generator=generator)
         loss, _, _ = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)
+        profiling.mark(3)
         params = [p for _, p in model.named_parameters()]
         grads = torch.autograd.grad(loss, params)
+        profiling.mark(6)
     return loss.detach(), list(grads)
 
 
@@ -267,10 +270,21 @@ of any keys (the autoencoder's carry `mfcc`).
     (`captured`, per kernel), and adds that to the kernel wrapper's
     `replayed` count.
 
+    Tracing (training/profiling.py): each call leaves a `profiling.calls()`
+    record; each replay's input copy, noise draw and graph launch are host
+    spans (`multistep.load`, `multistep.noise`, `multistep.launch`); the
+    step bodies stamp the step marks, captured into the graph as timing
+    events, so each record holds the device ms of the step's phases in the
+    call's last replay; `graph_nodes` is the captured graph's node count
+    over `unroll`, counted once at capture.
+
     Under a mesh each step is make_loss_and_grads(mesh)'s; on an in-process
     mesh and on NCCL its collectives are captured with it.  A gloo group
     cannot be captured, so a MultiStep on the card across gloo processes
-    raises rather than run eager steps.
+    raises rather than run eager steps.  The time-sharded step reaches no
+    mark inside the model or the loss, so its phases read None; across
+    data-parallel processes the gradients' all_reduce lies between marks 6
+    and 7, so the optimizer's phase reads None.
     """
 
     def __init__(self, model, tx: Optimizer, config: Config, n_steps: int,
@@ -289,13 +303,17 @@ of any keys (the autoencoder's carry `mfcc`).
         self.indexed = indexed
         self._loss_and_grads = make_loss_and_grads(model, config, mesh)
         self._rows = 1 if mesh is None else mesh.data_procs
+        data_parallel = mesh is not None and not mesh.in_process and mesh.time == 1
+        self._unbounded = ("optimizer",) if data_parallel else ()
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured: Dict[str, int] = {}
         self.warmup_s: Optional[float] = None  # the eager warm-up runs before the capture
         self.capture_s: Optional[float] = None  # capture and instantiation
         self.pool_bytes: Optional[int] = None  # device memory the capture reserved
+        self.graph_nodes: Optional[float] = None  # the graph's nodes over unroll
         self.replays = 0
         self._bound = None
+        self._marks: Optional[profiling.StepMarks] = None
 
     # ----------------------------------------------------------- one step
     def _body(self, state: TrainState, batch, noise) -> torch.Tensor:
@@ -334,13 +352,21 @@ of any keys (the autoencoder's carry `mfcc`).
                 f"super-batch has a leading axis of {lead}, expected steps_per_call={self.n_steps}"
             )
         noise_shape = (noise_shape[0] * self._rows, noise_shape[1], self.model.block_size)
-        if next(self.model.parameters()).device.type == "cpu":
+        device = next(self.model.parameters()).device
+        with profiling.call(self.n_steps) as rec:
+            if device.type != "cpu":
+                return self._replay(state, data, load, noise_shape, rec)
+            rec.marks = profiling.StepMarks(self.n_steps, device, self._unbounded)
             rows = []
-            for j in range(self.n_steps):
-                rows.append(self._body(state, take(j), self._draw_noise(state, noise_shape)))
-                state.step += 1
+            with profiling.marking(rec.marks) as marks:
+                for j in range(self.n_steps):
+                    batch, noise = take(j), self._draw_noise(state, noise_shape)
+                    marks.step = j
+                    profiling.mark(0)
+                    rows.append(self._body(state, batch, noise))
+                    profiling.mark(7)
+                    state.step += 1
             return torch.stack(rows)
-        return self._replay(state, data, load, noise_shape)
 
     # ------------------------------------------------------------- graph
     def _bind(self, state: TrainState, data, noise_shape) -> None:
@@ -364,6 +390,7 @@ of any keys (the autoencoder's carry `mfcc`).
         u = self.unroll
         self._noise = torch.zeros((u, *noise_shape), dtype=self.model.dtype, device=device)
         self._metrics = torch.zeros((u, len(METRIC_KEYS)), dtype=torch.float32, device=device)
+        self._marks = profiling.StepMarks(u, device, self._unbounded)
         if self.indexed:
             self._data = data
             self._idx = torch.zeros((u, noise_shape[0]), dtype=torch.int64, device=device)
@@ -375,11 +402,14 @@ of any keys (the autoencoder's carry `mfcc`).
     def _bodies(self, state: TrainState) -> None:
         """`unroll` steps on the static buffers: what the graph holds."""
         for u in range(self.unroll):
+            self._marks.step = u
+            profiling.mark(0)
             if self.indexed:
                 batch = {k: v.index_select(0, self._idx[u]) for k, v in self._data.items()}
             else:
                 batch = {k: v[u] for k, v in self._batch.items()}
             self._metrics[u].copy_(self._body(state, batch, self._noise[u]))
+            profiling.mark(7)
 
     def _capture(self, state: TrainState) -> None:
         device = self._metrics.device
@@ -389,7 +419,7 @@ of any keys (the autoencoder's carry `mfcc`).
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
         t0 = time.perf_counter()
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.marking(self._marks):
             for _ in range(WARMUP_RUNS):
                 self._bodies(state)
         current.wait_stream(side)
@@ -402,36 +432,44 @@ of any keys (the autoencoder's carry `mfcc`).
         torch.cuda.empty_cache()  # as torch.cuda.graph does, before the pool is counted
         before = {name: w.captured for name, w in KERNEL_WRAPPERS.items()}
         reserved = torch.cuda.memory_reserved(device)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # keeps the graph whose nodes are counted
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), profiling.marking(self._marks):
             self._bodies(state)
+        graph.instantiate()
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.graph_nodes = profiling.graph_nodes(graph) / self.unroll
         self.captured = {name: w.captured - before[name] for name, w in KERNEL_WRAPPERS.items()}
         self.graph = graph
 
-    def _replay(self, state: TrainState, data, load, noise_shape) -> torch.Tensor:
+    def _replay(self, state: TrainState, data, load, noise_shape,
+                rec: profiling.CallRecord) -> torch.Tensor:
         """n_steps / unroll replays; `load(rows)` copies those steps' inputs
-        into the static buffers."""
+        into the static buffers.  `rec`: the call's record."""
         self._bind(state, data, noise_shape)
         u = self.unroll
         out = torch.empty((self.n_steps, len(METRIC_KEYS)), dtype=torch.float32,
                           device=self._metrics.device)
         for r in range(self.n_steps // u):
+            rec.replay = r
             rows = slice(r * u, (r + 1) * u)
-            load(rows)
-            for i in range(u):  # in step order, as eager steps draw
-                self._noise[i].copy_(self._draw_noise(state, noise_shape))
+            with profiling.annotate("multistep.load"):
+                load(rows)
+            with profiling.annotate("multistep.noise"):
+                for i in range(u):  # in step order, as eager steps draw
+                    self._noise[i].copy_(self._draw_noise(state, noise_shape))
             if self.graph is None:
                 self._capture(state)
-            self.graph.replay()
+            with profiling.annotate("multistep.launch"):
+                self.graph.replay()
             self.replays += 1
             for name, n in self.captured.items():
                 KERNEL_WRAPPERS[name].replayed += n
             out[rows].copy_(self._metrics)
             state.step += u
+        rec.marks, rec.graph_nodes = self._marks, self.graph_nodes
         return out
 
 
@@ -699,7 +737,7 @@ class Trainer:
         kernels_before = {name: (w.launches, w.replayed) for name, w in KERNEL_WRAPPERS.items()}
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
-        t_start = time.perf_counter()
+        t_start, mono_start = time.perf_counter(), time.monotonic()
         buf = []  # batches (or index arrays) awaiting a full call
         for epoch in range(start_epoch, n_epochs):
             train_loader.set_epoch(epoch)
@@ -766,18 +804,32 @@ class Trainer:
             self.metrics.add_scalar(
                 "train_window_steps_per_s", (state.step - start_step) / max(window, 1e-9), state.step
             )
-            self._log_window_costs(state.step, kernels_before)
+            self._log_window_costs(state.step, kernels_before, mono_start)
         self.checkpointer.save(state)
         return state
 
-    def _log_window_costs(self, step: int, kernels_before: dict) -> None:
+    def _log_window_costs(self, step: int, kernels_before: dict, since: float) -> None:
         """What the train window spent besides steps: the CUDA graph's eager
-        warm-up runs and its capture (seconds each), the peak of allocated
-        device memory, and each kernel's launches in the window, eager
-        (single steps and a capture's warm-up runs) and replayed in graphs."""
+        warm-up runs and its capture (seconds each) and its nodes a step,
+        the peak of allocated device memory, and each kernel's launches in
+        the window, eager (single steps and a capture's warm-up runs) and
+        replayed in graphs.  From the window's MultiStep calls (their
+        records since `since`, training/profiling.py): the median ms a step
+        of each phase of the step (`step_phase_ms/<phase>`: the device's on
+        a card, the host's on the CPU) and of the graph launch on the host
+        (`host_launch_ms`)."""
         if self._multi_step is not None and self._multi_step.capture_s is not None:
             self.metrics.add_scalar("graph_warmup_s", self._multi_step.warmup_s, step)
             self.metrics.add_scalar("graph_capture_s", self._multi_step.capture_s, step)
+            self.metrics.add_scalar("graph_nodes", self._multi_step.graph_nodes, step)
+        records = [c for c in profiling.calls() if c.start >= since]
+        for phase in profiling.PHASES:
+            ms = [c.phase_ms[phase] for c in records if c.phase_ms and c.phase_ms[phase] is not None]
+            if ms:
+                self.metrics.add_scalar(f"step_phase_ms/{phase}", float(np.median(ms)), step)
+        launch = [c.host_ms["multistep.launch"] / c.steps for c in records if "multistep.launch" in c.host_ms]
+        if launch:
+            self.metrics.add_scalar("host_launch_ms", float(np.median(launch)), step)
         if self.device.type == "cuda":
             self.metrics.add_scalar("max_memory_allocated_bytes", torch.cuda.max_memory_allocated(self.device),
                                     step)

@@ -6,12 +6,11 @@ Validation and the per-log-epoch eval write the first item's target and
 reconstruction as audio/<tag>_<step>.wav, always, and the reconstruction
 figure as figures/<tag>_<step>.png where matplotlib imports.  stft_to_mel
 equals the JAX op within 1e-5 of its peak (float32 products in two
-orders); StepTimer equals the JAX one on the same marks.
+orders).
 """
 
 import json
 import os
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +18,6 @@ import pytest
 import torch
 
 from ddsp_pytorch_tpu.ops.spectral import stft_to_mel as jax_stft_to_mel
-from ddsp_pytorch_tpu.training import profiling as jax_profiling
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.data import Datamodule, make_synthetic_dataset
 from ddsp_pytorch_tpu_torch.ops.spectral import multiscale_fft, stft_to_mel
@@ -134,21 +132,6 @@ def test_stft_to_mel_matches_jax():
     want = np.asarray(jax_stft_to_mel(jnp.asarray(mag), 16000, 512))
     assert got.shape == want.shape == (2, 128, 20)
     assert np.max(np.abs(got - want)) <= MEL_REL * np.max(np.abs(want))
-
-
-def test_step_timer_matches_jax_on_injected_marks(monkeypatch):
-    marks = iter([0.0, 0.5, 0.75, 2.0, 2.0, 3.5, 4.0, 4.25])
-    clock = {"now": 0.0}
-    monkeypatch.setattr(time, "perf_counter", lambda: clock["now"])
-    ours, theirs = profiling.StepTimer(512, horizon=4), jax_profiling.StepTimer(512, horizon=4)
-    assert ours.steps_per_s is None and ours.samples_per_s is None
-    for t in marks:
-        clock["now"] = t
-        ours.mark()
-        theirs.mark()
-        assert ours.steps_per_s == theirs.steps_per_s
-        assert ours.samples_per_s == theirs.samples_per_s
-    assert ours.steps_per_s == pytest.approx(3 / 2.25)
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
