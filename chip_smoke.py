@@ -25,7 +25,12 @@ is printed):
      roofline probes against their plain versions in float32 and float64;
      OscillatorBank's gradients
      (both kernels) against autograd through the plain forward at the
-     training shape;
+     training shape; the GRU's kernels against their plain versions at
+     the training shape (B = 16, F = 375, H = 512, inputs 30, 1024 and
+     1536) and the forward at the streaming shapes (1, 1), (1, 8) and the
+     pool's (1024, 1), each timed beside its operations bound, its
+     sequential floor (375 frames of the barrier probe) and the loop's
+     time at the same shape;
   3. streaming: make_streaming_synth on the full-width violin bundle streams
      64 blocks of a glide on the card and on the CPU (plain versions); the
      two agree, the kernel's launch counter rose by one per block, and the
@@ -230,7 +235,8 @@ is printed):
      launch a pool step; bench_reference.py on the card (the reference's
      restated forward against the port's, both configs, one forward launch
      a call of the port's side); the phase's seconds;
- 30. report: one JSON line {"kernels": [...]} (all four kernels; launches by
+ 30. report: one JSON line {"kernels": [...]} (all four kernels, and the GRU
+     kernels' entries of phase 2; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
      synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
@@ -295,6 +301,7 @@ from ddsp_pytorch_tpu_torch.export import (
     run_params,
 )
 from ddsp_pytorch_tpu_torch.kernel_bench import (
+    PEAK_FP32_FLOPS,
     card_line,
     oscillator_bound,
     oscillator_bwd_bound,
@@ -304,8 +311,8 @@ from ddsp_pytorch_tpu_torch.kernel_bench import (
 )
 from ddsp_pytorch_tpu_torch.inference import render, timbre_transfer, transfer_controls
 from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder, DDSPDecoder, crepe, init_params, load_model
-from ddsp_pytorch_tpu_torch.models.decoder import matmul_precision
-from ddsp_pytorch_tpu_torch.ops import fft_convolve, kernels, mean_std_loudness, multiscale_fft, roofline
+from ddsp_pytorch_tpu_torch.models.decoder import GRU, matmul_precision
+from ddsp_pytorch_tpu_torch.ops import fft_convolve, gru, kernels, mean_std_loudness, multiscale_fft, roofline
 from ddsp_pytorch_tpu_torch.ops import uniform_noise
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 from ddsp_pytorch_tpu_torch.ops.pitch import extract_pitch, switch_cost, yin_emission
@@ -609,6 +616,15 @@ OPS_RESAMPLE_RTOL, OPS_RESAMPLE_ATOL, OPS_ORACLE_ATOL, OPS_DB_ATOL = 1e-4, 1e-5,
 # the voice ramp at its defaults, then one wider pool
 WIDE_RAMP = ["--pool", "1024", "--ramp", "32,128,512,1024"]
 CREPE_BF16_FRAMES, CREPE_BF16_BATCH = 256, 256
+# phase 2, the GRU's kernels: the training shape of each GRU input (the
+# encoder's 30, the decoder's 1024 and 1536) and the streaming shapes
+# (B, F, input); the kernel against the plain version: GRU_KERNEL_ATOL on
+# h, the gates and hp_n (the two sum each frame's product in other orders,
+# and the recurrence carries the difference on through 375 frames),
+# GRU_BWD_REL of each cotangent's largest magnitude
+GRU_HIDDEN, GRU_PROBE_FRAMES = 512, 375
+GRU_SHAPES = ((16, 375, 30), (16, 375, 1024), (16, 375, 1536), (1, 1, 1024), (1, 8, 1024), (1024, 1, 1024))
+GRU_KERNEL_ATOL, GRU_BWD_REL = 2e-5, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -638,20 +654,22 @@ def ptxas_report(log: str) -> dict:
 
 def check_spills(name: str, log: str) -> None:
     """Print each kernel function's ptxas line; the K = 64 instantiations
-    (the main path's, template argument 64) and the probes must not spill.
+    (the main path's, template argument 64), the GRU's kernels and the
+    probes must not spill.
     For the probes, also each function's FFMA count in its SASS: the fma
     probe's chain must not be folded."""
     report = ptxas_report(log)
     probes = name == "roofline_probe"
-    if probes:
+    if probes or name.startswith("gru"):
         checked = list(report)
         ffma = {fn: len(re.findall(r"\bFFMA\b", text)) for fn, text in kernels.sass(name).items()}
     else:
         checked = [f for f in report if f"ILi{osc.KERNEL_FIXED_K}E" in f]
+    if not probes:
         ffma = {}
     check(bool(checked), f"no checked variant of {name} in the ptxas report")
     for fn, (stores, loads, regs) in sorted(report.items()):
-        m = re.search(r"\d((?:oscillator|roofline)_\w+?_kernel(?:I\w*?E)?)", fn)
+        m = re.search(r"\d((?:oscillator|roofline|gru)_\w+?_kernel(?:I\w*?E)?)", fn)
         extra = f" sass_ffma={ffma[fn]}" if fn in ffma else ""
         print(f"ptxas {name} {m.group(1) if m else fn}: registers={regs} "
               f"spill_stores={stores} B spill_loads={loads} B{extra}", flush=True)
@@ -667,6 +685,15 @@ def check_spills(name: str, log: str) -> None:
               f"{sin['fp32_per_sinf']:.3f} a sinf (less the chain's {roofline.SIN_OTHER_PER_ELEMENT} adds and "
               f"folds); opcodes {sin['fast_path_opcodes']}", flush=True)
         check(sin["fp32_per_sinf"] > 1, f"sin probe fast path {sin}")
+
+
+def train_launches(grus: int, steps: int = 1) -> dict:
+    """{kernel: launches} of `steps` float32 train steps on the card: one of
+    each oscillator kernel a step, and one of each GRU kernel for each of
+    the model's `grus` GRUs (1 for the decoder, 2 for the autoencoder; 0
+    where the bf16 compute dtype runs the GRU's loop)."""
+    return {"oscillator_fwd": steps, "oscillator_bwd": steps,
+            "gru_fwd": grus * steps, "gru_bwd": grus * steps}
 
 
 def rel_err(got, want) -> float:
@@ -815,6 +842,95 @@ def phase_bwd_kernel(device, kernel_ms: dict) -> dict:
     del ins, ref
     torch.cuda.empty_cache()
     return entry
+
+
+def _gru_inputs(device, b: int, f: int, in_size: int, seed: int):
+    """A GRU of H = 512 with init_params's weights, and x_proj (B, F, 3H) and
+    h0 (B, H) for its recurrence."""
+    gen = torch.Generator().manual_seed(seed)
+    model = init_params(GRU(in_size, GRU_HIDDEN), gen).to(device)
+    x = torch.randn((b, f, in_size), generator=gen).to(device)
+    h0 = (0.5 * torch.randn((b, GRU_HIDDEN), generator=gen)).to(device)
+    with torch.no_grad():
+        x_proj = x @ model.weight_ih.T + model.bias_ih
+    return x_proj, model.weight_hh.detach(), model.bias_hh.detach(), h0
+
+
+def phase_gru_kernels(device) -> list:
+    """Phase 2, the GRU: both kernels against their plain versions at the
+    training shape (B = 16, F = 375, H = 512), and the forward at the
+    streaming shapes (1, 1), (1, 8) and the pool's (1024, 1); each kernel's
+    time (CUDA events) beside its operations bound (2·B·F·3H·H over the
+    float32 peak), its sequential floor (F times one frame of the
+    barrier probe: a cluster's exchange and barrier alone) and the loop's
+    time at the same shape.  Returns the entries for the report."""
+    cycles_per_ms = sleep_cycles_per_ms()
+    sink = torch.empty((8, GRU_HIDDEN), device=device)
+    probe = kernels.launcher("gru_barrier_probe")
+
+    @functools.lru_cache(maxsize=None)
+    def frame_ms(rows: int) -> float:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ms, _ = time_ms(lambda: probe(sink.data_ptr(), GRU_PROBE_FRAMES, GRU_HIDDEN, rows, stream), 20,
+                        cycles_per_ms)
+        print(f"gru_barrier_probe rows={rows}: {1e3 * ms / GRU_PROBE_FRAMES:.4f} us a frame "
+              f"(exchange of h to 16 blocks and one barrier.cluster)", flush=True)
+        return ms / GRU_PROBE_FRAMES
+
+    entries = []
+    for b, f, in_size in GRU_SHAPES:
+        x_proj, w_hh, b_hh, h0 = _gru_inputs(device, b, f, in_size, SEED + b + f)
+        train = f > 1 and b > 1
+        with torch.no_grad():
+            out, h, saved = gru.gru_fwd(x_proj, w_hh, b_hh, h0, save=train)
+            rows, clusters = gru.gru_fwd.plan
+            want = gru.gru_fwd_plain(x_proj, w_hh, b_hh, h0)
+            torch.cuda.synchronize()
+            err = max(float((out - want[0]).abs().max()), float((h - want[1]).abs().max()))
+            if train:
+                err = max(err, float((saved - want[2]).abs().max()))
+            check(err <= GRU_KERNEL_ATOL, f"gru_fwd vs plain {err} at B={b} F={f} in={in_size}")
+            ms, _ = time_ms(lambda: gru.gru_fwd(x_proj, w_hh, b_hh, h0, save=train), 20, cycles_per_ms)
+            loop_ms, _ = time_ms(lambda: gru.gru_fwd_plain(x_proj, w_hh, b_hh, h0), 3, cycles_per_ms)
+        flops = 2 * b * f * 3 * GRU_HIDDEN * GRU_HIDDEN
+        bound_ms = 1e3 * flops / PEAK_FP32_FLOPS
+        floor_ms = f * frame_ms(rows)
+        print(f"gru_fwd B={b} F={f} in={in_size} (rows a cluster {rows}, clusters {clusters}, "
+              f"saved {train}): max|kernel-plain|={err:.3e} kernel_ms={ms:.6f} loop_ms={loop_ms:.6f} "
+              f"ops_bound_ms={bound_ms:.6f} sequential_floor_ms={floor_ms:.6f} "
+              f"share_of_floor={floor_ms / ms:.3f} speedup_over_loop={loop_ms / ms:.2f}", flush=True)
+        entries.append({"name": "gru_fwd", "shape_b_f_in": [b, f, in_size], "max_abs_err": err,
+                        "ms": ms, "loop_ms": loop_ms, "bound_ms": bound_ms, "floor_ms": floor_ms,
+                        "rows": rows, "clusters": clusters})
+        if not train:
+            continue
+        dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(SEED + 7)).to(device)
+        with torch.no_grad():
+            got = gru.gru_bwd(dout, None, saved, w_hh)
+            want_b = gru.gru_bwd_plain(dout, None, saved, w_hh)
+            torch.cuda.synchronize()
+            errs = {n: rel_err(a, w) for n, a, w in zip(("dxp", "dhp", "dh0"), got, want_b)}
+            check(max(errs.values()) <= GRU_BWD_REL, f"gru_bwd vs plain {errs} at B={b} F={f}")
+            ms, _ = time_ms(lambda: gru.gru_bwd(dout, None, saved, w_hh), 20, cycles_per_ms)
+        # the loop's backward: autograd through the loop's forward, timed alone
+        xl = x_proj.clone().requires_grad_(True)
+        wl = w_hh.clone().requires_grad_(True)
+        outl, _, _ = gru.gru_fwd_plain(xl, wl, b_hh, h0)
+        loop_ms, _ = time_ms(lambda: torch.autograd.grad(outl, (xl, wl), dout, retain_graph=True), 3,
+                             cycles_per_ms)
+        del xl, wl, outl
+        print(f"gru_bwd B={b} F={f} in={in_size} (rows a cluster {gru.gru_bwd.plan[0]}, clusters "
+              f"{gru.gru_bwd.plan[1]}): rel err vs plain "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f" kernel_ms={ms:.6f} loop_ms={loop_ms:.6f} (autograd through the loop, dW_hh "
+              f"included) ops_bound_ms={bound_ms:.6f} sequential_floor_ms={floor_ms:.6f} "
+              f"share_of_floor={floor_ms / ms:.3f} speedup_over_loop={loop_ms / ms:.2f}", flush=True)
+        entries.append({"name": "gru_bwd", "shape_b_f_in": [b, f, in_size],
+                        "max_rel_err": max(errs.values()), "ms": ms, "loop_ms": loop_ms,
+                        "bound_ms": bound_ms, "floor_ms": floor_ms, "rows": gru.gru_bwd.plan[0],
+                        "clusters": gru.gru_bwd.plan[1]})
+    torch.cuda.empty_cache()
+    return entries
 
 
 def phase_streaming(device) -> None:
@@ -1276,7 +1392,7 @@ def phase_graphed_vs_eager(device, cache: str, card: str, dtype: str = "float32"
         check(loss_rel <= GRAPHED_REL, f"graphed vs eager loss rel {loss_rel} (U={unroll})")
         check(leaf[worst] <= GRAPHED_REL, f"graphed vs eager {worst} rel {leaf[worst]} (U={unroll})")
         check(same_gen, "the graphed steps left the generator elsewhere than eager steps")
-        check(multi.captured == {"oscillator_fwd": unroll, "oscillator_bwd": unroll},
+        check(multi.captured == train_launches(int(dtype == "float32"), unroll),
               f"captured launches {multi.captured}")
         out[unroll] = {"step_ms": step_ms, "capture_s": multi.capture_s, "pool_bytes": multi.pool_bytes,
                        "peak_bytes": peak, "bitwise": bitwise}
@@ -1850,7 +1966,8 @@ def phase_ae_run(device, cache: str, tmp: str) -> tuple:
           f"AE run: loss did not fall by {LOSS_FALL_FACTOR}x: first5 {first5} last5 {last5}")
     check(multi.replays == N_AE_STEPS // cfg.train.scan_unroll, f"AE replays {multi.replays}")
     for name, (_, captured, replayed) in counts.items():
-        check(captured == cfg.train.scan_unroll and replayed == N_AE_STEPS,
+        per_step = train_launches(2)[name]
+        check(captured == per_step * cfg.train.scan_unroll and replayed == per_step * N_AE_STEPS,
               f"{name} captured {captured}, replayed {replayed}x in {N_AE_STEPS} graphed AE steps")
     del trainer, state, multi, dm
     torch.cuda.empty_cache()
@@ -1922,7 +2039,7 @@ def phase_ae_graphed_vs_eager(device, cache: str, card: str) -> None:
         flush=True)
     check(loss_rel <= GRAPHED_REL, f"AE graphed vs eager loss rel {loss_rel}")
     check(leaf[worst] <= GRAPHED_REL, f"AE graphed vs eager {worst} rel {leaf[worst]}")
-    check(multi.captured == {"oscillator_fwd": 1, "oscillator_bwd": 1}, f"AE captured {multi.captured}")
+    check(multi.captured == train_launches(2), f"AE captured {multi.captured}")
     del multi, model_g, state_g, model_e, state_e, base, loader
     torch.cuda.empty_cache()
 
@@ -2859,8 +2976,8 @@ def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
               "leaf errors (max|Δ|/max|g|, own rel L2, |Δ|/|g|): "
               + ", ".join(f"{n}=({of_max[n]:.3e}, {rel_l2[n]:.3e}, {of_whole[n]:.3e})" for n in worst)
               + f"; launches {launched}", flush=True)
-        check(launched == {"oscillator_fwd": 1, "oscillator_bwd": 1},
-              f"the sharded step launched {launched}, expected one forward and one backward")
+        check(launched == train_launches(1),
+              f"the sharded step launched {launched}, expected one forward and one backward of each")
         check(rows == fn.plan.frames_pad * cfg.train.batch and fn.plan.frames_pad == 384,
               f"the sharded launch holds {rows} rows, expected 6144")
         check(loss_rel <= TS_LOSS_REL, f"time-sharded loss rel {loss_rel}")
@@ -2923,7 +3040,7 @@ def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
               f"{multi.pool_bytes}; card {card}", flush=True)
         check(loss_rel <= GRAPHED_REL, f"{label}: graphed vs eager loss rel {loss_rel}")
         check(leaf2[worst2] <= GRAPHED_REL, f"{label}: graphed vs eager {worst2} rel {leaf2[worst2]}")
-        check(multi.captured == {"oscillator_fwd": 1, "oscillator_bwd": 1},
+        check(multi.captured == train_launches(1),
               f"{label}: captured launches {multi.captured}")
         del model_e, model_g, multi, step, state_e, state_g, leaf, worst
         torch.cuda.empty_cache()
@@ -3077,7 +3194,7 @@ def phase_data_parallel(device, cache: str, tmp: str, card: str) -> dict:
               f"mesh: losses {[round(float(v), 6) for v in r1[:, 0]]}; bitwise equal: {bitwise}; captured "
               f"{captured}; launches {launched}; card {card}", flush=True)
         check(bitwise, "NCCL graphed steps at world size 1 differ from the steps without a mesh")
-        check(captured == {"oscillator_fwd": 1, "oscillator_bwd": 1}, f"NCCL graph captured {captured}")
+        check(captured == train_launches(1), f"NCCL graph captured {captured}")
     finally:
         dist.destroy_process_group()
     del runs, base, loader
@@ -3121,7 +3238,8 @@ def phase_longform(device, card: str) -> int:
           f"launches {launched}; card {card}", flush=True)
     check(audio.shape == want.shape and bool(torch.isfinite(audio).all()), "long-form output")
     check(err <= LONGFORM_REL_OF_PEAK * peak, f"long-form vs unsharded {err / peak} of the peak")
-    check(launched == {"oscillator_fwd": 1, "oscillator_bwd": 0}, f"long-form launches {launched}")
+    check(launched == {"oscillator_fwd": 1, "oscillator_bwd": 0, "gru_fwd": 1, "gru_bwd": 0},
+          f"long-form launches {launched}")
     del model, audio, want
     torch.cuda.empty_cache()
     return launched["oscillator_fwd"]
@@ -3412,7 +3530,7 @@ def phase_bf16(device, cache: str, tmp: str, card: str, f32_graphed: dict) -> di
     (fit_fwd, fit_bwd), run_dir = phase_bf16_fit(device, cache, tmp, card)
     osc.reset_kernel_counts()
     graphed = phase_graphed_vs_eager(device, cache, card, dtype="bfloat16", unrolls=(1,))
-    graphed_counts = _wrapper_counts()
+    graphed_counts = {name: n for name, n in _wrapper_counts().items() if name.startswith("oscillator")}
     print(f"ms per graphed step (U = 1) at configs/config.yaml: bfloat16 {graphed[1]['step_ms']:.3f}, "
           f"float32 {f32_graphed[1]['step_ms']:.3f} (phase 6), bf16/f32 "
           f"{graphed[1]['step_ms'] / f32_graphed[1]['step_ms']:.4f}; eager bfloat16 "
@@ -3515,8 +3633,8 @@ def phase_trainrun(device, card: str, tmp: str) -> dict:
     check(set(report) == tpu_keys | {"card"} and report["card"] == card, "trainrun report keys")
     for row in report["per_segment"]:
         warm = WARMUP_RUNS * 1  # scan_unroll 1
-        check(row["kernel_replayed"] == {"oscillator_fwd": row["steps"], "oscillator_bwd": row["steps"]}
-              and row["kernel_launches"] == {"oscillator_fwd": warm, "oscillator_bwd": warm},
+        check(row["kernel_replayed"] == train_launches(1, row["steps"])
+              and row["kernel_launches"] == train_launches(1, warm),
               f"trainrun segment launches {row['kernel_launches']}, replayed {row['kernel_replayed']}")
     return counts
 
@@ -3790,12 +3908,15 @@ def main() -> int:
     report = kernels.build()
     print(f"kernel build wall s={time.perf_counter() - t0:.2f}", flush=True)
     for name, (secs, log) in report.items():
+        if not log:  # its source built under another name (gru_fwd.cu's probe)
+            continue
         print(f"built {name} in {secs:.2f} s", flush=True)
         check_spills(name, log)
 
     kernel_ms = {}
     fwd_entry = phase_kernels(device, kernel_ms)
     bwd_entry = phase_bwd_kernel(device, kernel_ms)
+    gru_entries = phase_gru_kernels(device)
     probe_checks = phase_probe_kernels(device)
     phase_streaming(device)
     serving_fwd = phase_server(device)
@@ -3901,7 +4022,7 @@ def main() -> int:
                                      **{path: c["oscillator_bwd"] for path, c in tools.items()},
                                      **{path: 0 for path in last}}
 
-    print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries]}), flush=True)
+    print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries, *gru_entries]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

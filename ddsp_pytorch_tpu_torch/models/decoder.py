@@ -40,6 +40,7 @@ from torch import nn
 
 from ddsp_pytorch_tpu_torch import ops
 from ddsp_pytorch_tpu_torch.models.modules import FilteredNoise, HarmonicSynth, Reverb
+from ddsp_pytorch_tpu_torch.ops import gru
 
 N_LAYERS = 3
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default; F.layer_norm's is 1e-5
@@ -169,7 +170,14 @@ class GRU(nn.Module):
     and sum F of them, O(F²) work.  The JAX GRU scans over the same split
     (decoder.py:97).  With a compute dtype the projections, the carry
     (the initial state cast to it, as `h0.astype(dt)`) and every gate are
-    in that type (decoder.py:72-94), σ as XLA expands it (`_Logistic`)."""
+    in that type (decoder.py:72-94), σ as XLA expands it (`_Logistic`).
+
+    Where the projection is float32 on a CUDA card, H ≤ 512 and the batch
+    not too wide for its frames (`ops.gru.kernel_takes`), the recurrence
+    after the input projection is the hand-written kernels'
+    (`ops.gru.gru_recurrence`: one launch for all frames forward, one
+    backward); the loop below is everything else's: the CPU, float64, the
+    bf16 compute dtype, a larger H and a wide batch of few frames."""
 
     def __init__(self, input_size: int, hidden_size: int, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -189,6 +197,9 @@ class GRU(nn.Module):
             # cast inside the call: a captured step reads the updated parameters
             x, w_ih, w_hh, b_ih, b_hh = (t.to(dt) for t in (x, w_ih, w_hh, b_ih, b_hh))
         x_proj = x @ w_ih.T + b_ih
+        if dt is None and gru.kernel_takes(x_proj, self.hidden_size):
+            h0 = initial_state.contiguous() if initial_state is not None else None
+            return gru.gru_recurrence(x_proj, w_hh, b_hh, h0)
         if initial_state is None:
             h = torch.zeros((b, self.hidden_size), dtype=x.dtype, device=x.device)
         else:

@@ -1,15 +1,17 @@
 """Hand-written CUDA kernels: build at first use, bind with ctypes.
 
-Each `*.cu` here is one kernel with a plain `extern "C"` launcher.  It is
-compiled with nvcc into `_build/lib<name>-<source hash>.so` (listed in
+Each `*.cu` here is one kernel with a plain `extern "C"` launcher (a
+source may hold a second, such as gru_fwd.cu's barrier probe).  It is
+compiled with nvcc into `_build/lib<source>-<source hash>.so` (listed in
 .gitignore) the first time it is needed, never at import, and loaded with
 ctypes.  The source hash in the file name rebuilds a kernel whose source
 changed.  Several kernels build in parallel: one nvcc process per source,
-all started together.
+all started together; the first launch of any of the models' kernels
+(`MODEL_KERNELS`) builds all of them so, rather than one after another.
 
-Wrappers that validate tensors, allocate outputs and count launches live
-beside each kernel's plain PyTorch version (ops/oscillator.py,
-ops/roofline.py).
+Wrappers that validate tensors, allocate outputs and count launches
+(`count_launch`) live beside each kernel's plain PyTorch version
+(ops/oscillator.py, ops/gru.py, ops/roofline.py).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 
 # kernel name → (source file, C launcher symbol, ctypes argtypes)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 KERNELS = {
     "oscillator_fwd": (
         "oscillator_fwd.cu",
@@ -47,7 +49,29 @@ KERNELS = {
         # x, out, n, kind (0 fma, 1 sin), threads a block, stream
         [_P, _P, _I, _I, _I, _P],
     ),
+    "gru_fwd": (
+        "gru_fwd.cu",
+        "ddsp_gru_fwd",
+        # x_proj, w_hh, b_hh, h0, out, h_final, saved, batch, frames, hidden,
+        # plan (rows a cluster, clusters), stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _IP, _P],
+    ),
+    "gru_bwd": (
+        "gru_bwd.cu",
+        "ddsp_gru_bwd",
+        # dout, dh_final, saved, w_hh, dxp, dhp, dh0, batch, frames, hidden,
+        # plan (rows a cluster, clusters), stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _IP, _P],
+    ),
+    "gru_barrier_probe": (
+        "gru_fwd.cu",
+        "ddsp_gru_barrier_probe",
+        # sink, frames, hidden, rows, stream
+        [_P, _I, _I, _I, _P],
+    ),
 }
+# the kernels the models launch: the first launch of one builds them all
+MODEL_KERNELS = ("oscillator_fwd", "oscillator_bwd", "gru_fwd", "gru_bwd")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -71,11 +95,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where kernel `name`'s shared library is (or will be) built."""
-    src = os.path.join(_DIR, KERNELS[name][0])
-    with open(src, "rb") as f:
+    """Where kernel `name`'s shared library (its source's) is, or will be,
+    built."""
+    source = KERNELS[name][0]
+    with open(os.path.join(_DIR, source), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{os.path.splitext(source)[0]}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names=None) -> dict:
@@ -90,8 +115,8 @@ def build(names=None) -> dict:
     procs = {}
     for name in names:
         target = library_path(name)
-        if os.path.exists(target):
-            report[name] = (0.0, "")
+        if os.path.exists(target) or any(p[2] == target for p in procs.values()):
+            report[name] = (0.0, "")  # built, or building under another name
             continue
         tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_DIR, KERNELS[name][0])]
@@ -132,10 +157,23 @@ def launcher(name: str):
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            build([name])
+            build(MODEL_KERNELS if name in MODEL_KERNELS else [name])
             _, symbol, argtypes = KERNELS[name]
             fn = getattr(ctypes.CDLL(library_path(name)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[name] = fn
     return fn
+
+
+def count_launch(wrapper) -> None:
+    """Count a kernel launch on its wrapper: `launches` when it ran now;
+    `captured` when the stream is capturing a CUDA graph, where the kernel
+    is recorded and runs only when the graph is replayed (the replaying
+    code adds the graph's captured launches to `replayed`)."""
+    import torch  # here: this module is imported by code that needs no torch
+
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1

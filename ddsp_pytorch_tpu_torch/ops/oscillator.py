@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ddsp_pytorch_tpu_torch.ops import kernels
+from ddsp_pytorch_tpu_torch.ops import gru, kernels
 
 TWO_PI = 2.0 * math.pi
 
@@ -177,17 +177,6 @@ def _check_rows(phi, omega, amp, block_size, grad=None) -> int:
     return block_size
 
 
-def _count(wrapper) -> None:
-    """Count a kernel launch on its wrapper: `launches` when it ran now;
-    `captured` when the stream is capturing a CUDA graph, where the kernel
-    is recorded and runs only when the graph is replayed (the replaying
-    code adds the graph's captured launches to `replayed`)."""
-    if torch.cuda.is_current_stream_capturing():
-        wrapper.captured += 1
-    else:
-        wrapper.launches += 1
-
-
 def oscillator_bank(
     phi: torch.Tensor, omega: torch.Tensor, amp: torch.Tensor, block_size: int
 ) -> torch.Tensor:
@@ -216,7 +205,7 @@ def oscillator_bank(
         )
     if err != 0:
         raise RuntimeError(f"oscillator_fwd launch failed: cudaError {err}")
-    _count(oscillator_bank)
+    kernels.count_launch(oscillator_bank)
     return out
 
 
@@ -263,7 +252,7 @@ def oscillator_bank_bwd(
         )
     if err != 0:
         raise RuntimeError(f"oscillator_bwd launch failed: cudaError {err}")
-    _count(oscillator_bank_bwd)
+    kernels.count_launch(oscillator_bank_bwd)
     return dphi, domega, damp
 
 
@@ -272,8 +261,10 @@ oscillator_bank_bwd.captured = 0
 oscillator_bank_bwd.replayed = 0
 
 
-# kernel name → its wrapper, whose launches/captured/replayed count it
-KERNEL_WRAPPERS = {"oscillator_fwd": oscillator_bank, "oscillator_bwd": oscillator_bank_bwd}
+# kernel name → its wrapper, whose launches/captured/replayed count it: the
+# models' kernels, the oscillator bank's and the GRU's
+KERNEL_WRAPPERS = {"oscillator_fwd": oscillator_bank, "oscillator_bwd": oscillator_bank_bwd,
+                   "gru_fwd": gru.gru_fwd, "gru_bwd": gru.gru_bwd}
 
 
 def reset_kernel_counts() -> None:

@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from ddsp_pytorch_tpu_torch.ops import kernels
-from ddsp_pytorch_tpu_torch.ops.oscillator import _count
 
 # bench_roofline.py:222-223: the Pallas grid of GRID tiles of ROWS × COLS
 ROWS, COLS, GRID = 32, 512, 256
@@ -92,7 +91,7 @@ def _probe(x: torch.Tensor, kind: int, threads: int, plain, wrapper) -> torch.Te
                      torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"roofline_probe launch failed: cudaError {err}")
-    _count(wrapper)
+    kernels.count_launch(wrapper)
     return out
 
 

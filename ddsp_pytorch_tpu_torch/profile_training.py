@@ -303,7 +303,8 @@ def main(argv=None) -> dict:
                        "replayed_per_step": wrapper.replayed / n,
                        "host_launches_per_step": wrapper.launches / n,
                        "warmup_host_launches": warm}
-                for (name, wrapper), warm in zip(osc.KERNEL_WRAPPERS.items(), warmup_launches)
+                for name, wrapper, warm in zip(("oscillator_fwd", "oscillator_bwd"),
+                                               (osc.oscillator_bank, osc.oscillator_bank_bwd), warmup_launches)
             },
             "kernels_by_device_time": graphed["kernels_by_device_time"][:20],
         }

@@ -400,9 +400,10 @@ def test_graphed_steps_equal_eager_steps_on_cuda(cuda, unroll):
     for (name, a), b in zip(model_g.named_parameters(), model_e.parameters()):
         assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
     assert torch.equal(state_g.generator.get_state(), state_e.generator.get_state())
-    assert multi.captured == {"oscillator_fwd": unroll, "oscillator_bwd": unroll}
+    assert multi.captured == {"oscillator_fwd": unroll, "oscillator_bwd": unroll,
+                              "gru_fwd": unroll, "gru_bwd": unroll}
     assert multi.replays == 4 // unroll
-    for wrapper in (osc.oscillator_bank, osc.oscillator_bank_bwd):
+    for wrapper in osc.KERNEL_WRAPPERS.values():
         assert (wrapper.launches, wrapper.captured, wrapper.replayed) == (WARMUP_RUNS * unroll, unroll, 4)
     more = multi(state_g, data, idx2d)  # the next call replays the same graph
     assert bool(torch.isfinite(more).all()) and multi.replays == 8 // unroll
@@ -534,7 +535,8 @@ def test_autoencoder_session_on_cuda_matches_cpu(cuda):
 @pytest.mark.cuda
 def test_autoencoder_graphed_steps_equal_eager_steps_on_cuda(cuda):
     """The AE's train step with `mfcc` gathered inside the graph: 4 replayed
-    steps against 4 eager ones (GRAPHED_REL), both kernels captured."""
+    steps against 4 eager ones (GRAPHED_REL), the oscillator's and the two
+    GRUs' kernels captured."""
     from ddsp_pytorch_tpu_torch.models import DDSPAutoencoder
     from ddsp_pytorch_tpu_torch.training import make_optimizer
     from ddsp_pytorch_tpu_torch.training.state import TrainState
@@ -567,7 +569,9 @@ def test_autoencoder_graphed_steps_equal_eager_steps_on_cuda(cuda):
     assert _rel(graphed[:, 0], eager[:, 0]) <= GRAPHED_REL
     for (name, a), b in zip(model_g.named_parameters(), model_e.parameters()):
         assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
-    assert multi.captured == {"oscillator_fwd": 2, "oscillator_bwd": 2}
+    # a step holds one launch of each oscillator kernel and, for the
+    # encoder's GRU and the decoder's, two of each GRU kernel
+    assert multi.captured == {"oscillator_fwd": 2, "oscillator_bwd": 2, "gru_fwd": 4, "gru_bwd": 4}
 
 
 @pytest.mark.cuda
