@@ -1,0 +1,9 @@
+"""Device ms a step of the CREPE step's forward, target and loss: the
+step-mark phase `forward` (train_crepe.py `CrepeTrainer`); the median over
+the window's read steps after the traced group."""
+
+from benchmark.lib.calls import median, phase_ms
+
+
+def read(run):
+    return median(run, lambda r: phase_ms(r, "forward"))

@@ -2,7 +2,9 @@
 exact f0 labels (port of scripts/train_crepe.py):
 
     python -m ddsp_pytorch_tpu_torch.train_crepe --capacity tiny --steps 3000 \\
-        --out runs/crepe_tiny.msgpack [--robust] [--device cuda]
+        [--out runs/crepe_tiny.msgpack] [--robust] [--device cuda]
+    python -m ddsp_pytorch_tpu_torch.train_crepe --capacity full --robust
+        # CREPE's published capacity (22.2 M parameters), to runs/crepe_full.msgpack
 
 CREPE's recipe: 360 bins 20 cents apart, targets blurred by a Gaussian of
 σ = 25 cents, binary cross-entropy with the positive bins up-weighted
@@ -13,7 +15,10 @@ a formant, phase-coherent or random partials, vibrato and noise, and with
 
 `synth_batch` is a plain function of its random draws (`draw_synth_inputs`
 makes them from a torch.Generator on the device; a test can feed it the
-JAX script's).  The saved `{params, batch_stats}` msgpack loads in the JAX
+JAX script's), computed in the draws' dtype.  `CrepeTrainer` is the step
+the CLI, `train()` and the benchmark drive: each step draws the batch,
+then one dropout mask a block in forward order, from the trainer's one
+generator.  The saved `{params, batch_stats}` msgpack loads in the JAX
 package (flax.serialization.msgpack_restore into models/crepe.py's CREPE)
 and in the port (models/crepe.py `load_crepe`), and plugs into
 preprocessing as preprocess.crepe_params.  The device defaults to the GPU
@@ -35,6 +40,7 @@ from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.bundle import msgpack_serialize
 from ddsp_pytorch_tpu_torch.models.crepe import (
     CREPE,
+    DROPOUT_RATE,
     FRAME_LENGTH,
     MODEL_SRATE,
     cents_grid,
@@ -43,6 +49,7 @@ from ddsp_pytorch_tpu_torch.models.crepe import (
     salience_to_cents,
 )
 from ddsp_pytorch_tpu_torch.models.decoder import _TRUNC_NORMAL_STD
+from ddsp_pytorch_tpu_torch.training import profiling
 from ddsp_pytorch_tpu_torch.training.optim import Optimizer
 from ddsp_pytorch_tpu_torch.weights import crepe_flax_from_state_dict
 
@@ -116,12 +123,12 @@ def draw_synth_inputs(batch: int, generator: torch.Generator, robust: bool = Fal
 
 def synth_batch(draws: dict, robust: bool = False) -> tuple:
     """Random harmonic frames with exact f0 labels (train_crepe.py:40-169),
-    a function of `draw_synth_inputs`' draws: → (frames (B, 1024) float32
-    at 16 kHz, f0 (B,) Hz)."""
+    a function of `draw_synth_inputs`' draws: → (frames (B, 1024) at 16
+    kHz, f0 (B,) Hz), in the dtype of the draws (float32 as drawn)."""
     f0 = draws["f0"]
-    dev = f0.device
-    t = torch.arange(FRAME_LENGTH, device=dev) / MODEL_SRATE
-    k = torch.arange(1, N_HARMONICS + 1, device=dev, dtype=torch.float32)[None, :]
+    dev, dt = f0.device, f0.dtype
+    t = torch.arange(FRAME_LENGTH, device=dev, dtype=dt) / MODEL_SRATE
+    k = torch.arange(1, N_HARMONICS + 1, device=dev, dtype=dt)[None, :]
     # spectral rolloff amp_k ∝ k^-α, and a formant boosting the harmonics
     # around formant_pos, so the fundamental need not be the strongest
     amps = k ** (-draws["alpha"])
@@ -146,7 +153,7 @@ def synth_batch(draws: dict, robust: bool = False) -> tuple:
                                   FRAME_LENGTH, dim=-1)
         sig = torch.where(draws["use_rev"], smeared, sig)
         # pink or white noise down to below 0 dB SNR
-        fbin = torch.clamp(torch.arange(FRAME_LENGTH // 2 + 1, device=dev, dtype=torch.float32), min=1.0)
+        fbin = torch.clamp(torch.arange(FRAME_LENGTH // 2 + 1, device=dev, dtype=dt), min=1.0)
         pink = torch.fft.irfft(torch.fft.rfft(white, dim=-1) / torch.sqrt(fbin)[None, :], FRAME_LENGTH,
                                dim=-1)
         pink = pink / (torch.std(pink, dim=-1, keepdim=True, correction=0) + 1e-9)
@@ -208,12 +215,15 @@ def train_step(model: CREPE, tx: Optimizer, opt_state: dict, frames: torch.Tenso
     `dropout_masks` or draws from `generator`.  The forward and the
     backward run in models/crepe.py's conv_precision (cuDNN, no TF32).
     Returns (loss, gradients, new optimizer state); the parameters are
-    updated in place."""
+    updated in place.  Stamps the CREPE step's marks 2 (the loss ready)
+    and 3 (the gradients returned) inside `profiling.marking`."""
     params = list(model.parameters())
     with conv_precision():
         logits = model(frames, train=True, dropout_masks=dropout_masks, generator=generator)
         loss = weighted_bce(logits, target, pos_weight)
+        profiling.mark(2)
         grads = torch.autograd.grad(loss, params)
+        profiling.mark(3)
     updates, opt_state = tx.update(grads, opt_state)
     with torch.no_grad():
         for p, u in zip(params, updates):
@@ -235,32 +245,87 @@ def crepe_bytes(model: CREPE) -> bytes:
     return msgpack_serialize(crepe_flax_from_state_dict(model.state_dict()))
 
 
+class CrepeTrainer:
+    """A fresh CREPE and its Adam state on `device`, trained one step at a
+    time: the step the CLI, `train()` and the benchmark drive.
+
+    `seed` seeds the one generator the trainer draws from: the weights
+    (`init_crepe`), then each step's batch (`draw_synth_inputs`, then
+    `synth_batch`) and its dropout masks (one `rand` a block, in forward
+    order).  `step()` stamps the CREPE step's marks (training/profiling.py
+    `CREPE_PHASES`) in a call record of its own, inside the host span
+    `crepe.step`, and leaves the loss on the device; `pull(loss)` reads it
+    (span `crepe.pull`).  `metrics` counts the steps and frames trained
+    (`crepe/steps`, `crepe/frames`)."""
+
+    def __init__(self, capacity: str = "tiny", batch: int = 256, lr: float = 2e-3,
+                 pos_weight: float = 20.0, robust: bool = False, seed: int = 0, *,
+                 dropout: float = DROPOUT_RATE, dtype: Optional[str] = "float32", device="cuda"):
+        device = resolve_device(device)
+        self.device = device
+        self.batch = batch
+        self.pos_weight = pos_weight
+        self.robust = robust
+        self.generator = torch.Generator(device).manual_seed(seed)
+        self.model = init_crepe(CREPE(capacity, dropout, dtype).to(device), self.generator)
+        self.tx = Optimizer("adam", lr)
+        self.opt_state = self.tx.init(list(self.model.parameters()))
+        self.metrics = {"crepe/steps": 0, "crepe/frames": 0}
+        self._marks = profiling.StepMarks(1, device, phases=profiling.CREPE_PHASES)
+        self._eval = None
+
+    def draw_batch(self) -> tuple:
+        """The next step's (frames, f0) from the trainer's generator."""
+        return synth_batch(draw_synth_inputs(self.batch, self.generator, self.robust), self.robust)
+
+    def step(self) -> torch.Tensor:
+        """One train step; returns its loss, on the device."""
+        with profiling.call(1) as rec, profiling.annotate("crepe.step"):
+            rec.marks = self._marks
+            with profiling.marking(self._marks):
+                profiling.mark(0)
+                frames, f0 = self.draw_batch()
+                profiling.mark(1)
+                loss, _, self.opt_state = train_step(self.model, self.tx, self.opt_state, frames,
+                                                     f0_to_target(f0), self.pos_weight,
+                                                     generator=self.generator)
+                profiling.mark(4)
+        self.metrics["crepe/steps"] += 1
+        self.metrics["crepe/frames"] += self.batch
+        return loss
+
+    def pull(self, loss: torch.Tensor) -> float:
+        with profiling.annotate("crepe.pull"):
+            return float(loss)
+
+    def evaluate(self) -> float:
+        """RPA50 of the eval-mode net on the fixed eval batch (EVAL_BATCH
+        clean frames from EVAL_SEED, made at the first call)."""
+        if self._eval is None:
+            eval_gen = torch.Generator(self.device).manual_seed(EVAL_SEED)
+            self._eval = synth_batch(draw_synth_inputs(EVAL_BATCH, eval_gen))
+        return eval_rpa(self.model, *self._eval)
+
+
 def train(capacity: str = "tiny", steps: int = 3000, batch: int = 256, lr: float = 2e-3,
           pos_weight: float = 20.0, robust: bool = False, seed: int = 0, log_every: int = 200, *,
           device="cuda") -> tuple:
-    """Train a fresh CREPE for `steps` steps on `device`.  Returns (model,
-    log): one {"step", "loss", "rpa50", "steps_per_s"} record at step 1
-    and every `log_every` steps after, rpa50 on the fixed eval batch."""
-    device = resolve_device(device)
-    generator = torch.Generator(device).manual_seed(seed)
-    model = init_crepe(CREPE(capacity).to(device), generator)
-    tx = Optimizer("adam", lr)
-    opt_state = tx.init(list(model.parameters()))
-    eval_gen = torch.Generator(device).manual_seed(EVAL_SEED)
-    eval_frames, eval_f0 = synth_batch(draw_synth_inputs(EVAL_BATCH, eval_gen))
+    """Train a fresh CREPE for `steps` steps on `device` (`CrepeTrainer`).
+    Returns (model, log): one {"step", "loss", "rpa50", "steps_per_s"}
+    record at step 1 and every `log_every` steps after, rpa50 on the fixed
+    eval batch."""
+    trainer = CrepeTrainer(capacity, batch, lr, pos_weight, robust, seed, device=device)
     log = []
     t0 = time.perf_counter()
     for step in range(1, steps + 1):
-        frames, f0 = synth_batch(draw_synth_inputs(batch, generator, robust), robust)
-        loss, _, opt_state = train_step(model, tx, opt_state, frames, f0_to_target(f0), pos_weight,
-                                        generator=generator)
+        loss = trainer.step()
         if step % log_every == 0 or step == 1:
-            rec = {"step": step, "loss": float(loss), "rpa50": eval_rpa(model, eval_frames, eval_f0),
+            rec = {"step": step, "loss": trainer.pull(loss), "rpa50": trainer.evaluate(),
                    "steps_per_s": step / (time.perf_counter() - t0)}
             log.append(rec)
             print(f"step {step:6d}  loss {rec['loss']:.5f}  RPA50 {rec['rpa50']:.3f}  "
                   f"({rec['steps_per_s']:.1f} steps/s)", flush=True)
-    return model, log
+    return trainer.model, log
 
 
 def main(argv=None):
@@ -272,17 +337,18 @@ def main(argv=None):
     p.add_argument("--pos-weight", type=float, default=20.0)
     p.add_argument("--robust", action="store_true",
                    help="noise-, reverb- and clip-augmented frames (synth_batch robust=True)")
-    p.add_argument("--out", default="runs/crepe_tiny.msgpack")
+    p.add_argument("--out", default=None, help="default runs/crepe_<capacity>.msgpack")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    out = args.out or f"runs/crepe_{args.capacity}.msgpack"
     model, _ = train(args.capacity, args.steps, args.batch, args.lr, args.pos_weight, args.robust,
                      args.seed, device=args.device)
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "wb") as f:
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "wb") as f:
         f.write(crepe_bytes(model))
-    print(f"saved {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB) {{'capacity': {args.capacity!r}}}")
-    return args.out
+    print(f"saved {out} ({os.path.getsize(out) / 1e6:.1f} MB) {{'capacity': {args.capacity!r}}}")
+    return out
 
 
 if __name__ == "__main__":

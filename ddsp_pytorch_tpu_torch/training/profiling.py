@@ -13,27 +13,31 @@ and the step marks of the graphed train step.
     inside it, and over a graph launch that covers the replay's idle
     gaps);
   * the call record: `call(steps)` opens the record of one `MultiStep`
-    call (training/train.py); `calls()` returns the last MAX_CALLS of
-    them, oldest first, and `reset()` clears them.  A record holds the
-    call's start and end (`time.monotonic()`), its steps, the host ms of
-    each span name inside it, the device ms a step of each phase of its
-    last replay (`PHASES`) and the captured graph's nodes a step;
+    call (training/train.py) or one CREPE step (train_crepe.py
+    `CrepeTrainer`); `calls()` returns the last MAX_CALLS of them, oldest
+    first, and `reset()` clears them.  A record holds the call's start and
+    end (`time.monotonic()`), its steps, the host ms of each span name
+    inside it, the device ms a step of each phase of its last replay (the
+    phases of its marks) and the captured graph's nodes a step;
   * the step marks: `mark(i)` and `mark_on_grad(i, tensors)` stamp mark i
-    of the step in progress while a `MultiStep` runs its step bodies
+    of the step in progress while a step path runs its bodies
     (`marking(marks)`), and do nothing else anywhere: a `None` check,
     no hook registered.  On a card a mark is a CUDA timing event recorded
     on the current stream (`external=True`, so under stream capture it is
     an event-record node that every replay records again); on the CPU it
     is the host clock.
 
-Mark i sits at (0) the step's start, (1) the NN's controls ready, (2) the
-signal ready, (3) the loss ready, (4) the signal's gradient ready, (5) the
-gradients of the NN's outputs ready, (6) every parameter's gradient
-returned, (7) the update and the metrics row written; phase i lies between
-marks i and i + 1.  The times of a call's last replay are read, without
-waiting, when the next call starts or `calls()` is asked, and only if the
-card has finished that replay by then (a caller that pulled the call's
-metrics has); else that call's phases stay None.
+`MultiStep`'s mark i (`PHASES`) sits at (0) the step's start, (1) the NN's
+controls ready, (2) the signal ready, (3) the loss ready, (4) the signal's
+gradient ready, (5) the gradients of the NN's outputs ready, (6) every
+parameter's gradient returned, (7) the update and the metrics row written;
+the CREPE step's (`CREPE_PHASES`) at (0) its start, (1) the batch
+synthesized, (2) the loss ready, (3) the gradients returned, (4) the update
+written.  Phase i lies between marks i and i + 1.  The times of a call's
+last replay (an eager step's own) are read, without waiting, when the next
+call starts or `calls()` is asked, and only if the card has finished them
+by then (a caller that pulled the call's metrics or loss has); else that
+call's phases stay None.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from ddsp_pytorch_tpu_torch import resolve_device
 TRACE_FILE = "trace.json"
 PHASES = ("nn_fwd", "synth_fwd", "loss_fwd", "loss_bwd", "synth_bwd", "nn_bwd", "optimizer")
 N_MARKS = len(PHASES) + 1
+CREPE_PHASES = ("synth", "forward", "backward", "optimizer")
 MAX_CALLS = 4096
 MAX_SPANS = 8192
 
@@ -79,17 +84,22 @@ def trace(log_dir: str, device="cuda"):
 class StepMarks:
     """The marks of `steps` consecutive steps on `device`: a CUDA timing
     event per mark and step on a card, host-clock stamps on the CPU.
-    `step` is the step whose marks are being stamped; `unbounded` names
-    the phases this step path cannot bound (read as None)."""
+    `phases` names the spans between consecutive marks (len(phases) + 1
+    marks a step; `MultiStep`'s are `PHASES`); `step` is the step whose
+    marks are being stamped; `unbounded` names the phases this step path
+    cannot bound (read as None)."""
 
-    def __init__(self, steps: int, device: torch.device, unbounded: Sequence[str] = ()):
+    def __init__(self, steps: int, device: torch.device, unbounded: Sequence[str] = (),
+                 phases: Sequence[str] = PHASES):
         self.cuda = device.type == "cuda"
         self.steps = steps
+        self.phases = tuple(phases)
+        self.n_marks = len(self.phases) + 1
         self.unbounded = frozenset(unbounded)
         self.step = 0
         if self.cuda:
             self._events = [[torch.cuda.Event(enable_timing=True, external=True)
-                             for _ in range(N_MARKS)] for _ in range(steps)]
+                             for _ in range(self.n_marks)] for _ in range(steps)]
         # host stamps; on a card they say which marks the capture recorded
         self._ns: List[List[Optional[int]]] = []
         self.reset()
@@ -98,7 +108,7 @@ class StepMarks:
         """Forget which marks were stamped: the next run of the bodies
         stamps them anew (on a card, the capture: what every replay
         records)."""
-        self._ns = [[None] * N_MARKS for _ in range(self.steps)]
+        self._ns = [[None] * self.n_marks for _ in range(self.steps)]
 
     def mark(self, i: int, step: Optional[int] = None) -> None:
         s = self.step if step is None else step
@@ -124,7 +134,7 @@ class StepMarks:
         """True once the card has passed every recorded mark (never waits)."""
         if not self.cuda:
             return True
-        return all(self._events[s][i].query() for s in range(self.steps) for i in range(N_MARKS)
+        return all(self._events[s][i].query() for s in range(self.steps) for i in range(self.n_marks)
                    if self._ns[s][i] is not None)
 
     def phase_ms(self) -> Dict[str, Optional[float]]:
@@ -132,7 +142,7 @@ class StepMarks:
         step lacks one of the phase's marks, or the path cannot bound it.
         On a card call only when `ready()`."""
         out: Dict[str, Optional[float]] = {}
-        for k, phase in enumerate(PHASES):
+        for k, phase in enumerate(self.phases):
             if phase in self.unbounded or any(row[k] is None or row[k + 1] is None for row in self._ns):
                 out[phase] = None
                 continue

@@ -177,6 +177,31 @@ def test_phases_a_path_cannot_bound_read_none():
     assert all(ph[p] is not None for p in ("nn_fwd", "synth_fwd", "synth_bwd", "nn_bwd"))
 
 
+def test_step_marks_keep_the_ddsp_phases_and_take_others():
+    """StepMarks' default phases are MultiStep's seven, in their mark
+    order, eight marks a step; given other phases (the CREPE step's four)
+    it takes one mark more than phases and reads them in their order."""
+    assert profiling.PHASES == ("nn_fwd", "synth_fwd", "loss_fwd", "loss_bwd", "synth_bwd", "nn_bwd", "optimizer")
+    assert profiling.N_MARKS == 8
+    ddsp = profiling.StepMarks(2, torch.device("cpu"))
+    assert ddsp.phases == profiling.PHASES and ddsp.n_marks == profiling.N_MARKS
+    with profiling.marking(ddsp):
+        for s in range(2):
+            ddsp.step = s
+            for i in range(profiling.N_MARKS):
+                profiling.mark(i)
+    assert list(ddsp.phase_ms()) == list(profiling.PHASES)
+    crepe = profiling.StepMarks(1, torch.device("cpu"), phases=profiling.CREPE_PHASES)
+    assert crepe.n_marks == 5 and profiling.CREPE_PHASES == ("synth", "forward", "backward", "optimizer")
+    with profiling.marking(crepe):
+        for i in range(crepe.n_marks):
+            profiling.mark(i)
+        with pytest.raises(IndexError):
+            profiling.mark(crepe.n_marks)
+    ph = crepe.phase_ms()
+    assert list(ph) == list(profiling.CREPE_PHASES) and all(v is not None and v >= 0 for v in ph.values())
+
+
 def test_a_time_sharded_multistep_records_no_split():
     """The time-sharded step reaches neither the model's nor the loss's
     marks: its call record holds every phase None, never a wrong split."""
