@@ -30,7 +30,12 @@ is printed):
      1536) and the forward at the streaming shapes (1, 1), (1, 8) and the
      pool's (1024, 1), each timed beside its operations bound, its
      sequential floor (375 frames of the barrier probe) and the loop's
-     time at the same shape;
+     time at the same shape; the fused spectral loss's kernels
+     (ops/stft_loss.py) against their plain versions at the train cells'
+     shape (B = 16, T = 192 000, six scales), each pass (the cuFFT
+     transforms too) timed beside its plain version and its bytes at the
+     measured copy rate, and the whole loss forward and backward against
+     the plain path, both float32 paths held to the plain path in float64;
   3. streaming: make_streaming_synth on the full-width violin bundle streams
      64 blocks of a glide on the card and on the CPU (plain versions); the
      two agree, the kernel's launch counter rose by one per block, and the
@@ -235,8 +240,8 @@ is printed):
      launch a pool step; bench_reference.py on the card (the reference's
      restated forward against the port's, both configs, one forward launch
      a call of the port's side); the phase's seconds;
- 30. report: one JSON line {"kernels": [...]} (all four kernels, and the GRU
-     kernels' entries of phase 2; launches by
+ 30. report: one JSON line {"kernels": [...]} (all four kernels, the GRU
+     kernels' and the fused spectral loss's entries of phase 2; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
      synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
@@ -625,6 +630,17 @@ CREPE_BF16_FRAMES, CREPE_BF16_BATCH = 256, 256
 GRU_HIDDEN, GRU_PROBE_FRAMES = 512, 375
 GRU_SHAPES = ((16, 375, 30), (16, 375, 1024), (16, 375, 1536), (1, 1, 1024), (1, 8, 1024), (1024, 1, 1024))
 GRU_KERNEL_ATOL, GRU_BWD_REL = 2e-5, 1e-4
+# phase 2, the fused spectral loss (ops/stft_loss.py) at the train cells'
+# shape: each kernel against its plain version (STFT_KERNEL_REL of the
+# plain version's largest magnitude: hypotf, logf and FMA contraction
+# against torch's elementwise kernels; the framing bit for bit), its bytes
+# over the card's measured copy rate (saxpy, PERF.md §6), and the whole
+# loss forward and backward against the plain path in float64: the loss
+# within STFT_LOSS_REL, the gradient's 90th percentile of error no more
+# than STFT_GRAD_OVER_PLAIN times the float32 plain path's
+STFT_BATCH, STFT_SAMPLES, STFT_SCALES, STFT_OVERLAP = 16, 192_000, (4096, 2048, 1024, 512, 256, 128), 0.75
+STFT_KERNEL_REL, STFT_LOSS_REL, MEASURED_COPY_BYTES_PER_S = 1e-5, 1e-5, 2.983e12
+STFT_GRAD_OVER_PLAIN = 1.5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -660,7 +676,9 @@ def check_spills(name: str, log: str) -> None:
     probe's chain must not be folded."""
     report = ptxas_report(log)
     probes = name == "roofline_probe"
-    if probes or name.startswith("gru"):
+    if name.startswith("stft"):
+        checked = list(report)
+    elif probes or name.startswith("gru"):
         checked = list(report)
         ffma = {fn: len(re.findall(r"\bFFMA\b", text)) for fn, text in kernels.sass(name).items()}
     else:
@@ -669,7 +687,7 @@ def check_spills(name: str, log: str) -> None:
         ffma = {}
     check(bool(checked), f"no checked variant of {name} in the ptxas report")
     for fn, (stores, loads, regs) in sorted(report.items()):
-        m = re.search(r"\d((?:oscillator|roofline|gru)_\w+?_kernel(?:I\w*?E)?)", fn)
+        m = re.search(r"\d((?:oscillator|roofline|gru|stft)_\w+?_kernel(?:I\w*?E)?)", fn)
         extra = f" sass_ffma={ffma[fn]}" if fn in ffma else ""
         print(f"ptxas {name} {m.group(1) if m else fn}: registers={regs} "
               f"spill_stores={stores} B spill_loads={loads} B{extra}", flush=True)
@@ -687,13 +705,18 @@ def check_spills(name: str, log: str) -> None:
         check(sin["fp32_per_sinf"] > 1, f"sin probe fast path {sin}")
 
 
-def train_launches(grus: int, steps: int = 1) -> dict:
+def train_launches(grus: int, steps: int = 1, scales: int = 6) -> dict:
     """{kernel: launches} of `steps` float32 train steps on the card: one of
-    each oscillator kernel a step, and one of each GRU kernel for each of
+    each oscillator kernel a step, one of each GRU kernel for each of
     the model's `grus` GRUs (1 for the decoder, 2 for the autoencoder; 0
-    where the bf16 compute dtype runs the GRU's loop)."""
+    where the bf16 compute dtype runs the GRU's loop), and the fused
+    loss's framing, loss-and-gradient and overlap-add kernels for each of
+    its `scales` STFT scales and its sum once (0 scales: the time-sharded
+    step's own loss)."""
     return {"oscillator_fwd": steps, "oscillator_bwd": steps,
-            "gru_fwd": grus * steps, "gru_bwd": grus * steps}
+            "gru_fwd": grus * steps, "gru_bwd": grus * steps,
+            "stft_frame": scales * steps, "stft_loss_grad": scales * steps,
+            "stft_loss_sum": steps if scales else 0, "stft_overlap_add": scales * steps}
 
 
 def rel_err(got, want) -> float:
@@ -929,6 +952,132 @@ def phase_gru_kernels(device) -> list:
                         "max_rel_err": max(errs.values()), "ms": ms, "loop_ms": loop_ms,
                         "bound_ms": bound_ms, "floor_ms": floor_ms, "rows": gru.gru_bwd.plan[0],
                         "clusters": gru.gru_bwd.plan[1]})
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_stft_loss_kernels(device) -> list:
+    """Phase 2, the fused spectral loss (ops/stft_loss.py) at the train
+    cells' shape (B = 16, T = 192 000, six scales, overlap 0.75): each
+    kernel against its plain version; each pass's time (CUDA events, the
+    cuFFT transforms beside the kernels) and the bytes it moves over the
+    measured copy rate, summed over the scales; the plain version's time
+    beside each kernel's; then the whole loss forward and backward, fused
+    against the plain path (STFTs, means and autograd's backward), loss and
+    gradient compared.  Returns the entries for the report."""
+    from ddsp_pytorch_tpu_torch.ops import stft_loss as sl
+    from ddsp_pytorch_tpu_torch.training.loss import spectral_loss_from_signals
+
+    cycles_per_ms = sleep_cycles_per_ms()
+    g = torch.Generator().manual_seed(SEED)
+    x = (0.3 * torch.randn((STFT_BATCH, STFT_SAMPLES), generator=g)).to(device)
+    y = (0.3 * torch.randn((STFT_BATCH, STFT_SAMPLES), generator=g)).to(device)
+    go = torch.ones((), device=device)
+    b, t, f4 = STFT_BATCH, STFT_SAMPLES, 4
+    totals = {}  # pass → [kernel ms, plain ms or None, bytes]
+
+    def add(name, ms, plain_ms, nbytes):
+        row = totals.setdefault(name, [0.0, None if plain_ms is None else 0.0, 0])
+        row[0] += ms
+        if plain_ms is not None:
+            row[1] += plain_ms
+        row[2] += nbytes
+
+    out = plain_out = None
+    with torch.no_grad():
+        for n in STFT_SCALES:
+            hop = sl.hop_length(n, STFT_OVERLAP)
+            frames_n, bins = sl.n_frames(t, n, hop), n // 2 + 1
+            c = sl.window_constant(n, torch.float32, device)
+            frames = sl.stft_frame(x, y, c, hop)
+            check(torch.equal(frames, sl.stft_frame_plain(x, y, c, hop)), f"stft_frame vs plain at n={n}")
+            ms, _ = time_ms(lambda: sl.stft_frame(x, y, c, hop), 20, cycles_per_ms)
+            pms, _ = time_ms(lambda: sl.stft_frame_plain(x, y, c, hop), 5, cycles_per_ms)
+            add("stft_frame", ms, pms, 2 * b * t * f4 + 2 * b * frames_n * n * f4)
+            spec = torch.fft.rfft(frames, dim=-1)
+            ms, _ = time_ms(lambda: torch.fft.rfft(frames, dim=-1), 20, cycles_per_ms)
+            add("rfft (cuFFT)", ms, None, 2 * b * frames_n * n * f4 + 2 * b * frames_n * bins * 8)
+            partials = torch.empty(sl.loss_blocks(b * frames_n * bins), dtype=torch.float64, device=device)
+            plain_partials = torch.empty_like(partials)
+            grad = sl.stft_loss_grad(spec, n, partials)
+            want = sl.stft_loss_grad_plain(spec, n, plain_partials)
+            err = rel_err(torch.view_as_real(grad), torch.view_as_real(want))
+            check(err <= STFT_KERNEL_REL, f"stft_loss_grad vs plain {err} at n={n}")
+            check(abs(float(partials.sum()) - float(plain_partials.sum())) <= STFT_KERNEL_REL * float(
+                plain_partials.sum()), f"stft_loss_grad partials vs plain at n={n}")
+            ms, _ = time_ms(lambda: sl.stft_loss_grad(spec, n, partials), 20, cycles_per_ms)
+            pms, _ = time_ms(lambda: sl.stft_loss_grad_plain(spec, n, plain_partials), 5, cycles_per_ms)
+            add("stft_loss_grad", ms, pms, 2 * b * frames_n * bins * 8 + b * frames_n * bins * 8)
+            gframes = torch.fft.irfft(grad, n=n, dim=-1, norm="forward")
+            ms, _ = time_ms(lambda: torch.fft.irfft(grad, n=n, dim=-1, norm="forward"), 20, cycles_per_ms)
+            add("irfft (cuFFT, input cloned)", ms, None, b * frames_n * bins * 8 + b * frames_n * n * f4)
+            acc = out is not None
+            out = sl.stft_overlap_add(gframes, c, go, t, hop, out)
+            plain_out = sl.stft_overlap_add_plain(gframes, c, go, t, hop, plain_out)
+            err = rel_err(out, plain_out)
+            check(err <= STFT_KERNEL_REL, f"stft_overlap_add vs plain {err} at n={n}")
+            scratch = torch.zeros_like(out)
+            ms, _ = time_ms(lambda: sl.stft_overlap_add(gframes, c, go, t, hop, scratch if acc else None), 20,
+                            cycles_per_ms)
+            pms, _ = time_ms(lambda: sl.stft_overlap_add_plain(gframes, c, go, t, hop, scratch if acc else None),
+                             3, cycles_per_ms)
+            add("stft_overlap_add", ms, pms, b * frames_n * n * f4 + b * t * f4 * (2 if acc else 1))
+            print(f"stft n={n} hop={hop} frames={frames_n}: kernels match their plain versions", flush=True)
+            del frames, spec, grad, want, gframes
+        ms, _ = time_ms(lambda: sl.stft_loss_sum(partials, torch.float32), 20, cycles_per_ms)
+        add("stft_loss_sum", ms, None, partials.numel() * 8)
+
+    def fused():
+        yy = y.clone().requires_grad_(True)
+        loss = sl.multiscale_spectral_loss(x, yy, STFT_SCALES, STFT_OVERLAP)
+        return loss, torch.autograd.grad(loss, yy)[0]
+
+    def plain(dtype=torch.float32):
+        yy = y.to(dtype, copy=True).requires_grad_(True)
+        loss = spectral_loss_from_signals(x.to(dtype), yy, STFT_SCALES, STFT_OVERLAP)[0]
+        return loss, torch.autograd.grad(loss, yy)[0]
+
+    # both float32 paths against the plain path in float64 on the card: the
+    # gradient's 1/|S_y| weights make the float32 rounding of a few small
+    # bins dominate any norm of its error, so the fused path is held to the
+    # plain path's 90th percentile of |g − g64| (tests/test_torch_stft_loss.py)
+    (loss, grad), (plain_loss, plain_grad), (want_loss, want_grad) = fused(), plain(), plain(torch.float64)
+    loss_rel, plain_loss_rel = (abs(float(v.detach()) - float(want_loss)) / float(want_loss)
+                                for v in (loss, plain_loss))
+    grad_rel, plain_grad_rel = (float((g.double() - want_grad).norm() / want_grad.norm())
+                                for g in (grad, plain_grad))
+    rms = want_grad.pow(2).mean().sqrt()
+    q90 = torch.tensor(0.9, dtype=torch.float64, device=device)
+    grad_q90, plain_grad_q90 = (float(torch.quantile(((g.double() - want_grad).abs() / rms).flatten(), q90))
+                                for g in (grad, plain_grad))
+    del want_grad
+    check(loss_rel <= STFT_LOSS_REL, f"fused loss vs float64 rel {loss_rel}")
+    check(grad_q90 <= STFT_GRAD_OVER_PLAIN * plain_grad_q90,
+          f"fused gradient vs float64: 90th percentile {grad_q90}, the plain path's {plain_grad_q90}")
+    fused_ms, fused_host = time_ms(fused, 10, cycles_per_ms)
+    plain_ms, plain_host = time_ms(plain, 5, cycles_per_ms)
+    bound_bytes = sum(row[2] for row in totals.values())
+    bound_ms = 1e3 * bound_bytes / MEASURED_COPY_BYTES_PER_S
+    entries = []
+    for name, (ms, pms, nbytes) in totals.items():
+        at_copy = 1e3 * nbytes / MEASURED_COPY_BYTES_PER_S
+        plain_text = f" plain_ms={pms:.6f}" if pms is not None else ""
+        print(f"{name} B={b} T={t} {len(STFT_SCALES)} scales: ms={ms:.6f}{plain_text} bytes={nbytes} "
+              f"ms_at_copy_rate={at_copy:.6f} share={at_copy / ms:.3f}", flush=True)
+        entries.append({"name": name, "shape_b_t": [b, t], "scales": list(STFT_SCALES), "ms": ms,
+                        "plain_ms": pms, "bytes": nbytes, "ms_at_copy_rate": at_copy})
+    print(f"spectral loss fwd+bwd B={b} T={t} {len(STFT_SCALES)} scales: fused_ms={fused_ms:.6f} "
+          f"plain_ms={plain_ms:.6f} (host {fused_host:.3f} / {plain_host:.3f}) speedup={plain_ms / fused_ms:.2f} "
+          f"byte bound {bound_bytes / 1e9:.3f} GB = {bound_ms:.4f} ms at {MEASURED_COPY_BYTES_PER_S / 1e9:.0f} GB/s "
+          f"(share {bound_ms / fused_ms:.3f}); against float64: loss rel {loss_rel:.3e} (plain "
+          f"{plain_loss_rel:.3e}), gradient rel L2 {grad_rel:.3e} (plain {plain_grad_rel:.3e}), 90th "
+          f"percentile of the error over the RMS {grad_q90:.3e} (plain {plain_grad_q90:.3e})",
+          flush=True)
+    entries.append({"name": "spectral_loss_fwd_bwd", "shape_b_t": [b, t], "scales": list(STFT_SCALES),
+                    "ms": fused_ms, "plain_ms": plain_ms, "bytes": bound_bytes, "ms_at_copy_rate": bound_ms,
+                    "loss_rel": loss_rel, "grad_rel_l2": grad_rel, "plain_loss_rel": plain_loss_rel,
+                    "plain_grad_rel_l2": plain_grad_rel, "grad_err_q90": grad_q90,
+                    "plain_grad_err_q90": plain_grad_q90})
     torch.cuda.empty_cache()
     return entries
 
@@ -1490,7 +1639,8 @@ def phase_violin_run(device, cache: str, tmp: str) -> tuple:
           f"violin run: loss did not fall by {LOSS_FALL_FACTOR}x: first5 {first5} last5 {last5}")
     check(multi.replays == N_VIOLIN_STEPS // cfg.train.scan_unroll, f"replays {multi.replays}")
     for name, (launches, captured, replayed) in counts.items():
-        check(replayed == N_VIOLIN_STEPS, f"{name} replayed {replayed}x in {N_VIOLIN_STEPS} graphed steps")
+        check(replayed == train_launches(1, N_VIOLIN_STEPS)[name],
+              f"{name} replayed {replayed}x in {N_VIOLIN_STEPS} graphed steps")
     want = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
     want_gen = state.generator.get_state()
     del trainer, state, multi
@@ -2721,7 +2871,8 @@ def phase_oof(device, card: str, tmp: str) -> dict:
     check(traj["loss_first10_mean"] >= LOSS_FALL_FACTOR * traj["loss_last10_mean"],
           f"train_oof: the loss did not fall by {LOSS_FALL_FACTOR}x")
     for name, n in replayed.items():
-        check(n == N_OOF_STEPS, f"{name} replayed {n}x in {N_OOF_STEPS} graphed train_oof steps")
+        check(n == train_launches(1, N_OOF_STEPS)[name], f"{name} replayed {n}x in {N_OOF_STEPS} graphed "
+              "train_oof steps")
     check(peak > 0 and stream_fwd == N_BLOCKS, f"exported stream peak {peak}, {stream_fwd} launches")
     check(err <= STREAM_GPU_VS_CPU_ATOL and err <= EXPORT_STREAM_REL_OF_PEAK * peak,
           f"exported OOF bundle card vs CPU {err} (peak {peak})")
@@ -2976,8 +3127,9 @@ def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
               "leaf errors (max|Δ|/max|g|, own rel L2, |Δ|/|g|): "
               + ", ".join(f"{n}=({of_max[n]:.3e}, {rel_l2[n]:.3e}, {of_whole[n]:.3e})" for n in worst)
               + f"; launches {launched}", flush=True)
-        check(launched == train_launches(1),
-              f"the sharded step launched {launched}, expected one forward and one backward of each")
+        check(launched == train_launches(1, scales=0),
+              f"the sharded step launched {launched}, expected one forward and one backward of each "
+              "oscillator and GRU kernel (its loss is its own)")
         check(rows == fn.plan.frames_pad * cfg.train.batch and fn.plan.frames_pad == 384,
               f"the sharded launch holds {rows} rows, expected 6144")
         check(loss_rel <= TS_LOSS_REL, f"time-sharded loss rel {loss_rel}")
@@ -3040,7 +3192,7 @@ def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
               f"{multi.pool_bytes}; card {card}", flush=True)
         check(loss_rel <= GRAPHED_REL, f"{label}: graphed vs eager loss rel {loss_rel}")
         check(leaf2[worst2] <= GRAPHED_REL, f"{label}: graphed vs eager {worst2} rel {leaf2[worst2]}")
-        check(multi.captured == train_launches(1),
+        check(multi.captured == train_launches(1, scales=6 if mesh is None else 0),
               f"{label}: captured launches {multi.captured}")
         del model_e, model_g, multi, step, state_e, state_g, leaf, worst
         torch.cuda.empty_cache()
@@ -3238,7 +3390,7 @@ def phase_longform(device, card: str) -> int:
           f"launches {launched}; card {card}", flush=True)
     check(audio.shape == want.shape and bool(torch.isfinite(audio).all()), "long-form output")
     check(err <= LONGFORM_REL_OF_PEAK * peak, f"long-form vs unsharded {err / peak} of the peak")
-    check(launched == {"oscillator_fwd": 1, "oscillator_bwd": 0, "gru_fwd": 1, "gru_bwd": 0},
+    check(launched == {name: int(name in ("oscillator_fwd", "gru_fwd")) for name in osc.KERNEL_WRAPPERS},
           f"long-form launches {launched}")
     del model, audio, want
     torch.cuda.empty_cache()
@@ -3917,6 +4069,7 @@ def main() -> int:
     fwd_entry = phase_kernels(device, kernel_ms)
     bwd_entry = phase_bwd_kernel(device, kernel_ms)
     gru_entries = phase_gru_kernels(device)
+    stft_entries = phase_stft_loss_kernels(device)
     probe_checks = phase_probe_kernels(device)
     phase_streaming(device)
     serving_fwd = phase_server(device)
@@ -3979,7 +4132,9 @@ def main() -> int:
     phase_benchmarks(device, card)
     tools = phase_run_tools(device, card)
     last = phase_last_modules(device, card)
-    check(all(n > 0 for n in sharded["fit"].values()), "a kernel was not launched on the time-sharded path")
+    check(all((n > 0) != name.startswith("stft_") for name, n in sharded["fit"].items()),
+          f"the time-sharded path launched {sharded['fit']}: each oscillator and GRU kernel, and no kernel of "
+          "the fused loss (its loss is its own)")
     check(all(n > 0 for n in nccl.values()) and longform_fwd > 0,
           "a kernel was not launched on the NCCL data-parallel or long-form path")
     # launches: the forward's on this slice's main path (phase 29); the
@@ -4022,7 +4177,7 @@ def main() -> int:
                                      **{path: c["oscillator_bwd"] for path, c in tools.items()},
                                      **{path: 0 for path in last}}
 
-    print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries, *gru_entries]}), flush=True)
+    print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries, *gru_entries, *stft_entries]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

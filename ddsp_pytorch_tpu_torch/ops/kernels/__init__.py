@@ -11,7 +11,7 @@ all started together; the first launch of any of the models' kernels
 
 Wrappers that validate tensors, allocate outputs and count launches
 (`count_launch`) live beside each kernel's plain PyTorch version
-(ops/oscillator.py, ops/gru.py, ops/roofline.py).
+(ops/oscillator.py, ops/gru.py, ops/stft_loss.py, ops/roofline.py).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 
 # kernel name → (source file, C launcher symbol, ctypes argtypes)
 _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_F, _D = ctypes.c_float, ctypes.c_double
 KERNELS = {
     "oscillator_fwd": (
         "oscillator_fwd.cu",
@@ -69,9 +70,36 @@ KERNELS = {
         # sink, frames, hidden, rows, stream
         [_P, _I, _I, _I, _P],
     ),
+    "stft_frame": (
+        "stft_loss.cu",
+        "ddsp_stft_frame",
+        # x, y, c, frames, rows of x, T, n, hop, frames a row, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "stft_loss_grad": (
+        "stft_loss.cu",
+        "ddsp_stft_loss_grad",
+        # spec, grad, partials, bins of one signal, bins a frame, Nyquist
+        # bin (−1: none), 1/M as float and as double, blocks, stream
+        [_P, _P, _P, _I, _I, _I, _F, _D, _I, _P],
+    ),
+    "stft_loss_sum": (
+        "stft_loss.cu",
+        "ddsp_stft_loss_sum",
+        # partials, their count, loss, stream
+        [_P, _I, _P, _P],
+    ),
+    "stft_overlap_add": (
+        "stft_loss.cu",
+        "ddsp_stft_overlap_add",
+        # frames' gradients, c, upstream gradient, out, rows, T, n, hop,
+        # frames a row, accumulate, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
 }
 # the kernels the models launch: the first launch of one builds them all
-MODEL_KERNELS = ("oscillator_fwd", "oscillator_bwd", "gru_fwd", "gru_bwd")
+MODEL_KERNELS = ("oscillator_fwd", "oscillator_bwd", "gru_fwd", "gru_bwd", "stft_frame", "stft_loss_grad",
+                 "stft_loss_sum", "stft_overlap_add")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ddsp_pytorch_tpu_torch.ops import gru, kernels
+from ddsp_pytorch_tpu_torch.ops import gru, kernels, stft_loss
 
 TWO_PI = 2.0 * math.pi
 
@@ -262,9 +262,12 @@ oscillator_bank_bwd.replayed = 0
 
 
 # kernel name → its wrapper, whose launches/captured/replayed count it: the
-# models' kernels, the oscillator bank's and the GRU's
+# models' kernels, the oscillator bank's and the GRU's, and the train step's
+# spectral loss's
 KERNEL_WRAPPERS = {"oscillator_fwd": oscillator_bank, "oscillator_bwd": oscillator_bank_bwd,
-                   "gru_fwd": gru.gru_fwd, "gru_bwd": gru.gru_bwd}
+                   "gru_fwd": gru.gru_fwd, "gru_bwd": gru.gru_bwd,
+                   "stft_frame": stft_loss.stft_frame, "stft_loss_grad": stft_loss.stft_loss_grad,
+                   "stft_loss_sum": stft_loss.stft_loss_sum, "stft_overlap_add": stft_loss.stft_overlap_add}
 
 
 def reset_kernel_counts() -> None:

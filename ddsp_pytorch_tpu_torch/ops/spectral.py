@@ -52,12 +52,17 @@ def stft(signal: torch.Tensor, n_fft: int, hop_length: int, normalized: bool = T
     return spec.transpose(-1, -2).abs()
 
 
+def hop_length(n_fft: int, overlap: float) -> int:
+    """The hop of scale n_fft at `overlap`: int(n_fft·(1 − overlap))."""
+    return int(n_fft * (1.0 - overlap))
+
+
 def multiscale_fft(
     signal: torch.Tensor, scales: Sequence[int], overlap: float
 ) -> List[torch.Tensor]:
     """Magnitude STFTs at each FFT size in `scales`, hop = int(s·(1 −
     overlap)) (spectral.py:83-92)."""
-    return [stft(signal, s, int(s * (1.0 - overlap))) for s in scales]
+    return [stft(signal, s, hop_length(s, overlap)) for s in scales]
 
 
 # ------------------------------------------------------------------ mel

@@ -55,7 +55,7 @@ from ddsp_pytorch_tpu_torch.ops.oscillator import KERNEL_WRAPPERS
 from ddsp_pytorch_tpu_torch.parallel.mesh import Mesh
 from ddsp_pytorch_tpu_torch.parallel.sharding import GradientReducer, replicate_state
 from ddsp_pytorch_tpu_torch.training import profiling
-from ddsp_pytorch_tpu_torch.training.loss import spectral_loss_from_signals
+from ddsp_pytorch_tpu_torch.training.loss import path_counts, spectral_loss, spectral_loss_from_signals
 from ddsp_pytorch_tpu_torch.training.metrics import MetricsWriter
 from ddsp_pytorch_tpu_torch.training.optim import (
     Optimizer,
@@ -137,11 +137,12 @@ def loss_and_grads(
     noise is `noise` (B, F, block) if given, else drawn from `generator`.
     A bf16 model's parameters are cast inside this call (models/decoder.py),
     so a captured step never reads a stale copy; its backward runs in the
-    models' matmul precision as its forward does."""
+    models' matmul precision as its forward does.  The loss is
+    training/loss.py `spectral_loss`'s: on the card, the fused kernels."""
     model_batch = _normalize_loudness(batch, mean_loudness, std_loudness)
     with matmul_precision():
         out = model(model_batch, noise=noise, generator=generator)
-        loss, _, _ = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)
+        loss = spectral_loss(batch["sig"], out["signal"], scales, overlap)
         profiling.mark(3)
         params = [p for _, p in model.named_parameters()]
         grads = torch.autograd.grad(loss, params)
@@ -735,6 +736,7 @@ class Trainer:
             return state.step >= total_steps
 
         kernels_before = {name: (w.launches, w.replayed) for name, w in KERNEL_WRAPPERS.items()}
+        paths_before = dict(path_counts)
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
         t_start, mono_start = time.perf_counter(), time.monotonic()
@@ -804,20 +806,21 @@ class Trainer:
             self.metrics.add_scalar(
                 "train_window_steps_per_s", (state.step - start_step) / max(window, 1e-9), state.step
             )
-            self._log_window_costs(state.step, kernels_before, mono_start)
+            self._log_window_costs(state.step, kernels_before, mono_start, paths_before)
         self.checkpointer.save(state)
         return state
 
-    def _log_window_costs(self, step: int, kernels_before: dict, since: float) -> None:
+    def _log_window_costs(self, step: int, kernels_before: dict, since: float, paths_before: dict) -> None:
         """What the train window spent besides steps: the CUDA graph's eager
         warm-up runs and its capture (seconds each) and its nodes a step,
-        the peak of allocated device memory, and each kernel's launches in
+        the peak of allocated device memory, each kernel's launches in
         the window, eager (single steps and a capture's warm-up runs) and
-        replayed in graphs.  From the window's MultiStep calls (their
-        records since `since`, training/profiling.py): the median ms a step
-        of each phase of the step (`step_phase_ms/<phase>`: the device's on
-        a card, the host's on the CPU) and of the graph launch on the host
-        (`host_launch_ms`)."""
+        replayed in graphs, and the loss calls of each path (`loss/fused`,
+        `loss/plain`: a capture is one call).  From the window's MultiStep
+        calls (their records since `since`, training/profiling.py): the
+        median ms a step of each phase of the step (`step_phase_ms/<phase>`:
+        the device's on a card, the host's on the CPU) and of the graph
+        launch on the host (`host_launch_ms`)."""
         if self._multi_step is not None and self._multi_step.capture_s is not None:
             self.metrics.add_scalar("graph_warmup_s", self._multi_step.warmup_s, step)
             self.metrics.add_scalar("graph_capture_s", self._multi_step.capture_s, step)
@@ -837,6 +840,8 @@ class Trainer:
             w = KERNEL_WRAPPERS[name]
             self.metrics.add_scalar(f"kernel_launches/{name}", w.launches - launches, step)
             self.metrics.add_scalar(f"kernel_replayed/{name}", w.replayed - replayed, step)
+        for name, n in path_counts.items():
+            self.metrics.add_scalar(name, n - paths_before[name], step)
 
     def _eval(self, state, batch, seed: int):
         """The eval step on this rank's rows, its noise drawn for the global

@@ -400,11 +400,17 @@ def test_graphed_steps_equal_eager_steps_on_cuda(cuda, unroll):
     for (name, a), b in zip(model_g.named_parameters(), model_e.parameters()):
         assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
     assert torch.equal(state_g.generator.get_state(), state_e.generator.get_state())
-    assert multi.captured == {"oscillator_fwd": unroll, "oscillator_bwd": unroll,
-                              "gru_fwd": unroll, "gru_bwd": unroll}
+    # a step: one launch of each oscillator and GRU kernel, and the fused
+    # loss's framing, loss-and-gradient and overlap-add once a scale (two)
+    # and its sum once
+    per_step = {"oscillator_fwd": 1, "oscillator_bwd": 1, "gru_fwd": 1, "gru_bwd": 1,
+                "stft_frame": 2, "stft_loss_grad": 2, "stft_loss_sum": 1, "stft_overlap_add": 2}
+    assert multi.captured == {name: n * unroll for name, n in per_step.items()}
     assert multi.replays == 4 // unroll
-    for wrapper in osc.KERNEL_WRAPPERS.values():
-        assert (wrapper.launches, wrapper.captured, wrapper.replayed) == (WARMUP_RUNS * unroll, unroll, 4)
+    for name, wrapper in osc.KERNEL_WRAPPERS.items():
+        n = per_step[name]
+        assert (wrapper.launches, wrapper.captured, wrapper.replayed) == (WARMUP_RUNS * unroll * n, unroll * n,
+                                                                          4 * n)
     more = multi(state_g, data, idx2d)  # the next call replays the same graph
     assert bool(torch.isfinite(more).all()) and multi.replays == 8 // unroll
     with pytest.raises(RuntimeError, match="captured for other"):
@@ -569,9 +575,11 @@ def test_autoencoder_graphed_steps_equal_eager_steps_on_cuda(cuda):
     assert _rel(graphed[:, 0], eager[:, 0]) <= GRAPHED_REL
     for (name, a), b in zip(model_g.named_parameters(), model_e.parameters()):
         assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
-    # a step holds one launch of each oscillator kernel and, for the
-    # encoder's GRU and the decoder's, two of each GRU kernel
-    assert multi.captured == {"oscillator_fwd": 2, "oscillator_bwd": 2, "gru_fwd": 4, "gru_bwd": 4}
+    # a step holds one launch of each oscillator kernel, for the encoder's
+    # GRU and the decoder's two of each GRU kernel, and the fused loss's
+    # kernels once a scale (two) but its sum once
+    assert multi.captured == {"oscillator_fwd": 2, "oscillator_bwd": 2, "gru_fwd": 4, "gru_bwd": 4,
+                              "stft_frame": 4, "stft_loss_grad": 4, "stft_loss_sum": 2, "stft_overlap_add": 4}
 
 
 @pytest.mark.cuda
