@@ -213,7 +213,7 @@ is printed):
  28. the run-level tools, at the reference workload (workload.py:
      configs/config.yaml's widths, batch 16 × 375 frames, R = 6000 rows of
      the oscillator a step), each launch counted in the child processes
-     that make it (ops/oscillator.py COUNTS_FILE_ENV): the trainrun
+     that make it (ops/kernels COUNTS_FILE_ENV): the trainrun
      rehearsal (hybrid prep of the 24 + 4 note fixture corpus on the card,
      200 steps in segments of 100 at steps_per_call 50, validation; every
      segment exits 0, the losses finite and falling, each segment's graph
@@ -324,7 +324,6 @@ from ddsp_pytorch_tpu_torch.ops.pitch import extract_pitch, switch_cost, yin_emi
 from ddsp_pytorch_tpu_torch.profile_serving import (
     PROFILER_ACTIVITIES,
     RAMP_VOICES,
-    device_kernels,
     glide,
     voice_ramp,
     voices_per_card_text,
@@ -335,6 +334,7 @@ from ddsp_pytorch_tpu_torch.runtime import ModelHost, selftest
 from ddsp_pytorch_tpu_torch.streaming import StreamingSynth, init_stream_state
 from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
 from ddsp_pytorch_tpu_torch.training import Trainer, make_optimizer, profiling
+from ddsp_pytorch_tpu_torch.training.profiling import device_kernels
 from ddsp_pytorch_tpu_torch.training.loss import multiscale_spec_loss
 from ddsp_pytorch_tpu_torch.training.metrics import read_metrics
 from ddsp_pytorch_tpu_torch.training.optim import Optimizer, global_norm, tree_leaves
@@ -675,7 +675,7 @@ def check_spills(name: str, log: str) -> None:
     For the probes, also each function's FFMA count in its SASS: the fma
     probe's chain must not be folded."""
     report = ptxas_report(log)
-    probes = name == "roofline_probe"
+    probes = name == "roofline_fma"
     if name.startswith("stft"):
         checked = list(report)
     elif probes or name.startswith("gru"):
@@ -851,9 +851,9 @@ def phase_bwd_kernel(device, kernel_ms: dict) -> dict:
     g = torch.tensor(rng.standard_normal((rows, s)).astype(np.float32), device=device)
     ins = [torch.tensor(x, device=device, requires_grad=True) for x in (phi, omega, amp)]
     ref = [torch.tensor(x, device=device, requires_grad=True) for x in (phi, omega, amp)]
-    before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    before = (_launched("oscillator_fwd"), _launched("oscillator_bwd"))
     osc.OscillatorBank.apply(*ins, s).backward(g)
-    check((osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    check((_launched("oscillator_fwd"), _launched("oscillator_bwd"))
           == (before[0] + 1, before[1] + 1), "OscillatorBank did not launch both kernels once")
     osc.oscillator_bank_plain(*ref, s).backward(g)
     torch.cuda.synchronize()
@@ -889,13 +889,11 @@ def phase_gru_kernels(device) -> list:
     time at the same shape.  Returns the entries for the report."""
     cycles_per_ms = sleep_cycles_per_ms()
     sink = torch.empty((8, GRU_HIDDEN), device=device)
-    probe = kernels.launcher("gru_barrier_probe")
 
     @functools.lru_cache(maxsize=None)
     def frame_ms(rows: int) -> float:
-        stream = torch.cuda.current_stream(device).cuda_stream
-        ms, _ = time_ms(lambda: probe(sink.data_ptr(), GRU_PROBE_FRAMES, GRU_HIDDEN, rows, stream), 20,
-                        cycles_per_ms)
+        ms, _ = time_ms(lambda: kernels.launch("gru_barrier_probe", sink, GRU_PROBE_FRAMES, GRU_HIDDEN, rows),
+                        20, cycles_per_ms)
         print(f"gru_barrier_probe rows={rows}: {1e3 * ms / GRU_PROBE_FRAMES:.4f} us a frame "
               f"(exchange of h to 16 blocks and one barrier.cluster)", flush=True)
         return ms / GRU_PROBE_FRAMES
@@ -906,7 +904,7 @@ def phase_gru_kernels(device) -> list:
         train = f > 1 and b > 1
         with torch.no_grad():
             out, h, saved = gru.gru_fwd(x_proj, w_hh, b_hh, h0, save=train)
-            rows, clusters = gru.gru_fwd.plan
+            rows, clusters = gru.plans["gru_fwd"]
             want = gru.gru_fwd_plain(x_proj, w_hh, b_hh, h0)
             torch.cuda.synchronize()
             err = max(float((out - want[0]).abs().max()), float((h - want[1]).abs().max()))
@@ -942,16 +940,16 @@ def phase_gru_kernels(device) -> list:
         loop_ms, _ = time_ms(lambda: torch.autograd.grad(outl, (xl, wl), dout, retain_graph=True), 3,
                              cycles_per_ms)
         del xl, wl, outl
-        print(f"gru_bwd B={b} F={f} in={in_size} (rows a cluster {gru.gru_bwd.plan[0]}, clusters "
-              f"{gru.gru_bwd.plan[1]}): rel err vs plain "
+        print(f"gru_bwd B={b} F={f} in={in_size} (rows a cluster {gru.plans["gru_bwd"][0]}, clusters "
+              f"{gru.plans["gru_bwd"][1]}): rel err vs plain "
               + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
               + f" kernel_ms={ms:.6f} loop_ms={loop_ms:.6f} (autograd through the loop, dW_hh "
               f"included) ops_bound_ms={bound_ms:.6f} sequential_floor_ms={floor_ms:.6f} "
               f"share_of_floor={floor_ms / ms:.3f} speedup_over_loop={loop_ms / ms:.2f}", flush=True)
         entries.append({"name": "gru_bwd", "shape_b_f_in": [b, f, in_size],
                         "max_rel_err": max(errs.values()), "ms": ms, "loop_ms": loop_ms,
-                        "bound_ms": bound_ms, "floor_ms": floor_ms, "rows": gru.gru_bwd.plan[0],
-                        "clusters": gru.gru_bwd.plan[1]})
+                        "bound_ms": bound_ms, "floor_ms": floor_ms, "rows": gru.plans["gru_bwd"][0],
+                        "clusters": gru.plans["gru_bwd"][1]})
     torch.cuda.empty_cache()
     return entries
 
@@ -1093,7 +1091,7 @@ def phase_streaming(device) -> None:
     gpu.reset()
     torch.cuda.synchronize()
 
-    osc.oscillator_bank.launches = 0
+    kernels.reset_counts()
     render_ms, outs = [], []
     for i in range(N_BLOCKS):
         sl = slice(i * block, (i + 1) * block)
@@ -1102,7 +1100,7 @@ def phase_streaming(device) -> None:
         torch.cuda.synchronize()
         render_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(audio)
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
 
     got = torch.cat(outs, dim=-1).cpu().numpy()
     want = torch.cat(
@@ -1201,7 +1199,7 @@ def phase_server(device) -> int:
                 for i in range(N_REQUESTS)
             ]
 
-        osc.oscillator_bank.launches = 0
+        kernels.reset_counts()
         threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
         for t in threads:
             t.start()
@@ -1213,7 +1211,7 @@ def phase_server(device) -> int:
         second = d1.render(pitch[:block], loud[:block])
         d2 = serve.StreamClient(d_host, d_port)
         fresh = d2.render(pitch[:block], loud[:block])
-        launches = osc.oscillator_bank.launches
+        launches = _launched("oscillator_fwd")
         for c in (*clients, d1, d2):
             c.close()
 
@@ -1294,9 +1292,9 @@ def phase_train_step(device) -> None:
 
     cpu_model = init_params(DDSPDecoder(**kw), torch.Generator().manual_seed(SEED))
     gpu_model = copy.deepcopy(cpu_model).to(device)
-    before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    before = (_launched("oscillator_fwd"), _launched("oscillator_bwd"))
     gpu_loss, gpu_grads = step(gpu_model, device)
-    launched = (osc.oscillator_bank.launches - before[0], osc.oscillator_bank_bwd.launches - before[1])
+    launched = (_launched("oscillator_fwd") - before[0], _launched("oscillator_bwd") - before[1])
     cpu_loss, cpu_grads = step(cpu_model, "cpu")
     whole, leaf, norm = _grad_errors(gpu_grads, cpu_grads)
     of_whole = {n: d / norm for n, (d, _) in leaf.items()}
@@ -1411,12 +1409,12 @@ def phase_training(device, cache: str, tmp: str) -> tuple:
     dm.setup()
     run_dir = os.path.join(tmp, "run_config")
     trainer = Trainer(cfg, run_dir, device=device)
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     state = trainer.fit(dm)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fwd, bwd = osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches
+    fwd, bwd = _launched("oscillator_fwd"), _launched("oscillator_bwd")
     steps_run = state.step
     trainer.close()
     losses = [v for _, v in read_metrics(run_dir, "loss")]
@@ -1609,11 +1607,11 @@ def phase_violin_run(device, cache: str, tmp: str) -> tuple:
     equal to the first.  Returns ({kernel: launches on this path}, the
     first run's directory)."""
     run_dir = os.path.join(tmp, "run_violin")
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     cfg, trainer, state, fit_s = _violin_fit(Trainer, run_dir, cache, device)
     shape = (cfg.train.batch * cfg.n_frames, cfg.model.kwargs["n_harmonic"], cfg.model.kwargs["block_size"])
     check(shape == GRAPHED_SHAPE, f"the violin run's kernel shape {shape} is not phase 2's {GRAPHED_SHAPE}")
-    counts = {name: (w.launches, w.captured, w.replayed) for name, w in osc.KERNEL_WRAPPERS.items()}
+    counts = {name: (c["launches"], c["captured"], c["replayed"]) for name, c in _model_counts().items()}
     multi = trainer._multi_step
     losses = [v for _, v in read_metrics(run_dir, "loss")]
     skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
@@ -1692,10 +1690,10 @@ def phase_export_serve(device, run_dir: str, cache: str, tmp: str) -> int:
                    for name in ("pitchs", "loudness"))
     gpu.step_samples(pitch[:, :block], loud[:, :block])  # warm-up on a throwaway state
     gpu.reset()
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     got = torch.cat([gpu.step_samples(pitch[:, i * block:(i + 1) * block], loud[:, i * block:(i + 1) * block])
                      for i in range(N_BLOCKS)], dim=-1).cpu().numpy()
-    streamed = osc.oscillator_bank.launches
+    streamed = _launched("oscillator_fwd")
     want = torch.cat([cpu.step_samples(pitch[:, i * block:(i + 1) * block], loud[:, i * block:(i + 1) * block])
                       for i in range(N_BLOCKS)], dim=-1).numpy()
     err = float(np.abs(got - want).max())
@@ -1710,7 +1708,7 @@ def phase_export_serve(device, run_dir: str, cache: str, tmp: str) -> int:
         client.close()
     finally:
         server.stop()
-    served = osc.oscillator_bank.launches - streamed
+    served = _launched("oscillator_fwd") - streamed
 
     with wave.open(os.path.join(out_dir, "ddsp_smoke_impulse.wav"), "rb") as f:
         sr, n = f.getframerate(), f.getnframes()
@@ -1774,9 +1772,9 @@ def phase_roofline(device, card: str, probe_checks: dict, kernel_ms: dict) -> li
     counts set to 0 just before it; the rates, the SM clock and power under
     the fma probe, and each oscillator kernel's instruction-mix share from
     phase 2's times.  Returns the probes' JSON entries."""
-    roofline.reset_kernel_counts()
+    kernels.reset_counts()
     result = bench_roofline.run(device, kernel_ms=kernel_ms)
-    launches = {name: w.launches for name, w in roofline.KERNEL_WRAPPERS.items()}
+    launches = {name: _launched(name) for name in ("roofline_fma", "roofline_sin")}
     rates = result["rates"]
     clocks = rates["clocks_under_fma_load"]
     check(len(clocks["samples"]) > 0, f"no nvidia-smi sample inside the fma probe's load: {clocks}")
@@ -1924,13 +1922,13 @@ def _serve_clients(bundle: str, voices: int, n_clients: int, device, n_requests:
             finally:
                 c.close()
 
-        before = osc.oscillator_bank.launches
+        before = _launched("oscillator_fwd")
         threads = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=300)
-        launches = osc.oscillator_bank.launches - before
+        launches = _launched("oscillator_fwd") - before
         check(sorted(results) == list(range(n_clients)), f"a client of the voices={voices} server did not finish")
         return [results[i] for i in range(n_clients)], launches
     finally:
@@ -1940,7 +1938,7 @@ def _serve_clients(bundle: str, voices: int, n_clients: int, device, n_requests:
 def phase_pool(device, card: str) -> tuple:
     """Phase 10, with oscillator_fwd's count set to 0 just before it.
     Returns (its launches, the ramps)."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     _pool_vs_streams(device)
     _reverb_vs_offline(device)
     streams, served = _serve_clients(BUNDLE, N_SERVER_VOICES, N_SERVER_VOICES, device, N_REQUESTS)
@@ -1967,7 +1965,7 @@ def phase_pool(device, card: str) -> tuple:
                   f"{r['traced_block_ms']:.4f} ms a block, {r['kernel_launches_per_block']:.0f} launches)"
                   for r in ramp["rows"]) + f"; voices per card {voices_per_card_text(ramp)}", flush=True)
     torch.cuda.empty_cache()
-    return osc.oscillator_bank.launches, ramps
+    return _launched("oscillator_fwd"), ramps
 
 
 def phase_autoencoder(device, card: str) -> int:
@@ -1975,7 +1973,7 @@ def phase_autoencoder(device, card: str) -> int:
     bundle through make_stream_session on the card against the CPU, then
     through StreamServer at voices = 1 and N_SERVER_VOICES.  Returns its
     launches."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     gpu = make_stream_session(AE_BUNDLE, device=device, noise_deterministic=True)
     cpu = make_stream_session(AE_BUNDLE, device="cpu", noise_deterministic=True)
     block, sr = gpu.block_size, gpu.sample_rate
@@ -2023,7 +2021,7 @@ def phase_autoencoder(device, card: str) -> int:
     check(float(np.abs(want).max()) > 1e-3 and np.all(want[:block] == 0), "served AE stream")
     check(err <= POOLED_VS_UNPOOLED_ATOL, f"AE pooled vs unpooled {err}")
     check(served[1][1] > 0 and served[N_SERVER_VOICES][1] > 0, "AE server launches")
-    return osc.oscillator_bank.launches
+    return _launched("oscillator_fwd")
 
 
 def phase_ae_corpus(device, tmp: str) -> tuple:
@@ -2031,12 +2029,12 @@ def phase_ae_corpus(device, tmp: str) -> tuple:
     AE corpus rendered on the card by train_pretrained.render_corpus; its
     first note against the CPU plain render of the same draws.  Returns
     (the cache directory, oscillator_fwd's launches)."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     cache = train_pretrained.render_corpus(tmp, "violin", True, AE_ITEMS, device)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
     train = {n: np.load(os.path.join(cache, "train", f"{n}.npy")) for n in ("signals", "pitchs", "loudness", "mfccs")}
     # the first note of the train partition: the first draws of the seed
     cpu = make_synthetic_dataset(
@@ -2083,13 +2081,13 @@ def phase_ae_run(device, cache: str, tmp: str) -> tuple:
     dm = Datamodule(cfg, device_cache=True, device=device)
     dm.setup()
     trainer = Trainer(cfg, run_dir, device=device)
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     state = trainer.fit(dm)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     trainer.close()
-    counts = {name: (w.launches, w.captured, w.replayed) for name, w in osc.KERNEL_WRAPPERS.items()}
+    counts = {name: (c["launches"], c["captured"], c["replayed"]) for name, c in _model_counts().items()}
     multi = trainer._multi_step
     losses = [v for _, v in read_metrics(run_dir, "loss")]
     skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
@@ -2220,9 +2218,9 @@ def phase_ae_export_serve(device, run_dir: str, cache: str, tmp: str) -> int:
     def sl(i):
         return slice(i * block, (i + 1) * block)
 
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     got = np.concatenate([gpu.step_samples(pitch[sl(i)], loud[sl(i)], audio[sl(i)]) for i in range(N_BLOCKS)])
-    streamed = osc.oscillator_bank.launches
+    streamed = _launched("oscillator_fwd")
     want = np.concatenate([cpu.step_samples(pitch[sl(i)], loud[sl(i)], audio[sl(i)]) for i in range(N_BLOCKS)])
     err, peak = float(np.abs(got - want).max()), float(np.abs(got).max())
     server = serve.StreamServer(bundle, port=0, device=device)
@@ -2233,7 +2231,7 @@ def phase_ae_export_serve(device, run_dir: str, cache: str, tmp: str) -> int:
         client.close()
     finally:
         server.stop()
-    served = osc.oscillator_bank.launches - streamed
+    served = _launched("oscillator_fwd") - streamed
     print(f"exported AE bundle {os.path.basename(bundle)}: parameters equal to the run's; {N_BLOCKS} blocks from "
           f"the middle of a validation note through make_stream_session on the card vs the CPU: max|gpu-cpu|={err:.3e} "
           f"peak={peak:.3e}; first block silent {bool(np.all(got[:block] == 0))}; oscillator_fwd launches="
@@ -2528,7 +2526,7 @@ def phase_transfer(device, tmp: str) -> int:
     render of the CPU's controls against the CPU's render, and the whole
     path card against CPU; then the transfer CLI into a temporary file.
     Returns the forward kernel's launches."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     sr = 48000
     n = 3 * sr
     phase = 2 * np.pi * 220.0 * np.arange(n) / sr
@@ -2543,10 +2541,10 @@ def phase_transfer(device, tmp: str) -> int:
             calls = []
 
             def call(fn, dev, *args, **kw):
-                before = osc.oscillator_bank.launches
+                before = _launched("oscillator_fwd")
                 t0 = time.perf_counter()
                 y = fn(*args, device=dev, **kw)
-                calls.append((time.perf_counter() - t0, osc.oscillator_bank.launches - before))
+                calls.append((time.perf_counter() - t0, _launched("oscillator_fwd") - before))
                 return y
 
             det = call(timbre_transfer, device, bundle, x, sr, octave_shift=octave, noise_deterministic=True)
@@ -2591,7 +2589,7 @@ def phase_transfer(device, tmp: str) -> int:
     print(f"transfer CLI ({SIGMUND_BUNDLE}, octave +1) wrote {written} (channels, rate, frames) in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     check(written == (1, sr, frames * 512), f"transfer CLI wrote {written}")
-    return osc.oscillator_bank.launches
+    return _launched("oscillator_fwd")
 
 
 def phase_headline(device, card: str) -> int:
@@ -2599,11 +2597,11 @@ def phase_headline(device, card: str) -> int:
     bench.py (×-realtime at 48 kHz, 100 harmonics, hidden 512; dispatch and
     value-pull), one forward launch a synth call, then performance.py on the
     violin bundle at batch 1.  Returns its forward launches."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     line = bench.main(["--device", str(device)])
-    bench_launches = osc.oscillator_bank.launches
+    bench_launches = _launched("oscillator_fwd")
     r = performance.run_benchmark(BUNDLE, n_run=10, batch=1, device=device)
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
     print(f"headline: {line['value']:.3f}x realtime dispatch ({line['mean_ms_per_call']:.4f} ms a "
           f"{line['audio_ms_per_call']:.1f} ms call), {line['value_pull_x_realtime']:.3f}x value-pull "
           f"({line['value_pull_ms_per_call']:.4f} ms); forward launches {bench_launches} for "
@@ -2623,10 +2621,10 @@ def phase_drift(device) -> int:
     phase drift over SOAK_SAMPLES and pool churn over SOAK_POOL_SAMPLES on
     the card, then the same phase drift on the CPU.  Returns the card run's
     forward launches."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     drift = soak.phase_drift_soak(SOAK_SAMPLES, device=device)
     churn = soak.pool_churn_soak(SOAK_POOL_SAMPLES, device=device)
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
     cpu = soak.phase_drift_soak(SOAK_SAMPLES, device="cpu")
     n_calls = drift["total_samples"] // (soak.FRAMES_PER_CALL * 512)
     pool_calls = churn["total_samples"] // (soak.FRAMES_PER_CALL * 512)
@@ -2665,13 +2663,13 @@ def _host_vs_session(bundle: str, device, pitch, loud, audio=None) -> dict:
         return session_out(s.step_samples(p[None], l[None]) if a is None else s.step_samples(p, l, a))
 
     host, twin = ModelHost(bundle), make_stream_session(bundle, device=device)
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     got, host_ms = [], []
     for p, l, a in feeds:
         t0 = time.perf_counter()
         got.append(host.perform(p, l, a))
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
     want, session_ms = [], []
     for p, l, a in feeds:
         t0 = time.perf_counter()
@@ -2770,11 +2768,11 @@ def phase_accuracy(device, tmp: str) -> int:
     make_oof_corpus(corpus, sample_rate=16000, n_train=0, n_validation=ACCURACY_FILES)
     with open(ACCURACY_JSON) as f:
         artifact = json.load(f)["summary"]
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     report = pitch_accuracy.score_corpus(corpus, 256, crepe_bundle=CREPE_PARAMS, device=device)
     secs = time.perf_counter() - t0
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
     rows = {}
     for name, summary in report["summary"].items():
         o = summary["overall"]
@@ -2822,10 +2820,10 @@ def _bundle_stream_card_vs_cpu(bundle: str, cache: str, device) -> tuple:
     block = gpu.block_size
     pitch, loud = (np.repeat(np.load(os.path.join(cache, "train", f"{name}.npy"))[:1, :N_BLOCKS], block, axis=1)
                    for name in ("pitchs", "loudness"))
-    before = osc.oscillator_bank.launches
+    before = _launched("oscillator_fwd")
     got = torch.cat([gpu.step_samples(pitch[:, i * block:(i + 1) * block], loud[:, i * block:(i + 1) * block])
                      for i in range(N_BLOCKS)], dim=-1).cpu().numpy()
-    launches = osc.oscillator_bank.launches - before
+    launches = _launched("oscillator_fwd") - before
     want = torch.cat([cpu.step_samples(pitch[:, i * block:(i + 1) * block], loud[:, i * block:(i + 1) * block])
                       for i in range(N_BLOCKS)], dim=-1).numpy()
     check(got.shape == (1, N_BLOCKS * block) and bool(np.isfinite(got).all()), "bundle stream")
@@ -2842,15 +2840,15 @@ def phase_oof(device, card: str, tmp: str) -> dict:
     its exported bundle streamed on the card against the CPU (1e-4, and
     1e-3 of the peak).  Returns {kernel: launches on the path}."""
     root, out = os.path.join(tmp, "oof"), os.path.join(tmp, "oof_out")
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     traj = train_oof.main(["--device", str(device), "--steps", str(N_OOF_STEPS), "--root", root, "--out", out,
                            "--flush-steps", "25", "--checkpoint-every", "0",
                            "--val-interval-epochs", str(OOF_INTERVAL_EPOCHS),
                            "--log-interval-epochs", str(OOF_INTERVAL_EPOCHS)])
     secs = time.perf_counter() - t0
-    counts = {name: w.launches + w.replayed for name, w in osc.KERNEL_WRAPPERS.items()}
-    replayed = {name: w.replayed for name, w in osc.KERNEL_WRAPPERS.items()}
+    counts = _launches_and_replays()
+    replayed = {name: c["replayed"] for name, c in _model_counts().items()}
     run_dir = os.path.join(root, "runs", "oof")
     losses = [v for _, v in read_metrics(run_dir, "loss")]
     skipped = [v for _, v in read_metrics(run_dir, "update_skipped")]
@@ -2892,7 +2890,7 @@ def phase_sigmund(device, tmp: str) -> dict:
     launches in this process} (the unsegmented run and the validation)."""
     root, out = os.path.join(tmp, "sigmund"), os.path.join(tmp, "sigmund_out")
     steps = 2 * SIGMUND_SEGMENT
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     traj = train_sigmund.main(["--device", str(device), "--steps", str(steps), "--segment-steps",
                                str(SIGMUND_SEGMENT), "--steps-per-call", "2", "--batch", "4", "--n-train", "6",
@@ -2907,7 +2905,7 @@ def phase_sigmund(device, tmp: str) -> dict:
     with open(os.path.join(runs, "whole", "trace", profiling.TRACE_FILE)) as f:
         traced = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     traced_osc = sum(1 for e in traced if "oscillator" in e.get("name", "").lower())
-    counts = {name: w.launches + w.replayed for name, w in osc.KERNEL_WRAPPERS.items()}
+    counts = _launches_and_replays()
     seg = torch.load(os.path.join(runs, "sigmund", "checkpoints", f"{steps}.pt"), map_location="cpu",
                      weights_only=False)
     ref = torch.load(os.path.join(runs, "whole", "checkpoints", f"{steps}.pt"), map_location="cpu",
@@ -3034,9 +3032,22 @@ def phase_sweep(device, tmp: str) -> None:
     check(tables["card"][0] == tables["cpu"][0], "the hybrid sweep's RPA differs card vs CPU")
 
 
-def _wrapper_counts() -> dict:
-    """{kernel: launches + graph replays} since the last reset."""
-    return {name: w.launches + w.replayed for name, w in osc.KERNEL_WRAPPERS.items()}
+def _model_counts() -> dict:
+    """{kernel: {launches, captured, replayed}} of the models' kernels since
+    the last reset."""
+    counts = kernels.counts()
+    return {name: counts[name] for name in kernels.MODEL_KERNELS}
+
+
+def _launches_and_replays() -> dict:
+    """{kernel: launches + graph replays} of the models' kernels since the
+    last reset."""
+    return {name: c["launches"] + c["replayed"] for name, c in _model_counts().items()}
+
+
+def _launched(name: str) -> int:
+    """Kernel `name`'s launches since the last reset."""
+    return kernels.counts()[name]["launches"]
 
 
 def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
@@ -3063,12 +3074,12 @@ def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
     dm.setup()
     run_dir = os.path.join(tmp, "run_timesharded")
     trainer = Trainer(fit_cfg, run_dir, device=device, mesh=mesh)
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     state = trainer.fit(dm)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fit = _wrapper_counts()
+    fit = _launches_and_replays()
     trainer.close()
     losses = [v for _, v in read_metrics(run_dir, "loss")]
     val = read_metrics(run_dir, "loss/val")
@@ -3108,10 +3119,10 @@ def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
     for shape in ((1, 4), (2, 4)):
         mesh = make_mesh(*shape)
         fn = make_loss_and_grads(base, cfg, mesh)
-        osc.reset_kernel_counts()
+        kernels.reset_counts()
         loss1, g1 = fn(state, batch, noise)
         torch.cuda.synchronize()
-        launched = _wrapper_counts()
+        launched = _launches_and_replays()
         rows = fn.plan.frames_pad * cfg.train.batch
         loss_rel = abs(float(loss1) - float(loss0)) / abs(float(loss0))
         norm_rel = abs(float(global_norm(g1)) - norm0) / norm0
@@ -3168,9 +3179,9 @@ def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
         eager_ms = (time.perf_counter() - t0) * 1e3 / TS_GRAPH_STEPS
         model_g, tx_g, state_g = fresh(SEED + 32)
         multi = make_train_multi_step(model_g, tx_g, cfg, TS_GRAPH_STEPS, 1, mesh)
-        osc.reset_kernel_counts()
+        kernels.reset_counts()
         graphed = multi(state_g, stacked).cpu()
-        graphed_launches[label] = _wrapper_counts()
+        graphed_launches[label] = _launches_and_replays()
         loss_rel = rel_err(graphed[:, 0], eager[:, 0])
         leaf = _leaf_rel(model_g, model_e)
         worst = max(leaf, key=leaf.get)
@@ -3207,12 +3218,12 @@ def phase_trajectory(device, tmp: str, card: str) -> dict:
     unsharded and on an in-process data 2 × time 4 mesh, 71 frames padded
     to 80) on the card, held to the artifact's bounds.  Returns its
     launches."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     report = time_sharded_trajectory.run_trajectories(cache_dir=os.path.join(tmp, "trajectory_cache"),
                                                       device=device)
     secs = time.perf_counter() - t0
-    launched = _wrapper_counts()
+    launched = _launches_and_replays()
     failed = time_sharded_trajectory.check_bounds(report)
     first, last = report["loss_first_window"], report["loss_last_window"]
     print(f"trajectory ({report['steps']} steps, window {report['window']}): first window unsharded "
@@ -3335,9 +3346,9 @@ def phase_data_parallel(device, cache: str, tmp: str, card: str) -> dict:
                                torch.Generator(device).manual_seed(SEED + 51),
                                meta["mean_loudness"], meta["std_loudness"])
             multi = make_train_multi_step_indexed(model, tx, cfg, TS_GRAPH_STEPS, 1, m)
-            osc.reset_kernel_counts()
+            kernels.reset_counts()
             rows = multi(state, loader.device_data, idx2d).cpu()
-            launched = _wrapper_counts()
+            launched = _launches_and_replays()
             runs[label] = (rows, model, state.generator.get_state(), multi.captured, launched)
         (r0, m0, g0, _, _), (r1, m1, g1, captured, launched) = runs["no mesh"], runs["nccl"]
         bitwise = (torch.equal(r0, r1) and torch.equal(g0, g1)
@@ -3370,13 +3381,13 @@ def phase_longform(device, card: str) -> int:
     synth = LongFormSynthesizer(model, make_mesh(1, 4), mean_loudness=mean, std_loudness=std)
     secs = []
     for i in range(2):
-        osc.reset_kernel_counts()
+        kernels.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         audio = synth.synthesize(f0, loudness, generator=torch.Generator(device).manual_seed(SEED + 41))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        launched = _wrapper_counts()
+        launched = _launches_and_replays()
     with torch.no_grad():
         want = model({"pitch": f0, "loudness": (loudness - mean) / std},
                      generator=torch.Generator(device).manual_seed(SEED + 41))["signal"]
@@ -3390,7 +3401,7 @@ def phase_longform(device, card: str) -> int:
           f"launches {launched}; card {card}", flush=True)
     check(audio.shape == want.shape and bool(torch.isfinite(audio).all()), "long-form output")
     check(err <= LONGFORM_REL_OF_PEAK * peak, f"long-form vs unsharded {err / peak} of the peak")
-    check(launched == {name: int(name in ("oscillator_fwd", "gru_fwd")) for name in osc.KERNEL_WRAPPERS},
+    check(launched == {name: int(name in ("oscillator_fwd", "gru_fwd")) for name in kernels.MODEL_KERNELS},
           f"long-form launches {launched}")
     del model, audio, want
     torch.cuda.empty_cache()
@@ -3463,9 +3474,9 @@ def phase_bf16_step(device, card: str) -> None:
                 stage["gru"] = d.gru(torch.cat([stage["f0_mlp"], stage["loudness_mlp"]], -1))[0]
                 stage["hidden"] = d(f0, ld)[0]
             stage["controls"] = model.frame_controls(f0, ld)[0]["harmonic_distribution"]
-        osc.reset_kernel_counts()
+        kernels.reset_counts()
         loss, grads = loss_and_grads(model, tb, mean, std, cfg.train.scales, cfg.train.overlap, noise=nz)
-        launched = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+        launched = (_launched("oscillator_fwd"), _launched("oscillator_bwd"))
         names = [n for n, _ in model.named_parameters()]
         check(all(g.dtype == torch.float32 for g in grads), "a bf16 step's gradient is not float32")
         return (signal.cpu().double().numpy(), float(loss),
@@ -3567,12 +3578,12 @@ def phase_bf16_fit(device, cache: str, tmp: str, card: str) -> tuple:
     run_dir = os.path.join(tmp, "run_bf16")
     trainer = Trainer(cfg, run_dir, device=device)
     check(trainer.model.compute_dtype == torch.bfloat16, "the bf16 config built a float32 model")
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     state = trainer.fit(dm)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fwd, bwd = osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches
+    fwd, bwd = _launched("oscillator_fwd"), _launched("oscillator_bwd")
     trainer.close()
     dtypes = {p.dtype for p in state.model.parameters()} | {t.dtype for t in tree_leaves(state.opt_state)}
     losses = [v for _, v in read_metrics(run_dir, "loss")]
@@ -3614,20 +3625,20 @@ def phase_bf16_export_serve(device, run_dir: str, cache: str, tmp: str, card: st
                    for name in ("pitchs", "loudness"))
     gpu.step_samples(pitch[:, :block], loud[:, :block])  # warm-up on a throwaway state
     gpu.reset()
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     streams = {name: [] for name in ("gpu", "cpu", "ref")}
     for i in range(N_BLOCKS):
         sl = slice(i * block, (i + 1) * block)
         for name, synth in (("gpu", gpu), ("cpu", cpu), ("ref", ref)):
             streams[name].append(synth.step_samples(pitch[:, sl], loud[:, sl]).cpu().numpy())
-    streamed = osc.oscillator_bank.launches
+    streamed = _launched("oscillator_fwd")
     got, want, f32 = (np.concatenate(streams[n], axis=-1) for n in ("gpu", "cpu", "ref"))
     gap = _bf16_gap(got, want, f32)
     pool = VoicePool(make_streaming_synth(bundle, batch=2, device=device))
     slots = [pool.acquire(), pool.acquire()]
-    before = osc.oscillator_bank.launches
+    before = _launched("oscillator_fwd")
     rows = pool.step({s: (pitch[0, :block:block, None], loud[0, :block:block, None]) for s in slots})
-    pooled = osc.oscillator_bank.launches - before
+    pooled = _launched("oscillator_fwd") - before
     print(f"bf16 bundle {os.path.basename(bundle)} (meta dtype {meta['model']['kwargs']['dtype']}): "
           f"{N_BLOCKS} blocks card vs CPU gap ratios {gap} (peak {float(np.abs(got).max()):.3e}); "
           f"stream carry dtype {gpu.state.gru.dtype}; launches {streamed}; VoicePool(2) step: "
@@ -3662,11 +3673,11 @@ def phase_bf16_autoencoder_step(device, card: str) -> tuple:
     out = {}
     for dtype in ("bfloat16", "float32"):
         model = _model_as(base, dtype, device)
-        osc.reset_kernel_counts()
+        kernels.reset_counts()
         loss, grads = loss_and_grads(model, batch, -7.9, 0.55, cfg.train.scales, cfg.train.overlap, noise=noise)
         out[dtype] = (float(loss), float(global_norm(grads)), all(g.dtype == torch.float32 for g in grads),
                       all(bool(torch.isfinite(g).all()) for g in grads),
-                      (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches))
+                      (_launched("oscillator_fwd"), _launched("oscillator_bwd")))
     print(f"bf16 autoencoder train step ({AE_CONFIG}, batch {b} x {frames} frames): (loss, grad norm, "
           f"grads float32, grads finite, launches) bf16 {out['bfloat16']}, float32 {out['float32']}; "
           f"card {card}", flush=True)
@@ -3680,9 +3691,9 @@ def phase_bf16(device, cache: str, tmp: str, card: str, f32_graphed: dict) -> di
     launches of its paths for the report."""
     phase_bf16_step(device, card)
     (fit_fwd, fit_bwd), run_dir = phase_bf16_fit(device, cache, tmp, card)
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     graphed = phase_graphed_vs_eager(device, cache, card, dtype="bfloat16", unrolls=(1,))
-    graphed_counts = {name: n for name, n in _wrapper_counts().items() if name.startswith("oscillator")}
+    graphed_counts = {name: n for name, n in _launches_and_replays().items() if name.startswith("oscillator")}
     print(f"ms per graphed step (U = 1) at configs/config.yaml: bfloat16 {graphed[1]['step_ms']:.3f}, "
           f"float32 {f32_graphed[1]['step_ms']:.3f} (phase 6), bf16/f32 "
           f"{graphed[1]['step_ms'] / f32_graphed[1]['step_ms']:.4f}; eager bfloat16 "
@@ -3731,8 +3742,8 @@ def phase_benchmarks(device, card: str) -> None:
 
 def _child_launches(path: str) -> dict:
     """{kernel: launches + replays} summed over the child processes that
-    appended their counts to `path` (ops/oscillator.py COUNTS_FILE_ENV)."""
-    total = {name: 0 for name in osc.KERNEL_WRAPPERS}
+    appended their counts to `path` (ops/kernels COUNTS_FILE_ENV)."""
+    total = {name: 0 for name in kernels.MODEL_KERNELS}
     if os.path.exists(path):
         with open(path) as f:
             for line in f:
@@ -3747,11 +3758,11 @@ def _counted_children(path: str):
     (emptied first); yields a function that sums them."""
     if os.path.exists(path):
         os.remove(path)
-    os.environ[osc.COUNTS_FILE_ENV] = path
+    os.environ[kernels.COUNTS_FILE_ENV] = path
     try:
         yield lambda: _child_launches(path)
     finally:
-        del os.environ[osc.COUNTS_FILE_ENV]
+        del os.environ[kernels.COUNTS_FILE_ENV]
 
 
 def phase_trainrun(device, card: str, tmp: str) -> dict:
@@ -3961,12 +3972,12 @@ def phase_public_ops(device, card: str) -> int:
     synth = make_streaming_synth(BUNDLE, batch=2, seed=29, device=device)
     glide_f0 = np.linspace(220.0, 440.0, 2 * 8, dtype=np.float32).reshape(2, 8, 1)
     loud = np.full((2, 8, 1), -3.0, np.float32)
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     synth.state = init_stream_state(synth.model.hidden_size, 2, 29, device=device)
     a = synth.step(glide_f0, loud)
     synth.reset(29)
     b_ = synth.step(glide_f0, loud)
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
     check(torch.equal(a, b_) and float(a.abs().max()) > 0, "init_stream_state step != fresh_state step")
     print(f"public ops on the card vs the CPU: upsample bit for bit, resample max |err| {res_err:.3e}, "
           f"harmonic_synth (B 2, T 1600, K 8) {synth_err[0]:.3e} from the CPU and {synth_err[1]:.3e} from the "
@@ -3980,7 +3991,7 @@ def phase_voice_ramp(device, card: str, tmp: str) -> int:
     """Phase 29b: voice_ramp at its defaults (pool 32, V = 1 … 32) and at
     one wider pool (1024; V = 32, 128, 512, 1024), each report printed
     whole.  Returns their forward launches (one a pool step)."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     reports = {}
     for name, extra in (("defaults", []), ("pool_1024", WIDE_RAMP)):
         t0 = time.perf_counter()
@@ -3988,7 +3999,7 @@ def phase_voice_ramp(device, card: str, tmp: str) -> int:
                                              "--out", os.path.join(tmp, f"voice_ramp_{name}.json")])
         print(json.dumps({"phase": f"voice_ramp_{name}", "seconds": round(time.perf_counter() - t0, 3),
                           "report": reports[name]}), flush=True)
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
     with open("pretrained/voice_ramp_cpu.json") as f:
         record = json.load(f)
     steps = 0
@@ -4004,10 +4015,10 @@ def phase_voice_ramp(device, card: str, tmp: str) -> int:
 def phase_bench_reference(device, card: str, tmp: str) -> int:
     """Phase 29c: bench_reference on the card, both configs' rows printed.
     Returns the port side's forward launches (one a call)."""
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     report = bench_reference.main(["--device", str(device), "--out", os.path.join(tmp, "bench_reference.json")])
-    launches = osc.oscillator_bank.launches
+    launches = _launched("oscillator_fwd")
     with open("REFBENCH_r05.json") as f:
         record = json.load(f)
     for row in report["configs"]:
@@ -4060,7 +4071,7 @@ def main() -> int:
     report = kernels.build()
     print(f"kernel build wall s={time.perf_counter() - t0:.2f}", flush=True)
     for name, (secs, log) in report.items():
-        if not log:  # its source built under another name (gru_fwd.cu's probe)
+        if not log:  # its source built under another name (gru_fwd.cu's probe, roofline_sin)
             continue
         print(f"built {name} in {secs:.2f} s", flush=True)
         check_spills(name, log)

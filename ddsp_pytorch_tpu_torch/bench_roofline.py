@@ -129,7 +129,7 @@ def sin_probe_sass(device) -> dict:
     element and, less the chain's own adds and folds, a sinf."""
     from ddsp_pytorch_tpu_torch.ops import kernels
 
-    text = [t for fn, t in kernels.sass("roofline_probe").items() if "roofline_sin_kernel" in fn]
+    text = [t for fn, t in kernels.sass("roofline_sin").items() if "roofline_sin_kernel" in fn]
     if len(text) != 1:
         raise RuntimeError("the sin probe's function was not found in the SASS")
     counts = sass_fast_path(text[0])

@@ -172,12 +172,13 @@ class GRU(nn.Module):
     (the initial state cast to it, as `h0.astype(dt)`) and every gate are
     in that type (decoder.py:72-94), σ as XLA expands it (`_Logistic`).
 
-    Where the projection is float32 on a CUDA card, H ≤ 512 and the batch
-    not too wide for its frames (`ops.gru.kernel_takes`), the recurrence
-    after the input projection is the hand-written kernels'
-    (`ops.gru.gru_recurrence`: one launch for all frames forward, one
-    backward); the loop below is everything else's: the CPU, float64, the
-    bf16 compute dtype, a larger H and a wide batch of few frames."""
+    Without a compute dtype the recurrence after the input projection is
+    `ops.gru.gru_recurrence`, which chooses between the hand-written
+    kernels (float32 on a CUDA card, H ≤ 512 and the batch not too wide
+    for its frames: one launch for all frames forward, one backward) and
+    the float loop `ops.gru.gru_fwd_plain` (the CPU, float64, a larger H,
+    a wide batch of few frames).  The loop below is the bf16 compute
+    dtype's, whose rounding points are its own."""
 
     def __init__(self, input_size: int, hidden_size: int, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -190,33 +191,25 @@ class GRU(nn.Module):
 
     def forward(self, x: torch.Tensor, initial_state: Optional[torch.Tensor] = None):
         """x (B, F, in) → (outputs (B, F, H), final_state (B, H))."""
-        b = x.shape[0]
         w_ih, w_hh, b_ih, b_hh = self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh
         dt = self.compute_dtype
-        if dt is not None:
-            # cast inside the call: a captured step reads the updated parameters
-            x, w_ih, w_hh, b_ih, b_hh = (t.to(dt) for t in (x, w_ih, w_hh, b_ih, b_hh))
+        if dt is None:
+            return gru.gru_recurrence(x @ w_ih.T + b_ih, w_hh, b_hh, initial_state)
+        # cast inside the call: a captured step reads the updated parameters
+        x, w_ih, w_hh, b_ih, b_hh = (t.to(dt) for t in (x, w_ih, w_hh, b_ih, b_hh))
         x_proj = x @ w_ih.T + b_ih
-        if dt is None and gru.kernel_takes(x_proj, self.hidden_size):
-            h0 = initial_state.contiguous() if initial_state is not None else None
-            return gru.gru_recurrence(x_proj, w_hh, b_hh, h0)
         if initial_state is None:
-            h = torch.zeros((b, self.hidden_size), dtype=x.dtype, device=x.device)
+            h = torch.zeros((x.shape[0], self.hidden_size), dtype=x.dtype, device=x.device)
         else:
-            h = initial_state.to(x.dtype) if dt is not None else initial_state
+            h = initial_state.to(x.dtype)
         w_hh_t = w_hh.T
         outputs = []
         rz_n = (2 * self.hidden_size, self.hidden_size)
         for x_t in x_proj.unbind(1):
             h_proj = h @ w_hh_t + b_hh
-            if dt is None:
-                xr, xz, xn = x_t.chunk(3, dim=-1)
-                hr, hz, hn = h_proj.chunk(3, dim=-1)
-                r = torch.sigmoid(xr + hr)
-                z = torch.sigmoid(xz + hz)
-            else:  # both gates in one call of XLA's logistic
-                (xrz, xn), (hrz, hn) = x_t.split(rz_n, dim=-1), h_proj.split(rz_n, dim=-1)
-                r, z = _Logistic.apply(xrz + hrz).chunk(2, dim=-1)
+            # both gates in one call of XLA's logistic
+            (xrz, xn), (hrz, hn) = x_t.split(rz_n, dim=-1), h_proj.split(rz_n, dim=-1)
+            r, z = _Logistic.apply(xrz + hrz).chunk(2, dim=-1)
             n = torch.tanh(xn + r * hn)
             h = (1.0 - z) * n + z * h
             outputs.append(h)

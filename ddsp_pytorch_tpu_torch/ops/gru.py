@@ -8,16 +8,18 @@ the input projection x_proj = x·W_ihᵀ + b_ih (B, F, 3H) of all frames:
   h_t = (1 − z)·n + z·h_{t−1}
 
 `gru_fwd` and `gru_bwd` are the two dispatch points: a CPU tensor goes to
-the plain PyTorch version (`gru_fwd_plain`, the arithmetic of the loop in
-`GRU.forward`, which also returns what the backward reads;
-`gru_bwd_plain`, the hand-derived backward), a float32 CUDA tensor
-launches the kernel (`ops/kernels/gru_fwd.cu`, `gru_bwd.cu`: one
-persistent launch each for all frames, where the loop launched ~36
-kernels a frame forward and back).  Nothing falls back.  `GRURecurrence`
-joins the two as one autograd function; its backward adds dW_hh and db_hh
-as one plain product and one sum over all frames.  The JAX GRU is a
-`lax.scan` (ddsp_pytorch_tpu/models/decoder.py), so these kernels replace
-no Pallas kernel.
+the plain PyTorch version (`gru_fwd_plain`, the GRU's float loop, which
+also returns what the backward reads; `gru_bwd_plain`, the hand-derived
+backward), a float32 CUDA tensor launches the kernel
+(`ops/kernels/gru_fwd.cu`, `gru_bwd.cu`: one persistent launch each for
+all frames, where the loop launched ~36 kernels a frame forward and
+back).  Nothing falls back.  `GRURecurrence` joins the two as one
+autograd function; its backward adds dW_hh and db_hh as one plain product
+and one sum over all frames.  `gru_recurrence`, which `GRU.forward` calls
+without a compute dtype, is the one place that chooses between the
+kernels and the loop (`kernel_takes`).  The JAX GRU is a `lax.scan`
+(ddsp_pytorch_tpu/models/decoder.py), so these kernels replace no Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ MAX_KERNEL_HIDDEN = 512
 KERNEL_ROWS_A_FRAME, KERNEL_MAX_BATCH = 128, 512
 # the planes of the forward's saved activations, (5, B, F, H)
 SAVED = ("r", "z", "n", "hp_n", "h_prev")
+# (rows a cluster, clusters) each kernel chose at its last launch
+plans = {"gru_fwd": None, "gru_bwd": None}
 
 
 def kernel_takes(x_proj: torch.Tensor, hidden: int) -> bool:
@@ -53,12 +57,11 @@ def kernel_takes(x_proj: torch.Tensor, hidden: int) -> bool:
 
 
 def gru_fwd_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                  h0: Optional[torch.Tensor] = None):
-    """Plain PyTorch version of the forward kernel: x_proj (B, F, 3H), w_hh
-    (3H, H), b_hh (3H), h0 (B, H) or None (zeros) → (out (B, F, H),
-    h_final (B, H), saved (5, B, F, H): r, z, n, hp_n and h_{t−1} of each
-    frame).  The loop of `GRU.forward` without a compute dtype, operation
-    for operation."""
+                  h0: Optional[torch.Tensor] = None, save: bool = True):
+    """Plain PyTorch version of the forward kernel, and the GRU's float
+    loop: x_proj (B, F, 3H), w_hh (3H, H), b_hh (3H), h0 (B, H) or None
+    (zeros) → (out (B, F, H), h_final (B, H), saved (5, B, F, H): r, z, n,
+    hp_n and h_{t−1} of each frame, or None where not `save`)."""
     b, _, _ = x_proj.shape
     h = h0 if h0 is not None else torch.zeros((b, w_hh.shape[1]), dtype=x_proj.dtype,
                                               device=x_proj.device)
@@ -71,10 +74,11 @@ def gru_fwd_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)
         n = torch.tanh(xn + r * hn)
-        saved.append(torch.stack([r, z, n, hn, h]))
+        if save:
+            saved.append(torch.stack([r, z, n, hn, h]))
         h = (1.0 - z) * n + z * h
         outputs.append(h)
-    return torch.stack(outputs, dim=1), h, torch.stack(saved, dim=2)
+    return torch.stack(outputs, dim=1), h, torch.stack(saved, dim=2) if save else None
 
 
 def gru_bwd_plain(dout: torch.Tensor, dh_final: Optional[torch.Tensor], saved: torch.Tensor,
@@ -103,54 +107,15 @@ def gru_bwd_plain(dout: torch.Tensor, dh_final: Optional[torch.Tensor], saved: t
     return torch.stack(dxp, dim=1), torch.stack(dhp, dim=1), carry
 
 
-def _check(named, hidden: int) -> None:
-    """One device, one type (float32 for the kernels; float64 too for the
-    plain versions on the CPU), contiguous."""
-    device, dtype = named[0][1].device, named[0][1].dtype
-    allowed = (torch.float32, torch.float64) if device.type == "cpu" else (torch.float32,)
-    if dtype not in allowed:
-        raise TypeError(f"{named[0][0]} must be one of {allowed} on {device}, got {dtype}")
-    for name, t in named:
-        if t is None:
-            continue
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype} like {named[0][0]}, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, {named[0][0]} on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    if device.type == "cuda" and hidden > MAX_KERNEL_HIDDEN:
-        raise ValueError(f"the GRU kernels take H ≤ {MAX_KERNEL_HIDDEN}, got {hidden}")
-
-
-def _launch(name: str, wrapper, *args) -> tuple:
-    """Launch kernel `name` on the current stream of the first tensor's
-    device with the tensors (or None) and ints in `args`; returns the
-    (rows a cluster, clusters) it chose."""
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    plan = (ctypes.c_int * 2)()
-    launch = kernels.launcher(name)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        err = launch(*ptrs, plan, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    kernels.count_launch(wrapper)
-    return plan[0], plan[1]
-
-
 def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
             h0: Optional[torch.Tensor] = None, save: bool = True):
     """The recurrence's forward: x_proj (B, F, 3H), w_hh (3H, H), b_hh (3H),
     h0 (B, H) or None (zeros), all of one type, contiguous on one device →
     (out (B, F, H), h_final (B, H), saved (5, B, F, H), or None where not
-    `save` on the card).
+    `save`).
 
     CPU tensors run the plain version (float64 too); float32 CUDA tensors
-    launch the kernel and count the launch in `gru_fwd.launches` (in
-    `.captured` while a CUDA graph is being captured)."""
+    launch the kernel `gru_fwd`."""
     if x_proj.dim() != 3 or w_hh.dim() != 2 or w_hh.shape[0] != 3 * w_hh.shape[1]:
         raise ValueError(f"need x_proj (B, F, 3H), w_hh (3H, H); got {tuple(x_proj.shape)}, "
                          f"{tuple(w_hh.shape)}")
@@ -161,17 +126,20 @@ def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                          f"{tuple(x_proj.shape)}, {tuple(b_hh.shape)}")
     if h0 is not None and h0.shape != (b, hidden):
         raise ValueError(f"need h0 ({b}, {hidden}); got {tuple(h0.shape)}")
-    _check([("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)], hidden)
+    kernels.check_operands({"x_proj": x_proj, "w_hh": w_hh, "b_hh": b_hh, "h0": h0})
     if x_proj.device.type == "cpu":
-        return gru_fwd_plain(x_proj, w_hh, b_hh, h0)
+        return gru_fwd_plain(x_proj, w_hh, b_hh, h0, save)
+    if hidden > MAX_KERNEL_HIDDEN:
+        raise ValueError(f"the GRU kernels take H ≤ {MAX_KERNEL_HIDDEN}, got {hidden}")
     out = torch.empty((b, f, hidden), dtype=torch.float32, device=x_proj.device)
     h_final = torch.empty((b, hidden), dtype=torch.float32, device=x_proj.device)
     saved = (torch.empty((len(SAVED), b, f, hidden), dtype=torch.float32, device=x_proj.device)
              if save else None)
     if b == 0:
         return out, h_final, saved
-    gru_fwd.plan = _launch("gru_fwd", gru_fwd, x_proj, w_hh, b_hh, h0, out, h_final, saved, b, f,
-                           hidden)
+    plan = (ctypes.c_int * 2)()
+    kernels.launch("gru_fwd", x_proj, w_hh, b_hh, h0, out, h_final, saved, b, f, hidden, plan)
+    plans["gru_fwd"] = tuple(plan)
     return out, h_final, saved
 
 
@@ -183,8 +151,7 @@ def gru_bwd(dout: torch.Tensor, dh_final: Optional[torch.Tensor], saved: torch.T
     3H), the initial state's cotangent (B, H)).
 
     CPU tensors run the plain version (float64 too); float32 CUDA tensors
-    launch the kernel and count the launch in `gru_bwd.launches` (in
-    `.captured` while a CUDA graph is being captured)."""
+    launch the kernel `gru_bwd`."""
     if dout.dim() != 3 or saved.shape != (len(SAVED), *dout.shape):
         raise ValueError(f"need dout (B, F, H), saved (5, B, F, H); got {tuple(dout.shape)}, "
                          f"{tuple(saved.shape)}")
@@ -193,22 +160,20 @@ def gru_bwd(dout: torch.Tensor, dh_final: Optional[torch.Tensor], saved: torch.T
         raise ValueError(f"need w_hh ({3 * hidden}, {hidden}) and F ≥ 1; got {tuple(w_hh.shape)}, F = {f}")
     if dh_final is not None and dh_final.shape != (b, hidden):
         raise ValueError(f"need dh_final ({b}, {hidden}); got {tuple(dh_final.shape)}")
-    _check([("dout", dout), ("dh_final", dh_final), ("saved", saved), ("w_hh", w_hh)], hidden)
+    kernels.check_operands({"dout": dout, "dh_final": dh_final, "saved": saved, "w_hh": w_hh})
     if dout.device.type == "cpu":
         return gru_bwd_plain(dout, dh_final, saved, w_hh)
+    if hidden > MAX_KERNEL_HIDDEN:
+        raise ValueError(f"the GRU kernels take H ≤ {MAX_KERNEL_HIDDEN}, got {hidden}")
     dxp = torch.empty((b, f, 3 * hidden), dtype=torch.float32, device=dout.device)
     dhp = torch.empty((b, f, 3 * hidden), dtype=torch.float32, device=dout.device)
     dh0 = torch.empty((b, hidden), dtype=torch.float32, device=dout.device)
     if b == 0:
         return dxp, dhp, dh0
-    gru_bwd.plan = _launch("gru_bwd", gru_bwd, dout, dh_final, saved, w_hh, dxp, dhp, dh0, b, f,
-                           hidden)
+    plan = (ctypes.c_int * 2)()
+    kernels.launch("gru_bwd", dout, dh_final, saved, w_hh, dxp, dhp, dh0, b, f, hidden, plan)
+    plans["gru_bwd"] = tuple(plan)
     return dxp, dhp, dh0
-
-
-for _wrapper in (gru_fwd, gru_bwd):
-    _wrapper.launches = _wrapper.captured = _wrapper.replayed = 0
-    _wrapper.plan = None  # (rows a cluster, clusters) of the last launch
 
 
 class GRURecurrence(torch.autograd.Function):
@@ -242,9 +207,15 @@ class GRURecurrence(torch.autograd.Function):
 
 def gru_recurrence(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                    h0: Optional[torch.Tensor] = None):
-    """(out (B, F, H), h_final (B, H)) of the recurrence: through
+    """(out (B, F, H), h_final (B, H)) of the recurrence, the one choice
+    between the kernels and the loop.  Where `kernel_takes`: through
     `GRURecurrence` where a gradient is wanted, else one `gru_fwd` that
-    saves nothing."""
+    saves nothing.  Everywhere else (the CPU, float64, a larger H, a wide
+    batch of few frames): the loop, `gru_fwd_plain` under autograd, saving
+    nothing."""
+    if not kernel_takes(x_proj, w_hh.shape[1]):
+        return gru_fwd_plain(x_proj, w_hh, b_hh, h0, save=False)[:2]
+    h0 = h0.contiguous() if h0 is not None else None
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x_proj, w_hh, b_hh, h0)):
         return GRURecurrence.apply(x_proj, w_hh, b_hh, h0)

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels: build at first use, bind with ctypes.
 
 Each `*.cu` here is one kernel with a plain `extern "C"` launcher (a
-source may hold a second, such as gru_fwd.cu's barrier probe).  It is
+source may hold a second, such as gru_fwd.cu's barrier probe, and one
+launcher may stand under two names, as the roofline probes' does, to be
+counted apart).  It is
 compiled with nvcc into `_build/lib<source>-<source hash>.so` (listed in
 .gitignore) the first time it is needed, never at import, and loaded with
 ctypes.  The source hash in the file name rebuilds a kernel whose source
@@ -9,18 +11,26 @@ changed.  Several kernels build in parallel: one nvcc process per source,
 all started together; the first launch of any of the models' kernels
 (`MODEL_KERNELS`) builds all of them so, rather than one after another.
 
-Wrappers that validate tensors, allocate outputs and count launches
-(`count_launch`) live beside each kernel's plain PyTorch version
-(ops/oscillator.py, ops/gru.py, ops/stft_loss.py, ops/roofline.py).
+This module is also the one seam between the op modules and the kernels:
+`launch(name, *args)` is the only caller of a C launcher, and counts each
+launch in one table (`counts`, `reset_counts`, `count_replayed`);
+`check_operands` is the rule every wrapper holds its tensors to.  Each op
+module (ops/oscillator.py, ops/gru.py, ops/stft_loss.py, ops/roofline.py)
+keeps its shape checks, its plain PyTorch versions, the allocation of its
+outputs and one `launch` a kernel.  Adding a kernel adds its `KERNELS`
+entry here and touches nothing else outside its own op module.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 
@@ -44,10 +54,16 @@ KERNELS = {
         # block_size, stream
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
-    "roofline_probe": (
+    # the two roofline probes: one source and symbol, counted apart
+    "roofline_fma": (
         "roofline_probe.cu",
         "ddsp_roofline_probe",
         # x, out, n, kind (0 fma, 1 sin), threads a block, stream
+        [_P, _P, _I, _I, _I, _P],
+    ),
+    "roofline_sin": (
+        "roofline_probe.cu",
+        "ddsp_roofline_probe",
         [_P, _P, _I, _I, _I, _P],
     ),
     "gru_fwd": (
@@ -194,14 +210,91 @@ def launcher(name: str):
     return fn
 
 
-def count_launch(wrapper) -> None:
-    """Count a kernel launch on its wrapper: `launches` when it ran now;
-    `captured` when the stream is capturing a CUDA graph, where the kernel
-    is recorded and runs only when the graph is replayed (the replaying
-    code adds the graph's captured launches to `replayed`)."""
+def check_operands(operands: dict, spectra: bool = False) -> None:
+    """The rule every kernel wrapper holds its tensors to, for `operands`
+    ({name: tensor or None}, the first a tensor; None is skipped): one
+    device, `cpu` or `cuda`; one real type, float32 on a card and float32
+    or float64 on the CPU (the plain versions' reference), complex of it
+    too where the op takes `spectra`; contiguous.  Raises TypeError for a
+    type, ValueError for a device or a layout."""
     import torch  # here: this module is imported by code that needs no torch
 
-    if torch.cuda.is_current_stream_capturing():
-        wrapper.captured += 1
-    else:
-        wrapper.launches += 1
+    (first, t0), *_ = operands.items()
+    device = t0.device
+    real = t0.dtype.to_real() if spectra else t0.dtype
+    allowed = (torch.float32, torch.float64) if device.type == "cpu" else (torch.float32,)
+    if real not in allowed:
+        raise TypeError(f"{first} must be one of {allowed}{' (or complex)' if spectra else ''} on "
+                        f"{device}, got {t0.dtype}")
+    for name, t in operands.items():
+        if t is None:
+            continue
+        if (t.dtype.to_real() if spectra else t.dtype) != real:
+            raise TypeError(f"{name} must be {'of ' if spectra else ''}{real} like {first}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, {first} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+
+
+# kernel → its launches: `launches` ran when launched, `captured` were
+# recorded into a CUDA graph under stream capture, `replayed` ran in the
+# replays of such graphs (which the replaying code adds, `count_replayed`)
+_counts = {name: {"launches": 0, "captured": 0, "replayed": 0} for name in KERNELS}
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream of the first tensor
+    argument's device: tensors pass as their data pointers, None as a null
+    pointer, ints, floats and ctypes objects as they are, and the stream
+    last.  Raises on a non-zero cudaError; counts the launch in `captured`
+    while the current stream is capturing a CUDA graph, else in
+    `launches`."""
+    import torch
+
+    fn = launcher(name)
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    _counts[name]["captured" if torch.cuda.is_current_stream_capturing() else "launches"] += 1
+
+
+def count_replayed(captured: dict) -> None:
+    """Add one replay of a graph that captured {kernel: launches} to
+    `replayed`."""
+    for name, n in captured.items():
+        _counts[name]["replayed"] += n
+
+
+def counts() -> dict:
+    """A snapshot of the count table: {kernel: {launches, captured,
+    replayed}} of every kernel in `KERNELS`, since the process started or
+    the last `reset_counts`."""
+    return {name: dict(c) for name, c in _counts.items()}
+
+
+def reset_counts() -> None:
+    for c in _counts.values():
+        c.update(launches=0, captured=0, replayed=0)
+
+
+# where a process appends its models' kernel counts when it exits, one JSON
+# line, if this variable names a file: a parent that drives the port
+# through child processes (the CLIs, segmented runs) sums them
+COUNTS_FILE_ENV = "DDSP_KERNEL_COUNTS_FILE"
+
+
+def _append_counts_at_exit() -> None:
+    path = os.environ.get(COUNTS_FILE_ENV)
+    if path:
+        with open(path, "a") as f:
+            f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv,
+                                "counts": {name: _counts[name] for name in MODEL_KERNELS}}) + "\n")
+
+
+atexit.register(_append_counts_at_exit)

@@ -24,17 +24,13 @@ saves φ, ω, A and recomputes the sines in backward.
 
 from __future__ import annotations
 
-import atexit
-import json
 import math
-import os
-import sys
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ddsp_pytorch_tpu_torch.ops import gru, kernels, stft_loss
+from ddsp_pytorch_tpu_torch.ops import kernels
 
 TWO_PI = 2.0 * math.pi
 
@@ -151,29 +147,13 @@ def _check_rows(phi, omega, amp, block_size, grad=None) -> int:
             f"{tuple(omega.shape)}, {tuple(amp.shape)}"
         )
     block_size = int(block_size)
-    named = [("phi", phi), ("omega", omega), ("amp", amp)]
-    if grad is not None:
-        if grad.shape != (phi.shape[0], block_size):
-            raise ValueError(
-                f"need grad (R, S) = ({phi.shape[0]}, {block_size}); got {tuple(grad.shape)}"
-            )
-        named.append(("grad", grad))
-    # float64 only for the plain versions on the CPU, the reference that
-    # float32 runs are measured against; the kernels take float32 only
-    allowed = (torch.float32, torch.float64) if phi.device.type == "cpu" else (torch.float32,)
-    if phi.dtype not in allowed:
-        raise TypeError(f"phi must be one of {allowed} on {phi.device}, got {phi.dtype}")
-    for name, t in named:
-        if t.dtype != phi.dtype:
-            raise TypeError(f"{name} must be {phi.dtype} like phi, got {t.dtype}")
-        if t.device != phi.device:
-            raise ValueError(f"{name} is on {t.device}, phi on {phi.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if grad is not None and grad.shape != (phi.shape[0], block_size):
+        raise ValueError(
+            f"need grad (R, S) = ({phi.shape[0]}, {block_size}); got {tuple(grad.shape)}"
+        )
+    kernels.check_operands({"phi": phi, "omega": omega, "amp": amp, "grad": grad})
     if block_size < 1 or amp.shape[1] < 1:
         raise ValueError("need block_size ≥ 1 and K ≥ 1")
-    if phi.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {phi.device}")
     return block_size
 
 
@@ -184,8 +164,7 @@ def oscillator_bank(
     float32 and contiguous on one device → audio (R, block_size).
 
     CPU tensors run the plain version (float64 too); CUDA tensors launch
-    the kernel and count the launch in `oscillator_bank.launches` (in
-    `.captured` while a CUDA graph is being captured).
+    the kernel `oscillator_fwd`.
     """
     block_size = _check_rows(phi, omega, amp, block_size)
     if phi.device.type == "cpu":
@@ -196,22 +175,8 @@ def oscillator_bank(
     out = torch.empty((rows, block_size), dtype=torch.float32, device=phi.device)
     if rows == 0:
         return out
-    launch = kernels.launcher("oscillator_fwd")
-    with torch.cuda.device(phi.device):
-        err = launch(
-            phi.data_ptr(), omega.data_ptr(), amp.data_ptr(), out.data_ptr(),
-            rows, n_harmonic, block_size,
-            torch.cuda.current_stream(phi.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"oscillator_fwd launch failed: cudaError {err}")
-    kernels.count_launch(oscillator_bank)
+    kernels.launch("oscillator_fwd", phi, omega, amp, out, rows, n_harmonic, block_size)
     return out
-
-
-oscillator_bank.launches = 0
-oscillator_bank.captured = 0
-oscillator_bank.replayed = 0
 
 
 def oscillator_bank_bwd(
@@ -226,8 +191,7 @@ def oscillator_bank_bwd(
     device → (dphi (R,), domega (R,), damp (R, K)).
 
     CPU tensors run the plain version (float64 too); CUDA tensors launch
-    the kernel and count the launch in `oscillator_bank_bwd.launches` (in
-    `.captured` while a CUDA graph is being captured).
+    the kernel `oscillator_bwd`.
     """
     block_size = _check_rows(phi, omega, amp, block_size, grad)
     if phi.device.type == "cpu":
@@ -242,59 +206,9 @@ def oscillator_bank_bwd(
     damp = torch.empty((rows, n_harmonic), dtype=torch.float32, device=phi.device)
     if rows == 0:
         return dphi, domega, damp
-    launch = kernels.launcher("oscillator_bwd")
-    with torch.cuda.device(phi.device):
-        err = launch(
-            phi.data_ptr(), omega.data_ptr(), amp.data_ptr(), grad.data_ptr(),
-            dphi.data_ptr(), domega.data_ptr(), damp.data_ptr(),
-            rows, n_harmonic, block_size,
-            torch.cuda.current_stream(phi.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"oscillator_bwd launch failed: cudaError {err}")
-    kernels.count_launch(oscillator_bank_bwd)
+    kernels.launch("oscillator_bwd", phi, omega, amp, grad, dphi, domega, damp, rows, n_harmonic,
+                   block_size)
     return dphi, domega, damp
-
-
-oscillator_bank_bwd.launches = 0
-oscillator_bank_bwd.captured = 0
-oscillator_bank_bwd.replayed = 0
-
-
-# kernel name → its wrapper, whose launches/captured/replayed count it: the
-# models' kernels, the oscillator bank's and the GRU's, and the train step's
-# spectral loss's
-KERNEL_WRAPPERS = {"oscillator_fwd": oscillator_bank, "oscillator_bwd": oscillator_bank_bwd,
-                   "gru_fwd": gru.gru_fwd, "gru_bwd": gru.gru_bwd,
-                   "stft_frame": stft_loss.stft_frame, "stft_loss_grad": stft_loss.stft_loss_grad,
-                   "stft_loss_sum": stft_loss.stft_loss_sum, "stft_overlap_add": stft_loss.stft_overlap_add}
-
-
-def reset_kernel_counts() -> None:
-    for wrapper in KERNEL_WRAPPERS.values():
-        wrapper.launches = wrapper.captured = wrapper.replayed = 0
-
-
-# where a process appends its kernel counts when it exits, one JSON line,
-# if this variable names a file: a parent that drives the port through
-# child processes (the CLIs, segmented runs) sums them
-COUNTS_FILE_ENV = "DDSP_KERNEL_COUNTS_FILE"
-
-
-def kernel_counts() -> dict:
-    """{kernel: {launches, captured, replayed}} of this process."""
-    return {name: {"launches": w.launches, "captured": w.captured, "replayed": w.replayed}
-            for name, w in KERNEL_WRAPPERS.items()}
-
-
-def _append_counts_at_exit() -> None:
-    path = os.environ.get(COUNTS_FILE_ENV)
-    if path:
-        with open(path, "a") as f:
-            f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv, "counts": kernel_counts()}) + "\n")
-
-
-atexit.register(_append_counts_at_exit)
 
 
 class OscillatorBank(torch.autograd.Function):

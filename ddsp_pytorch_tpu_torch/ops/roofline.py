@@ -13,8 +13,8 @@ a float32 tensor:
 `fma_chain` and `sin_chain` are the dispatch points: a CPU tensor runs the
 plain PyTorch version (`*_plain`, the same arithmetic), a CUDA tensor
 launches the hand-written kernel `ops/kernels/roofline_probe.cu`, one
-thread an element in blocks of `threads`, and counts the launch on the
-wrapper.  Nothing falls back.  Only the roofline
+thread an element in blocks of `threads`, counted as `roofline_fma` or
+`roofline_sin` (ops/kernels).  Nothing falls back.  Only the roofline
 measurement (`bench_roofline.py`) calls them; no serving or training path
 does.
 """
@@ -70,7 +70,7 @@ def sin_chain_plain(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _probe(x: torch.Tensor, kind: int, threads: int, plain, wrapper) -> torch.Tensor:
+def _probe(x: torch.Tensor, kind: int, threads: int, plain) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain(x)
     if x.device.type != "cuda":
@@ -85,35 +85,17 @@ def _probe(x: torch.Tensor, kind: int, threads: int, plain, wrapper) -> torch.Te
     out = torch.empty_like(x)
     if n == 0:
         return out
-    launch = kernels.launcher("roofline_probe")
-    with torch.cuda.device(x.device):
-        err = launch(x.data_ptr(), out.data_ptr(), n, kind, threads,
-                     torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"roofline_probe launch failed: cudaError {err}")
-    kernels.count_launch(wrapper)
+    kernels.launch(("roofline_fma", "roofline_sin")[kind], x, out, n, kind, threads)
     return out
 
 
 def fma_chain(x: torch.Tensor, threads: int = FMA_THREADS) -> torch.Tensor:
     """The fma probe on any shape: a CPU tensor (float32 or float64) runs
     the plain version; a contiguous float32 CUDA tensor launches the kernel
-    in blocks of `threads` and counts it in `fma_chain.launches`."""
-    return _probe(x, 0, threads, fma_chain_plain, fma_chain)
+    in blocks of `threads`, counted as `roofline_fma`."""
+    return _probe(x, 0, threads, fma_chain_plain)
 
 
 def sin_chain(x: torch.Tensor, threads: int = SIN_THREADS) -> torch.Tensor:
-    """The sin probe: as `fma_chain`, counted in `sin_chain.launches`."""
-    return _probe(x, 1, threads, sin_chain_plain, sin_chain)
-
-
-for _wrapper in (fma_chain, sin_chain):
-    _wrapper.launches = _wrapper.captured = _wrapper.replayed = 0
-
-# kernel name → its wrapper, whose launches count it
-KERNEL_WRAPPERS = {"roofline_fma": fma_chain, "roofline_sin": sin_chain}
-
-
-def reset_kernel_counts() -> None:
-    for wrapper in KERNEL_WRAPPERS.values():
-        wrapper.launches = wrapper.captured = wrapper.replayed = 0
+    """The sin probe: as `fma_chain`, counted as `roofline_sin`."""
+    return _probe(x, 1, threads, sin_chain_plain)

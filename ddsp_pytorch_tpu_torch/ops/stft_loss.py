@@ -32,7 +32,6 @@ kernels replace no Pallas kernel.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Optional, Sequence
@@ -147,47 +146,17 @@ def stft_overlap_add_plain(gframes: torch.Tensor, c: torch.Tensor, go: torch.Ten
     return v if out is None else out + v
 
 
-def _check(named) -> None:
-    """One device, one type (float32 for the kernels; float64 too for the
-    plain versions on the CPU), contiguous."""
-    device, real = named[0][1].device, named[0][1].dtype.to_real()
-    allowed = (torch.float32, torch.float64) if device.type == "cpu" else (torch.float32,)
-    if real not in allowed:
-        raise TypeError(f"{named[0][0]} must be one of {allowed} (or complex) on {device}, got "
-                        f"{named[0][1].dtype}")
-    for name, t in named:
-        if t is None:
-            continue
-        if t.dtype.to_real() != real:
-            raise TypeError(f"{name} must be of {real} like {named[0][0]}, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, {named[0][0]} on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.numel() > MAX_ELEMENTS:
+def _check_sizes(operands: dict) -> None:
+    """Every operand within the kernels' 32-bit indexing."""
+    for name, t in operands.items():
+        if t is not None and t.numel() > MAX_ELEMENTS:
             raise ValueError(f"{name} has {t.numel()} elements, more than {MAX_ELEMENTS}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-
-
-def _launch(name: str, wrapper, *args) -> None:
-    """Launch kernel `name` on the current stream of the first tensor's
-    device with the tensors, ints and floats in `args`."""
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    launch = kernels.launcher(name)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        err = launch(*ptrs, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    kernels.count_launch(wrapper)
 
 
 def stft_frame(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor, hop: int) -> torch.Tensor:
     """The windowed frames of x's rows then y's (2B, F, n) from x, y (B, T)
     and c (n,); the reflect pad needs n/2 < T.  CPU tensors run the plain
-    version; float32 CUDA tensors launch the kernel and count it in
-    `stft_frame.launches` (`.captured` under graph capture)."""
+    version; float32 CUDA tensors launch the kernel."""
     if x.dim() != 2 or x.shape != y.shape or c.dim() != 1:
         raise ValueError(f"need x, y (B, T) and c (n,); got {tuple(x.shape)}, {tuple(y.shape)}, "
                          f"{tuple(c.shape)}")
@@ -195,14 +164,16 @@ def stft_frame(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor, hop: int) -> t
     if not (0 < n // 2 < t) or hop < 1:
         raise ValueError(f"need n/2 < T and hop ≥ 1; got n = {n}, T = {t}, hop = {hop}")
     frames = n_frames(t, n, hop)
-    _check([("x", x), ("y", y), ("c", c)])
+    operands = {"x": x, "y": y, "c": c}
+    kernels.check_operands(operands)
+    _check_sizes(operands)
     if 2 * b * frames * n > MAX_ELEMENTS:
         raise ValueError(f"{2 * b * frames * n} frame samples, more than {MAX_ELEMENTS}")
     if x.device.type == "cpu":
         return stft_frame_plain(x, y, c, hop)
     out = torch.empty((2 * b, frames, n), dtype=torch.float32, device=x.device)
     if b > 0:
-        _launch("stft_frame", stft_frame, x, y, c, out, b, t, n, hop, frames)
+        kernels.launch("stft_frame", x, y, c, out, b, t, n, hop, frames)
     return out
 
 
@@ -211,15 +182,15 @@ def stft_loss_grad(spec: torch.Tensor, n: int, partials: torch.Tensor) -> torch.
     bins), weighted for the unnormalised C2R, from both spectra spec (2B,
     F, bins = n//2 + 1), the target's rows first; the scale's partial sums
     go into `partials` (loss_blocks(B·F·bins),) float64.  CPU tensors run
-    the plain version; complex64 CUDA tensors launch the kernel and count
-    it in `stft_loss_grad.launches`."""
+    the plain version; complex64 CUDA tensors launch the kernel."""
     if spec.dim() != 3 or spec.shape[0] % 2 or spec.shape[-1] != n // 2 + 1 or not spec.is_complex():
         raise ValueError(f"need a complex spec (2B, F, {n // 2 + 1}); got {tuple(spec.shape)} {spec.dtype}")
     count = spec.numel() // 2
     if partials.shape != (loss_blocks(count),) or partials.dtype != torch.float64:
         raise ValueError(f"need float64 partials ({loss_blocks(count)},); got {tuple(partials.shape)} "
                          f"{partials.dtype}")
-    _check([("spec", spec)])
+    kernels.check_operands({"spec": spec}, spectra=True)
+    _check_sizes({"spec": spec})
     if partials.device != spec.device or not partials.is_contiguous():
         raise ValueError("partials must be contiguous on the spectrum's device")
     if spec.device.type == "cpu":
@@ -227,15 +198,14 @@ def stft_loss_grad(spec: torch.Tensor, n: int, partials: torch.Tensor) -> torch.
     grad = torch.empty((spec.shape[0] // 2, *spec.shape[1:]), dtype=spec.dtype, device=spec.device)
     bins = spec.shape[-1]
     if count > 0:
-        _launch("stft_loss_grad", stft_loss_grad, spec, grad, partials, count, bins,
-                bins - 1 if n % 2 == 0 else -1, 1.0 / count, 1.0 / count, partials.shape[0])
+        kernels.launch("stft_loss_grad", spec, grad, partials, count, bins, bins - 1 if n % 2 == 0 else -1,
+                       1.0 / count, 1.0 / count, partials.shape[0])
     return grad
 
 
 def stft_loss_sum(partials: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The loss (0-d, `dtype`): every partial summed in one fixed order.
-    CPU tensors run the plain version; on the card (float32) the kernel,
-    counted in `stft_loss_sum.launches`."""
+    CPU tensors run the plain version; on the card (float32) the kernel."""
     if partials.dim() != 1 or partials.dtype != torch.float64 or not partials.is_contiguous():
         raise ValueError(f"need contiguous float64 partials (P,); got {tuple(partials.shape)} {partials.dtype}")
     if partials.device.type == "cpu":
@@ -243,7 +213,7 @@ def stft_loss_sum(partials: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if dtype != torch.float32:
         raise TypeError(f"the loss is float32 on {partials.device}, got {dtype}")
     loss = torch.empty((), dtype=torch.float32, device=partials.device)
-    _launch("stft_loss_sum", stft_loss_sum, partials, partials.shape[0], loss)
+    kernels.launch("stft_loss_sum", partials, partials.shape[0], loss)
     return loss
 
 
@@ -252,8 +222,7 @@ def stft_overlap_add(gframes: torch.Tensor, c: torch.Tensor, go: torch.Tensor, t
     """The signal's gradient (B, T) from the frames' gradients gframes (B,
     F, n), c (n,) and the upstream gradient go (0-d), added to `out` where
     given (in place on the card).  CPU tensors run the plain version;
-    float32 CUDA tensors launch the kernel and count it in
-    `stft_overlap_add.launches`."""
+    float32 CUDA tensors launch the kernel."""
     if gframes.dim() != 3 or c.shape != (gframes.shape[2],) or go.dim() != 0:
         raise ValueError(f"need gframes (B, F, n), c (n,), go 0-d; got {tuple(gframes.shape)}, "
                          f"{tuple(c.shape)}, {tuple(go.shape)}")
@@ -263,20 +232,17 @@ def stft_overlap_add(gframes: torch.Tensor, c: torch.Tensor, go: torch.Tensor, t
                          f"got n = {n}, T = {t}, hop = {hop}, F = {frames}")
     if out is not None and out.shape != (b, t):
         raise ValueError(f"need out ({b}, {t}); got {tuple(out.shape)}")
-    _check([("gframes", gframes), ("c", c), ("go", go), ("out", out)])
+    operands = {"gframes": gframes, "c": c, "go": go, "out": out}
+    kernels.check_operands(operands)
+    _check_sizes(operands)
     if gframes.device.type == "cpu":
         return stft_overlap_add_plain(gframes, c, go, t, hop, out)
     accumulate = out is not None
     if out is None:
         out = torch.empty((b, t), dtype=torch.float32, device=gframes.device)
     if b > 0:
-        _launch("stft_overlap_add", stft_overlap_add, gframes, c, go, out, b, t, n, hop, frames,
-                int(accumulate))
+        kernels.launch("stft_overlap_add", gframes, c, go, out, b, t, n, hop, frames, int(accumulate))
     return out
-
-
-for _wrapper in (stft_frame, stft_loss_grad, stft_loss_sum, stft_overlap_add):
-    _wrapper.launches = _wrapper.captured = _wrapper.replayed = 0
 
 
 class MultiscaleSpectralLoss(torch.autograd.Function):

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ddsp_pytorch_tpu_torch.kernel_bench import card_line
+from ddsp_pytorch_tpu_torch.training.profiling import device_kernels
 
 
 def glide(n_blocks: int, block: int):
@@ -79,7 +80,7 @@ def voice_ramp(bundle: str, voices, blocks: int = 200, include_reverb: bool = Fa
     RAMP_TRACED more blocks run under torch.profiler after the timed ones,
     for the device-busy time and the kernel launches a block."""
     from ddsp_pytorch_tpu_torch.export import make_streaming_synth
-    from ddsp_pytorch_tpu_torch.ops import oscillator as osc
+    from ddsp_pytorch_tpu_torch.ops import kernels
     from ddsp_pytorch_tpu_torch.streaming.pool import VoicePool
 
     on_card = torch.device(device).type == "cuda"
@@ -102,14 +103,14 @@ def voice_ramp(bundle: str, voices, blocks: int = 200, include_reverb: bool = Fa
 
         for i in range(RAMP_WARMUP):
             pool.step(requests(i))
-        launches = osc.oscillator_bank.launches
+        launches = kernels.counts()["oscillator_fwd"]["launches"]
         times = []
         for i in range(blocks):
             reqs = requests(RAMP_WARMUP + i)
             t0 = time.perf_counter()
             out = pool.step(reqs)
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = osc.oscillator_bank.launches - launches
+        launches = kernels.counts()["oscillator_fwd"]["launches"] - launches
         traced = {}
         if on_card:
             with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
@@ -117,11 +118,11 @@ def voice_ramp(bundle: str, voices, blocks: int = 200, include_reverb: bool = Fa
                 for i in range(RAMP_TRACED):
                     pool.step(requests(RAMP_WARMUP + blocks + i))
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            kernels, busy_ms = device_kernels(prof)
+            events, busy_ms = device_kernels(prof)
             traced = {"traced_block_ms": wall_ms / RAMP_TRACED,
                       "device_busy_ms_per_block": busy_ms / RAMP_TRACED,
                       "device_idle_share": 1.0 - busy_ms / wall_ms,
-                      "kernel_launches_per_block": len(kernels) / RAMP_TRACED}
+                      "kernel_launches_per_block": len(events) / RAMP_TRACED}
         peak = max(float(np.abs(a).max()) for a in out.values())
         if len(out) != v or not all(a.shape == (pool.block_size,) and np.isfinite(a).all()
                                     for a in out.values()):
@@ -161,24 +162,6 @@ def voices_per_card_text(ramp: dict) -> str:
 
 
 PROFILER_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-
-
-def device_kernels(prof):
-    """(the trace's device kernel events, their busy time in ms: the union
-    of their intervals)."""
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
-    return kernels, busy_us / 1e3
-
-
-def _union_us(intervals):
-    total, end = 0.0, -np.inf
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        total += e - max(s, end)
-        end = e
-    return total
 
 
 def main(argv=None) -> dict:

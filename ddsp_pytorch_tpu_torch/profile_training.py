@@ -48,6 +48,8 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ddsp_pytorch_tpu_torch.training.profiling import device_kernels
+
 
 def glide_controls(n_items: int, n_frames: int, block: int, sample_rate: int, seed: int,
                    mean_loudness: float = -7.9, std_loudness: float = 0.55):
@@ -78,20 +80,6 @@ HOST_FEED_TURNS = 4  # alternating turns of each host-batch feed
 HOST_FEED_STEPS = 3  # back-to-back eager steps a turn, then one synchronize
 
 
-def _union_us(intervals):
-    total, end = 0.0, -np.inf
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        total += e - max(s, end)
-        end = e
-    return total
-
-
-def _cuda_kernels(prof):
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
 def _traced(run, n_steps: int) -> dict:
     """Trace `run()` (which trains `n_steps` steps and synchronizes) under
     torch.profiler: wall time, device-busy time (the union of kernel
@@ -101,12 +89,11 @@ def _traced(run, n_steps: int) -> dict:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _cuda_kernels(prof)
+    kernels, busy_ms = device_kernels(prof)
     by_name = defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
-    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     return {
         "traced_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -133,9 +120,8 @@ def _gru_alone(gru, batch_size: int, frames: int, device) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         gru(x)[0].sum().backward()
         torch.cuda.synchronize()
-    kernels = _cuda_kernels(prof)
-    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
-    return {"launches": len(kernels), "device_ms": busy_us / 1e3}
+    kernels, busy_ms = device_kernels(prof)
+    return {"launches": len(kernels), "device_ms": busy_ms}
 
 
 def _synced_ms(run, n: int) -> list:
@@ -181,7 +167,7 @@ def _host_feeds(step, state, batch, device) -> dict:
 def main(argv=None) -> dict:
     from ddsp_pytorch_tpu_torch.config import Config
     from ddsp_pytorch_tpu_torch.models import init_params, load_model
-    from ddsp_pytorch_tpu_torch.ops import oscillator as osc
+    from ddsp_pytorch_tpu_torch.ops import kernels
     from ddsp_pytorch_tpu_torch.ops.spectral import mfcc
     from ddsp_pytorch_tpu_torch.training import make_optimizer, make_train_step
     from ddsp_pytorch_tpu_torch.training.state import TrainState
@@ -235,9 +221,9 @@ def main(argv=None) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     untraced = _synced_ms(lambda: run_eager(1), args.steps)
     eager_peak = torch.cuda.max_memory_allocated(device)
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     eager = _traced(lambda: run_eager(args.steps), args.steps)
-    osc_launches = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    eager_counts = kernels.counts()
 
     host_feeds = _host_feeds(step, state, batch, device)
     grus = {"decoder": model.decoder.gru}
@@ -266,8 +252,7 @@ def main(argv=None) -> dict:
         **{k: v for k, v in eager.items() if k != "kernels_by_device_time"},
         "gru_fwd_bwd_alone": gru,
         "oscillator_launches_per_step": {
-            "oscillator_fwd": osc_launches[0] / args.steps,
-            "oscillator_bwd": osc_launches[1] / args.steps,
+            name: eager_counts[name]["launches"] / args.steps for name in ("oscillator_fwd", "oscillator_bwd")
         },
         "kernels_by_device_time": eager["kernels_by_device_time"],
         "host_batch_feeds": host_feeds,
@@ -278,16 +263,17 @@ def main(argv=None) -> dict:
         multi = make_train_multi_step(model, tx, cfg, n, args.unroll)
         batches = {k: v.expand(n, *v.shape).contiguous() for k, v in batch.items()}
         torch.cuda.reset_peak_memory_stats(device)
-        osc.reset_kernel_counts()
+        kernels.reset_counts()
         t0 = time.perf_counter()
         multi(state, batches)  # the first call captures the graph
         torch.cuda.synchronize()
         first_call_s = time.perf_counter() - t0
-        warmup_launches = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+        warmup = kernels.counts()
         calls = _synced_ms(lambda: multi(state, batches), GRAPHED_CALLS)
         graph_peak = torch.cuda.max_memory_allocated(device)
-        osc.reset_kernel_counts()
+        kernels.reset_counts()
         graphed = _traced(lambda: (multi(state, batches), torch.cuda.synchronize()), n)
+        counts = kernels.counts()
         result["graphed"] = {
             "steps_per_call": n,
             "unroll": args.unroll,
@@ -300,11 +286,10 @@ def main(argv=None) -> dict:
             **{k: v for k, v in graphed.items() if k != "kernels_by_device_time"},
             "oscillator_launches": {
                 name: {"captured_per_graph": multi.captured[name],
-                       "replayed_per_step": wrapper.replayed / n,
-                       "host_launches_per_step": wrapper.launches / n,
-                       "warmup_host_launches": warm}
-                for name, wrapper, warm in zip(("oscillator_fwd", "oscillator_bwd"),
-                                               (osc.oscillator_bank, osc.oscillator_bank_bwd), warmup_launches)
+                       "replayed_per_step": counts[name]["replayed"] / n,
+                       "host_launches_per_step": counts[name]["launches"] / n,
+                       "warmup_host_launches": warmup[name]["launches"]}
+                for name in ("oscillator_fwd", "oscillator_bwd")
             },
             "kernels_by_device_time": graphed["kernels_by_device_time"][:20],
         }

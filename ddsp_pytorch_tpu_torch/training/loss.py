@@ -9,8 +9,8 @@ STFTs of ops/spectral.py, then the means, with autograd's backward) runs on
 the CPU, in float64, and wherever the spectrograms are wanted (the eval
 step).  A train step's loss on the card (`spectral_loss`, float32 signals
 with gradients enabled) runs the hand-written kernels around cuFFT of
-ops/stft_loss.py, the same loss and gradient in five passes a scale.
-`path_counts` counts the calls of each path."""
+ops/stft_loss.py, the same loss and gradient in five passes a scale; their
+launches are counted in ops/kernels, and the plain path launches none."""
 
 from __future__ import annotations
 
@@ -20,9 +20,6 @@ import torch
 
 from ddsp_pytorch_tpu_torch.ops import multiscale_fft, safe_log
 from ddsp_pytorch_tpu_torch.ops.stft_loss import multiscale_spectral_loss
-
-# loss calls by path: the fused kernels' and the plain STFTs'
-path_counts = {"loss/fused": 0, "loss/plain": 0}
 
 
 def multiscale_spec_loss(
@@ -46,7 +43,6 @@ def spectral_loss_from_signals(
     """Both multiscale STFTs and the loss → (loss, ori_stft, rec_stft): the
     plain path."""
     _check_lengths(target, reconstruction)
-    path_counts["loss/plain"] += 1
     dtype = torch.promote_types(reconstruction.dtype, torch.float32)
     ori = multiscale_fft(target.to(dtype), scales, overlap)
     rec = multiscale_fft(reconstruction.to(dtype), scales, overlap)
@@ -63,7 +59,6 @@ def spectral_loss(
     (ops/stft_loss.py) where `fused_takes`, else the plain path."""
     _check_lengths(target, reconstruction)
     if fused_takes(target, reconstruction):
-        path_counts["loss/fused"] += 1
         return multiscale_spectral_loss(target.float(), reconstruction.float(), scales, overlap)
     return spectral_loss_from_signals(target, reconstruction, scales, overlap)[0]
 

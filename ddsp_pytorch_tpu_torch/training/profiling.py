@@ -3,7 +3,8 @@ and the step marks of the graphed train step.
 
   * `trace(log_dir, device)`: a torch.profiler capture of the block, with
     the CUDA activity when the device is a card, written to `log_dir` as a
-    Chrome trace (chrome://tracing, Perfetto);
+    Chrome trace (chrome://tracing, Perfetto); `device_kernels(prof)`: a
+    capture's CUDA kernels and their busy time;
   * `annotate(name)`: the program's host span.  Its duration, from two
     reads of `time.monotonic_ns()`, always goes to the current call's
     record and to `spans()`; while a torch profiler records, the span is
@@ -78,6 +79,18 @@ def trace(log_dir: str, device="cuda"):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def device_kernels(prof):
+    """(the CUDA kernel events of a torch.profiler trace, their busy time in
+    ms: the union of their intervals)."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((k.time_range.start, k.time_range.end) for k in kernels):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return kernels, busy_us / 1e3
 
 
 # ------------------------------------------------------------ step marks

@@ -50,12 +50,11 @@ from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.models import init_params, load_model
 from ddsp_pytorch_tpu_torch.models.decoder import matmul_precision
-from ddsp_pytorch_tpu_torch.ops import mean_std_loudness, uniform_noise
-from ddsp_pytorch_tpu_torch.ops.oscillator import KERNEL_WRAPPERS
+from ddsp_pytorch_tpu_torch.ops import kernels, mean_std_loudness, uniform_noise
 from ddsp_pytorch_tpu_torch.parallel.mesh import Mesh
 from ddsp_pytorch_tpu_torch.parallel.sharding import GradientReducer, replicate_state
 from ddsp_pytorch_tpu_torch.training import profiling
-from ddsp_pytorch_tpu_torch.training.loss import path_counts, spectral_loss, spectral_loss_from_signals
+from ddsp_pytorch_tpu_torch.training.loss import spectral_loss, spectral_loss_from_signals
 from ddsp_pytorch_tpu_torch.training.metrics import MetricsWriter
 from ddsp_pytorch_tpu_torch.training.optim import (
     Optimizer,
@@ -431,7 +430,7 @@ of any keys (the autoencoder's carry `mfcc`).
         torch.cuda.synchronize(device)
         self.warmup_s = time.perf_counter() - t0
         torch.cuda.empty_cache()  # as torch.cuda.graph does, before the pool is counted
-        before = {name: w.captured for name, w in KERNEL_WRAPPERS.items()}
+        before = kernels.counts()
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # keeps the graph whose nodes are counted
         t0 = time.perf_counter()
@@ -442,7 +441,9 @@ of any keys (the autoencoder's carry `mfcc`).
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.graph_nodes = profiling.graph_nodes(graph) / self.unroll
-        self.captured = {name: w.captured - before[name] for name, w in KERNEL_WRAPPERS.items()}
+        after = kernels.counts()
+        self.captured = {name: after[name]["captured"] - before[name]["captured"]
+                         for name in kernels.MODEL_KERNELS}
         self.graph = graph
 
     def _replay(self, state: TrainState, data, load, noise_shape,
@@ -466,8 +467,7 @@ of any keys (the autoencoder's carry `mfcc`).
             with profiling.annotate("multistep.launch"):
                 self.graph.replay()
             self.replays += 1
-            for name, n in self.captured.items():
-                KERNEL_WRAPPERS[name].replayed += n
+            kernels.count_replayed(self.captured)
             out[rows].copy_(self._metrics)
             state.step += u
         rec.marks, rec.graph_nodes = self._marks, self.graph_nodes
@@ -735,8 +735,7 @@ class Trainer:
                 t_last, s_last = now, state.step
             return state.step >= total_steps
 
-        kernels_before = {name: (w.launches, w.replayed) for name, w in KERNEL_WRAPPERS.items()}
-        paths_before = dict(path_counts)
+        kernels_before = kernels.counts()
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
         t_start, mono_start = time.perf_counter(), time.monotonic()
@@ -806,17 +805,17 @@ class Trainer:
             self.metrics.add_scalar(
                 "train_window_steps_per_s", (state.step - start_step) / max(window, 1e-9), state.step
             )
-            self._log_window_costs(state.step, kernels_before, mono_start, paths_before)
+            self._log_window_costs(state.step, kernels_before, mono_start)
         self.checkpointer.save(state)
         return state
 
-    def _log_window_costs(self, step: int, kernels_before: dict, since: float, paths_before: dict) -> None:
+    def _log_window_costs(self, step: int, kernels_before: dict, since: float) -> None:
         """What the train window spent besides steps: the CUDA graph's eager
         warm-up runs and its capture (seconds each) and its nodes a step,
-        the peak of allocated device memory, each kernel's launches in
-        the window, eager (single steps and a capture's warm-up runs) and
-        replayed in graphs, and the loss calls of each path (`loss/fused`,
-        `loss/plain`: a capture is one call).  From the window's MultiStep
+        the peak of allocated device memory, each of the models' kernels'
+        launches in the window (`kernels_before`: the count table at its
+        start), eager (single steps and a capture's warm-up runs) and
+        replayed in graphs.  From the window's MultiStep
         calls (their records since `since`, training/profiling.py): the
         median ms a step of each phase of the step (`step_phase_ms/<phase>`:
         the device's on a card, the host's on the CPU) and of the graph
@@ -836,12 +835,11 @@ class Trainer:
         if self.device.type == "cuda":
             self.metrics.add_scalar("max_memory_allocated_bytes", torch.cuda.max_memory_allocated(self.device),
                                     step)
-        for name, (launches, replayed) in kernels_before.items():
-            w = KERNEL_WRAPPERS[name]
-            self.metrics.add_scalar(f"kernel_launches/{name}", w.launches - launches, step)
-            self.metrics.add_scalar(f"kernel_replayed/{name}", w.replayed - replayed, step)
-        for name, n in path_counts.items():
-            self.metrics.add_scalar(name, n - paths_before[name], step)
+        now = kernels.counts()
+        for name in kernels.MODEL_KERNELS:
+            for kind in ("launches", "replayed"):
+                self.metrics.add_scalar(f"kernel_{kind}/{name}",
+                                        now[name][kind] - kernels_before[name][kind], step)
 
     def _eval(self, state, batch, seed: int):
         """The eval step on this rank's rows, its noise drawn for the global

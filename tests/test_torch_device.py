@@ -19,8 +19,8 @@ from ddsp_pytorch_tpu_torch import bench, performance, resolve_device, soak
 from ddsp_pytorch_tpu_torch.config import Config
 from ddsp_pytorch_tpu_torch.export import export_run, load_bundle, make_stream_session, make_streaming_synth
 from ddsp_pytorch_tpu_torch.models import DDSPDecoder, init_params
+from ddsp_pytorch_tpu_torch.ops import kernels, roofline
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
-from ddsp_pytorch_tpu_torch.ops import roofline
 from ddsp_pytorch_tpu_torch.runtime import selftest
 from ddsp_pytorch_tpu_torch.serve import StreamServer
 from ddsp_pytorch_tpu_torch.training import Trainer
@@ -34,6 +34,10 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _launched(name: str) -> int:
+    return kernels.counts()[name]["launches"]
 
 
 BUNDLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -104,9 +108,9 @@ def test_kernel_matches_plain_on_cuda(cuda):
             (2 * np.pi / 48000 * rng.uniform(50, 2000, rows)).astype(np.float32), device=cuda
         )
         amp = torch.tensor((rng.random((rows, k)) / k).astype(np.float32), device=cuda)
-        before = osc.oscillator_bank.launches
+        before = _launched("oscillator_fwd")
         got = osc.oscillator_bank(phi, omega, amp, s)
-        assert osc.oscillator_bank.launches == before + 1
+        assert _launched("oscillator_fwd") == before + 1
         want = osc.oscillator_bank_plain(phi, omega, amp, s)
         torch.cuda.synchronize()
         assert float((got - want).abs().max()) <= 5e-4
@@ -120,13 +124,13 @@ def test_streaming_on_cuda_launches_kernel_per_block(cuda):
     cpu = make_streaming_synth(BUNDLE, device="cpu", noise_deterministic=True)
     pitch = np.full((1, 512), 330.0, np.float32)
     loud = np.full((1, 512), -7.0, np.float32)
-    before = osc.oscillator_bank.launches
+    before = _launched("oscillator_fwd")
     for _ in range(4):
         got = gpu.step_samples(pitch, loud)
         want = cpu.step_samples(pitch, loud)
         assert got.device.type == "cuda"
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
-    assert osc.oscillator_bank.launches == before + 4
+    assert _launched("oscillator_fwd") == before + 4
 
 
 def test_trainer_default_device_raises_without_cuda(no_cuda, tmp_path):
@@ -221,9 +225,9 @@ def test_backward_kernel_matches_plain_on_cuda(cuda):
         )
         amp = torch.tensor((rng.random((rows, k)) / k).astype(np.float32), device=cuda)
         g = torch.tensor(rng.standard_normal((rows, s)).astype(np.float32), device=cuda)
-        before = osc.oscillator_bank_bwd.launches
+        before = _launched("oscillator_bwd")
         got = osc.oscillator_bank_bwd(phi, omega, amp, g, s)
-        assert osc.oscillator_bank_bwd.launches == before + 1
+        assert _launched("oscillator_bwd") == before + 1
         want = osc.oscillator_bank_bwd_plain(phi, omega, amp, g, s)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
@@ -261,9 +265,9 @@ def test_gpu_train_step_gradients_reach_harmonic_branch(cuda):
                                      noise=torch.tensor(noise, device=dev))
         return float(loss), [g.detach().cpu().double() for g in grads]
 
-    before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    before = (_launched("oscillator_fwd"), _launched("oscillator_bwd"))
     gpu_loss, gpu_grads = step(gpu_model, cuda)
-    assert (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (_launched("oscillator_fwd"), _launched("oscillator_bwd")) == (before[0] + 1, before[1] + 1)
     cpu_loss, cpu_grads = step(cpu_model, "cpu")
     names = [n for n, _ in cpu_model.named_parameters()]
     harm = dict(zip(names, gpu_grads))["harmonic_proj.weight"]
@@ -298,10 +302,10 @@ def test_kernel_variants_match_plain_on_cuda(cuda, rows, k):
     differ by more than 1e-4 while neither is more accurate."""
     rng = np.random.default_rng(rows + k)
     phi, omega, amp, g = _rows_on(cuda, rng, rows, k, 512)
-    before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    before = (_launched("oscillator_fwd"), _launched("oscillator_bwd"))
     y = osc.oscillator_bank(phi, omega, amp, 512)
     grads = osc.oscillator_bank_bwd(phi, omega, amp, g, 512)
-    assert (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (_launched("oscillator_fwd"), _launched("oscillator_bwd")) == (before[0] + 1, before[1] + 1)
     y_plain = osc.oscillator_bank_plain(phi, omega, amp, 512)
     grads_plain = osc.oscillator_bank_bwd_plain(phi, omega, amp, g, 512)
     grads_64 = osc.oscillator_bank_bwd_plain(*(t.cpu().double() for t in (phi, omega, amp, g)), 512)
@@ -392,7 +396,7 @@ def test_graphed_steps_equal_eager_steps_on_cuda(cuda, unroll):
     ])
     model_g, tx_g, state_g = fresh()
     multi = make_train_multi_step_indexed(model_g, tx_g, cfg, 4, unroll)
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     graphed = multi(state_g, data, idx2d)
     torch.cuda.synchronize()
     assert state_g.step == state_e.step == 4
@@ -407,10 +411,10 @@ def test_graphed_steps_equal_eager_steps_on_cuda(cuda, unroll):
                 "stft_frame": 2, "stft_loss_grad": 2, "stft_loss_sum": 1, "stft_overlap_add": 2}
     assert multi.captured == {name: n * unroll for name, n in per_step.items()}
     assert multi.replays == 4 // unroll
-    for name, wrapper in osc.KERNEL_WRAPPERS.items():
+    counts = kernels.counts()
+    for name in kernels.MODEL_KERNELS:
         n = per_step[name]
-        assert (wrapper.launches, wrapper.captured, wrapper.replayed) == (WARMUP_RUNS * unroll * n, unroll * n,
-                                                                          4 * n)
+        assert counts[name] == {"launches": WARMUP_RUNS * unroll * n, "captured": unroll * n, "replayed": 4 * n}
     more = multi(state_g, data, idx2d)  # the next call replays the same graph
     assert bool(torch.isfinite(more).all()) and multi.replays == 8 // unroll
     with pytest.raises(RuntimeError, match="captured for other"):
@@ -489,11 +493,11 @@ def test_roofline_probes_match_plain_on_cuda(cuda):
     libraries); each launch counted once; every block size the sweep
     times gives the default's output bit for bit."""
     x = roofline.probe_input(device=cuda)
-    for fn, plain, atol in ((roofline.fma_chain, roofline.fma_chain_plain, 0.0),
-                            (roofline.sin_chain, roofline.sin_chain_plain, 1e-6)):
-        before = fn.launches
+    for name, fn, plain, atol in (("roofline_fma", roofline.fma_chain, roofline.fma_chain_plain, 0.0),
+                                  ("roofline_sin", roofline.sin_chain, roofline.sin_chain_plain, 1e-6)):
+        before = _launched(name)
         got = fn(x)
-        assert fn.launches == before + 1
+        assert _launched(name) == before + 1
         want = plain(x)
         torch.cuda.synchronize()
         assert float((got - want).abs().max()) <= atol
@@ -513,7 +517,7 @@ def test_voice_pool_on_cuda_matches_cpu(cuda, include_reverb):
     slots = [[p.acquire() for _ in range(3)] for p in pools]
     assert slots[0] == slots[1]
     rng = np.random.default_rng(9)
-    before = osc.oscillator_bank.launches
+    before = _launched("oscillator_fwd")
     err = peak = 0.0
     for _ in range(8):
         reqs = {s: (rng.uniform(200, 800, (1, 1)).astype(np.float32),
@@ -521,7 +525,7 @@ def test_voice_pool_on_cuda_matches_cpu(cuda, include_reverb):
         got, want = (p.step(reqs) for p in pools)
         err = max(err, max(float(np.abs(got[s] - want[s]).max()) for s in reqs))
         peak = max(peak, max(float(np.abs(got[s]).max()) for s in reqs))
-    assert osc.oscillator_bank.launches == before + 8
+    assert _launched("oscillator_fwd") == before + 8
     assert err <= 1e-4 and err <= 1e-3 * peak
 
 
@@ -592,9 +596,9 @@ def test_features_on_cuda_match_cpu(cuda, tmp_path):
 
     kw = dict(n_items=3, sample_rate=16000, signal_length=16384, block_size=256, n_harmonic=8,
               instrument="violin", mfcc_ref_db=0.0, partitions=("train",))
-    osc.reset_kernel_counts()
+    kernels.reset_counts()
     gpu = make_synthetic_dataset(str(tmp_path / "gpu"), device=cuda, **kw)
-    assert osc.oscillator_bank.launches == 1  # every item of the partition in one launch
+    assert _launched("oscillator_fwd") == 1  # every item of the partition in one launch
     cpu = make_synthetic_dataset(str(tmp_path / "cpu"), device="cpu", **kw)
     np.testing.assert_array_equal(gpu["pitchs"], cpu["pitchs"])
     peak = float(np.abs(cpu["signals"]).max())
@@ -725,10 +729,10 @@ def test_kernels_at_sharded_row_counts_on_cuda(cuda, rows):
     versions, at test_kernel_variants_match_plain_on_cuda's bounds."""
     rng = np.random.default_rng(rows)
     phi, omega, amp, g = _rows_on(cuda, rng, rows, 64, 512)
-    before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    before = (_launched("oscillator_fwd"), _launched("oscillator_bwd"))
     y = osc.oscillator_bank(phi, omega, amp, 512)
     grads = osc.oscillator_bank_bwd(phi, omega, amp, g, 512)
-    assert (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (_launched("oscillator_fwd"), _launched("oscillator_bwd")) == (before[0] + 1, before[1] + 1)
     y_plain = osc.oscillator_bank_plain(phi, omega, amp, 512)
     grads_plain = osc.oscillator_bank_bwd_plain(phi, omega, amp, g, 512)
     grads_64 = osc.oscillator_bank_bwd_plain(*(t.cpu().double() for t in (phi, omega, amp, g)), 512)
@@ -768,10 +772,10 @@ def test_time_sharded_step_on_cuda_matches_cpu(cuda):
     for dev, model in (("cpu", cpu_model), (cuda, copy.deepcopy(cpu_model).to(cuda))):
         tb = {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
         state = TrainState(0, model, {}, torch.Generator(dev), -4.0, 1.0)
-        before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+        before = (_launched("oscillator_fwd"), _launched("oscillator_bwd"))
         loss, grads = make_loss_and_grads(model, cfg, make_mesh(2, 4))(
             state, tb, torch.tensor(noise, dtype=torch.float32, device=dev))
-        launched = (osc.oscillator_bank.launches - before[0], osc.oscillator_bank_bwd.launches - before[1])
+        launched = (_launched("oscillator_fwd") - before[0], _launched("oscillator_bwd") - before[1])
         out[str(dev)] = (float(loss), torch.cat([g.flatten().cpu().double() for g in grads]), launched)
     (loss_c, g_c, launched_c), (loss_g, g_g, launched_g) = out["cpu"], out[str(cuda)]
     assert launched_c == (0, 0) and launched_g == (1, 1)

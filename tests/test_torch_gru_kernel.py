@@ -1,11 +1,12 @@
 """The GRU recurrence's kernels (ops/gru.py) and their plain versions.
 
-On the CPU: the plain forward equals `GRU.forward`'s loop bit for bit
-(float32 and float64: the same operations in the same order); the plain
-backward, through `GRURecurrence`, matches autograd through the loop in
-float64 to 1e-12 of each gradient's largest magnitude (the same chain
-rule, summed in another order); the CPU and bf16 paths never reach a
-kernel launcher.
+On the CPU: `GRU.forward` without a compute dtype is `gru_recurrence`,
+whose CPU path is the plain forward (the one float loop), and the plain
+forward's saved planes are the gates and states they name (float32 and
+float64); the plain backward, through `GRURecurrence`, matches autograd
+through the loop in float64 to 1e-12 of each gradient's largest magnitude
+(the same chain rule, summed in another order); the CPU and bf16 paths
+never reach a kernel launcher.
 
 The `cuda`-marked tests skip where torch.cuda.is_available() is False.
 This file imports no JAX; on a card they run with
@@ -88,20 +89,31 @@ IDS = [f"B{b}-F{f}-H{h}-in{i}-{'h0' if s else 'zero'}-{'dfinal' if d else 'nofin
        for b, f, h, i, s, d in CASES]
 
 
+def _launched(name: str) -> int:
+    return kernels.counts()[name]["launches"]
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_plain_forward_equals_loop(case):
-    """gru_fwd_plain on the loop's x_proj gives GRU.forward's outputs and
-    final state bit for bit, in float32 and float64; its saved planes are
-    the gates and states they name."""
+    """On the CPU, in float32 and float64, gru_recurrence (what GRU.forward
+    calls without a compute dtype) is the plain forward without its saved
+    planes, with and without autograd, bit for bit; the saved planes are the
+    gates and states they name."""
     b, f, hidden, in_size, h0_given, _ = case
     for dtype in (torch.float32, torch.float64):
         model = _gru(in_size, hidden, seed=b * 100 + f, dtype=dtype)
         x, h0 = _inputs(b, f, in_size, hidden, seed=f + hidden, h0_given=h0_given, dtype=dtype)
+        x_proj = x @ model.weight_ih.T + model.bias_ih
+        tracked_out, tracked_h = gru.gru_recurrence(x_proj, model.weight_hh, model.bias_hh, h0)
+        assert tracked_out.requires_grad and tracked_h.requires_grad
         with torch.no_grad():
-            want_out, want_h = model(x, h0)
-            x_proj = x @ model.weight_ih.T + model.bias_ih
+            want_out, want_h = gru.gru_recurrence(x_proj, model.weight_hh, model.bias_hh, h0)
+            model_out, model_h = model(x, h0)
             out, h, saved = gru.gru_fwd_plain(x_proj, model.weight_hh, model.bias_hh, h0)
         assert torch.equal(out, want_out) and torch.equal(h, want_h), dtype
+        assert torch.equal(tracked_out.detach(), out) and torch.equal(tracked_h.detach(), h), dtype
+        assert torch.equal(model_out, out) and torch.equal(model_h, h), dtype
+        assert gru.gru_fwd_plain(x_proj, model.weight_hh, model.bias_hh, h0, save=False)[2] is None
         assert saved.shape == (len(gru.SAVED), b, f, hidden)
         r, z, n, _, h_prev = saved.unbind(0)
         assert torch.equal(h_prev[:, 1:], out[:, :-1])
@@ -195,13 +207,13 @@ def test_cpu_and_bf16_paths_take_the_loop(monkeypatch, compute_dtype):
         raise AssertionError(f"kernel launcher asked for {name}")
 
     monkeypatch.setattr(kernels, "launcher", refuse)
-    before = {w: (w.launches, w.captured) for w in (gru.gru_fwd, gru.gru_bwd)}
+    before = kernels.counts()
     model = _gru(30, 64, seed=1, compute_dtype=compute_dtype)
     x, h0 = _inputs(2, 5, 30, 64, seed=2, h0_given=True)
     out, h = model(x, h0)
     (out.float().sum() + h.float().sum()).backward()
     assert model.weight_hh.grad is not None and bool(torch.isfinite(model.weight_hh.grad).all())
-    assert {w: (w.launches, w.captured) for w in (gru.gru_fwd, gru.gru_bwd)} == before
+    assert kernels.counts() == before
     x_proj = torch.zeros((1, 1, 3 * 64))
     assert not gru.kernel_takes(x_proj, 64)
     assert not gru.kernel_takes(x_proj.double(), 64)
@@ -241,9 +253,9 @@ def _kernel_vs_plain(device, b, f, in_size, hidden=512, seed=0):
 def test_kernel_matches_plain_on_cuda(cuda, b, f, in_size):
     """The forward kernel against the plain version on the card, float32:
     outputs, final state and every saved plane within KERNEL_ATOL."""
-    before = gru.gru_fwd.launches
+    before = _launched("gru_fwd")
     (out, h, saved), (want_out, want_h, want_saved) = _kernel_vs_plain(cuda, b, f, in_size)
-    assert gru.gru_fwd.launches == before + 1
+    assert _launched("gru_fwd") == before + 1
     assert float((out - want_out).abs().max()) <= KERNEL_ATOL
     assert torch.equal(h, out[:, -1])
     assert float((h - want_h).abs().max()) <= KERNEL_ATOL
@@ -324,9 +336,9 @@ def test_kernel_gradients_match_float64_loop_on_cuda(cuda, in_size):
         loss = (out * dout.to(device, dtype)).sum() + (h * dfinal.to(device, dtype)).sum()
         return torch.autograd.grad(loss, [xx, *model.parameters(), hh])
 
-    before = (gru.gru_fwd.launches, gru.gru_bwd.launches)
+    before = (_launched("gru_fwd"), _launched("gru_bwd"))
     got = grads(model32, cuda, torch.float32)
-    assert (gru.gru_fwd.launches, gru.gru_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (_launched("gru_fwd"), _launched("gru_bwd")) == (before[0] + 1, before[1] + 1)
     want = grads(model64, "cpu", torch.float64)
     for name, a, w in zip(["x", "weight_ih", "weight_hh", "bias_ih", "bias_hh", "h0"], got, want):
         err = float((a.cpu().double() - w).abs().max())

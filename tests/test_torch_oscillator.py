@@ -13,6 +13,8 @@ Tolerances:
     1e-3 at 64 harmonics (:165) and over 5 s (:73).
 """
 
+import contextlib
+import ctypes
 import math
 
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ import torch
 from ddsp_pytorch_tpu.ops import harmonic_synth_frames as jax_synth_frames
 from ddsp_pytorch_tpu.ops import phase_accumulate_frames as jax_phase
 from ddsp_pytorch_tpu.ops.pallas_kernels.oscillator import harmonic_synth_pallas
+from ddsp_pytorch_tpu_torch.ops import kernels
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 
 @pytest.fixture(autouse=True, scope="module")
@@ -124,10 +127,50 @@ def test_phase_carry_streaming_equivalence():
 
 def test_cpu_tensor_runs_plain_version_without_launch():
     rows = torch.rand(3), torch.rand(3), torch.rand(3, 4)
-    before = osc.oscillator_bank.launches
+    before = kernels.counts()
     got = osc.oscillator_bank(*rows, 32)
     np.testing.assert_array_equal(got.numpy(), osc.oscillator_bank_plain(*rows, 32).numpy())
-    assert osc.oscillator_bank.launches == before
+    assert kernels.counts() == before
+
+
+def test_launch_passes_pointers_then_the_stream_and_counts(monkeypatch):
+    """kernels.launch, the one caller of the C launchers, against a
+    recording fake launcher (and fakes of the device scope, the stream and
+    the capture query, which a CPU build lacks): tensors arrive as their
+    data pointers, None as None (ctypes' null pointer), ints, floats and
+    ctypes objects as they are, and the stream last; a launch lands in
+    `launches` of its kernel alone, or in `captured` under capture; a
+    non-zero return raises with the kernel's name and counts nothing."""
+    calls, returns, capturing = [], iter([0, 0, 2]), [False]
+
+    def launcher(name):
+        def fn(*args):
+            calls.append((name, args))
+            return next(returns)
+        return fn
+
+    class Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(kernels, "launcher", launcher)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    x, out = torch.zeros(4), torch.zeros(2)
+    plan = (ctypes.c_int * 2)()
+    before = kernels.counts()
+    kernels.launch("gru_fwd", x, None, out, 3, 0.5, plan)
+    assert calls == [("gru_fwd", (x.data_ptr(), None, out.data_ptr(), 3, 0.5, plan, 1234))]
+    want = {name: dict(c) for name, c in before.items()}
+    want["gru_fwd"]["launches"] += 1
+    assert kernels.counts() == want
+    capturing[0] = True
+    kernels.launch("oscillator_fwd", out, 7)
+    want["oscillator_fwd"]["captured"] += 1
+    assert calls[-1] == ("oscillator_fwd", (out.data_ptr(), 7, 1234)) and kernels.counts() == want
+    with pytest.raises(RuntimeError, match="stft_frame launch failed: cudaError 2"):
+        kernels.launch("stft_frame", x, 1)
+    assert kernels.counts() == want
 
 
 @pytest.mark.parametrize(

@@ -21,6 +21,7 @@ import torch
 from ddsp_pytorch_tpu.ops import harmonic_synth_frames as jax_synth_frames
 from ddsp_pytorch_tpu.ops import phase_accumulate_frames as jax_phase
 from ddsp_pytorch_tpu.ops.pallas_kernels.oscillator import _TILE_R, _osc_rows, harmonic_synth_pallas
+from ddsp_pytorch_tpu_torch.ops import kernels
 from ddsp_pytorch_tpu_torch.ops import oscillator as osc
 
 REL = 1e-4
@@ -82,10 +83,10 @@ def test_autograd_function_matches_pallas_and_plain_autograd(rows, k, s):
     phi, omega, amp, g = _rows(10 + rows, rows, k, s)
     want = _jax_vjp(phi, omega, amp, g, s)
     ins = [torch.tensor(x, requires_grad=True) for x in (phi, omega, amp)]
-    before = (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches)
+    before = kernels.counts()
     y = osc.OscillatorBank.apply(*ins, s)
     y.backward(torch.tensor(g))
-    assert (osc.oscillator_bank.launches, osc.oscillator_bank_bwd.launches) == before
+    assert kernels.counts() == before
     ref = [torch.tensor(x, requires_grad=True) for x in (phi, omega, amp)]
     osc.oscillator_bank_plain(*ref, s).backward(torch.tensor(g))
     np.testing.assert_array_equal(y.detach().numpy(), osc.oscillator_bank_plain(
@@ -136,12 +137,12 @@ def test_harmonic_synth_frames_grads_match_jax(use_pallas):
 
 def test_cpu_backward_runs_plain_version_without_launch():
     phi, omega, amp, g = (torch.tensor(x) for x in _rows(7, 3, 4, 32))
-    before = osc.oscillator_bank_bwd.launches
+    before = kernels.counts()
     got = osc.oscillator_bank_bwd(phi, omega, amp, g, 32)
     want = osc.oscillator_bank_bwd_plain(phi, omega, amp, g, 32)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert osc.oscillator_bank_bwd.launches == before
+    assert kernels.counts() == before
 
 
 @pytest.mark.parametrize(

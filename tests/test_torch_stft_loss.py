@@ -190,21 +190,21 @@ def _no_launch(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
 def test_cpu_takes_the_plain_path(monkeypatch, dtype):
-    """On the CPU the train step's loss is the plain path's, counted in
-    `loss/plain`; no kernel wrapper counts a launch."""
+    """On the CPU the train step's loss is the plain path's, bit for bit,
+    and no stft_* kernel is counted, neither there nor through the fused
+    loss's plain versions."""
     _no_launch(monkeypatch)
-    monkeypatch.setattr(loss_mod, "path_counts", {"loss/fused": 0, "loss/plain": 0})
-    wrappers = (stft_loss.stft_frame, stft_loss.stft_loss_grad, stft_loss.stft_loss_sum,
-                stft_loss.stft_overlap_add)
-    before = [(w.launches, w.captured) for w in wrappers]
+    stft_names = [name for name in kernels.KERNELS if name.startswith("stft_")]
+    before = kernels.counts()
     x, y = _signals(2, 3000, seed=5, dtype=dtype)
     y.requires_grad_(True)
     loss = loss_mod.spectral_loss(x, y, (512, 256), 0.75)
     want = loss_mod.spectral_loss_from_signals(x, y, (512, 256), 0.75)[0]
     assert torch.equal(loss, want) and loss.requires_grad
-    assert loss_mod.path_counts == {"loss/fused": 0, "loss/plain": 2}
+    assert not loss_mod.fused_takes(x, y)
     stft_loss.multiscale_spectral_loss(x, y, (512, 256), 0.75).backward()  # plain versions
-    assert [(w.launches, w.captured) for w in wrappers] == before
+    after = kernels.counts()
+    assert len(stft_names) == 4 and all(after[name] == before[name] for name in stft_names)
 
 
 # (on the card, dtype, gradients enabled, target wants a gradient) → fused
@@ -280,7 +280,7 @@ def test_kernels_match_their_plain_versions_on_cuda(cuda):
         assert _rel(out, plain_out) <= KERNEL_REL, n
     loss = stft_loss.stft_loss_sum(partials, torch.float32)
     assert float(loss) == pytest.approx(float(partials.sum()), rel=1e-7)
-    assert stft_loss.stft_frame.launches >= len(SCALES)
+    assert kernels.counts()["stft_frame"]["launches"] >= len(SCALES)
 
 
 @pytest.mark.cuda

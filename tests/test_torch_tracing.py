@@ -262,8 +262,9 @@ def test_annotate_under_the_profiler_lands_in_the_chrome_trace(tmp_path):
 
 def test_the_trainer_logs_the_phase_medians(tmp_path):
     """A CPU fit with steps_per_call 2 writes step_phase_ms/<phase> (the
-    host clock's on the CPU) beside the launch counts, and its four steps'
-    losses as plain-path calls."""
+    host clock's on the CPU) beside the launch counts, which on the CPU
+    count no launch of the fused loss's kernels (its four steps' losses take
+    the plain path)."""
     from ddsp_pytorch_tpu_torch.data import Datamodule, make_synthetic_dataset
     from ddsp_pytorch_tpu_torch.training.metrics import read_metrics
 
@@ -282,8 +283,9 @@ def test_the_trainer_logs_the_phase_medians(tmp_path):
         assert step == 4 and ms >= 0
     assert len(profiling.calls()) == 2
     assert read_metrics(str(tmp_path / "run"), "host_launch_ms") == []  # no graph on the CPU
-    assert read_metrics(str(tmp_path / "run"), "loss/plain") == [(4, 4)]
-    assert read_metrics(str(tmp_path / "run"), "loss/fused") == [(4, 0)]
+    for name in ("stft_frame", "stft_loss_grad", "stft_loss_sum", "stft_overlap_add"):
+        for kind in ("launches", "replayed"):
+            assert read_metrics(str(tmp_path / "run"), f"kernel_{kind}/{name}") == [(4, 0)]
 
 
 # -------------------------------------------------------------- readers
