@@ -36,6 +36,9 @@ is printed):
      transforms too) timed beside its plain version and its bytes at the
      measured copy rate, and the whole loss forward and backward against
      the plain path, both float32 paths held to the plain path in float64;
+     Adam's kernels (ops/adam.py) over the decoder's, the autoencoder's
+     and CREPE full's leaves, equal bit for bit to the plain path after 10
+     steps, each timed beside the plain path and its byte floor;
   3. streaming: make_streaming_synth on the full-width violin bundle streams
      64 blocks of a glide on the card and on the CPU (plain versions); the
      two agree, the kernel's launch counter rose by one per block, and the
@@ -241,7 +244,7 @@ is printed):
      restated forward against the port's, both configs, one forward launch
      a call of the port's side); the phase's seconds;
  30. report: one JSON line {"kernels": [...]} (all four kernels, the GRU
-     kernels' and the fused spectral loss's entries of phase 2; launches by
+     kernels', the fused spectral loss's and Adam's entries of phase 2; launches by
      path: serving, training, training_graphed (host launches plus graph
      replays), serving_exported, serving_pool, serving_autoencoder,
      synthetic, training_autoencoder, timbre_transfer, headline, drift_soak,
@@ -641,6 +644,13 @@ GRU_KERNEL_ATOL, GRU_BWD_REL = 2e-5, 1e-4
 STFT_BATCH, STFT_SAMPLES, STFT_SCALES, STFT_OVERLAP = 16, 192_000, (4096, 2048, 1024, 512, 256, 128), 0.75
 STFT_KERNEL_REL, STFT_LOSS_REL, MEASURED_COPY_BYTES_PER_S = 1e-5, 1e-5, 2.983e12
 STFT_GRAD_OVER_PLAIN = 1.5
+# phase 2, Adam (ops/adam.py) over each train cell's leaves: the kernel
+# against the plain path (`update` and the guard's copies) bit for bit
+# after ADAM_STEPS steps, its time beside the byte floor at the measured
+# copy rate: 32 bytes a parameter with the norm (the DDSP steps), 28
+# without (CREPE's)
+ADAM_STEPS = 10
+ADAM_LEAF_SETS = (("decoder", CONFIG, True), ("autoencoder", AE_CONFIG, True), ("crepe-full", None, False))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -676,7 +686,7 @@ def check_spills(name: str, log: str) -> None:
     probe's chain must not be folded."""
     report = ptxas_report(log)
     probes = name == "roofline_fma"
-    if name.startswith("stft"):
+    if name.startswith(("stft", "adam")):
         checked = list(report)
     elif probes or name.startswith("gru"):
         checked = list(report)
@@ -687,7 +697,7 @@ def check_spills(name: str, log: str) -> None:
         ffma = {}
     check(bool(checked), f"no checked variant of {name} in the ptxas report")
     for fn, (stores, loads, regs) in sorted(report.items()):
-        m = re.search(r"\d((?:oscillator|roofline|gru|stft)_\w+?_kernel(?:I\w*?E)?)", fn)
+        m = re.search(r"\d((?:oscillator|roofline|gru|stft|adam)_\w+?_kernel(?:I\w*?E)?)", fn)
         extra = f" sass_ffma={ffma[fn]}" if fn in ffma else ""
         print(f"ptxas {name} {m.group(1) if m else fn}: registers={regs} "
               f"spill_stores={stores} B spill_loads={loads} B{extra}", flush=True)
@@ -705,18 +715,20 @@ def check_spills(name: str, log: str) -> None:
         check(sin["fp32_per_sinf"] > 1, f"sin probe fast path {sin}")
 
 
-def train_launches(grus: int, steps: int = 1, scales: int = 6) -> dict:
+def train_launches(grus: int, steps: int = 1, scales: int = 6, adam: bool = True) -> dict:
     """{kernel: launches} of `steps` float32 train steps on the card: one of
     each oscillator kernel a step, one of each GRU kernel for each of
     the model's `grus` GRUs (1 for the decoder, 2 for the autoencoder; 0
-    where the bf16 compute dtype runs the GRU's loop), and the fused
+    where the bf16 compute dtype runs the GRU's loop), the fused
     loss's framing, loss-and-gradient and overlap-add kernels for each of
     its `scales` STFT scales and its sum once (0 scales: the time-sharded
-    step's own loss)."""
+    step's own loss), and Adam's norm and update once (not `adam`: the
+    loss and gradients alone)."""
     return {"oscillator_fwd": steps, "oscillator_bwd": steps,
             "gru_fwd": grus * steps, "gru_bwd": grus * steps,
             "stft_frame": scales * steps, "stft_loss_grad": scales * steps,
-            "stft_loss_sum": steps if scales else 0, "stft_overlap_add": scales * steps}
+            "stft_loss_sum": steps if scales else 0, "stft_overlap_add": scales * steps,
+            "adam_norm": steps if adam else 0, "adam_update": steps if adam else 0}
 
 
 def rel_err(got, want) -> float:
@@ -912,7 +924,7 @@ def phase_gru_kernels(device) -> list:
                 err = max(err, float((saved - want[2]).abs().max()))
             check(err <= GRU_KERNEL_ATOL, f"gru_fwd vs plain {err} at B={b} F={f} in={in_size}")
             ms, _ = time_ms(lambda: gru.gru_fwd(x_proj, w_hh, b_hh, h0, save=train), 20, cycles_per_ms)
-            loop_ms, _ = time_ms(lambda: gru.gru_fwd_plain(x_proj, w_hh, b_hh, h0), 3, cycles_per_ms)
+            loop_ms, _ = time_ms(lambda: gru.gru_fwd_plain(x_proj, w_hh, b_hh, h0), 2, cycles_per_ms, warmup=1)
         flops = 2 * b * f * 3 * GRU_HIDDEN * GRU_HIDDEN
         bound_ms = 1e3 * flops / PEAK_FP32_FLOPS
         floor_ms = f * frame_ms(rows)
@@ -937,8 +949,8 @@ def phase_gru_kernels(device) -> list:
         xl = x_proj.clone().requires_grad_(True)
         wl = w_hh.clone().requires_grad_(True)
         outl, _, _ = gru.gru_fwd_plain(xl, wl, b_hh, h0)
-        loop_ms, _ = time_ms(lambda: torch.autograd.grad(outl, (xl, wl), dout, retain_graph=True), 3,
-                             cycles_per_ms)
+        loop_ms, _ = time_ms(lambda: torch.autograd.grad(outl, (xl, wl), dout, retain_graph=True), 2,
+                             cycles_per_ms, warmup=1)
         del xl, wl, outl
         print(f"gru_bwd B={b} F={f} in={in_size} (rows a cluster {gru.plans["gru_bwd"][0]}, clusters "
               f"{gru.plans["gru_bwd"][1]}): rel err vs plain "
@@ -1076,6 +1088,67 @@ def phase_stft_loss_kernels(device) -> list:
                     "loss_rel": loss_rel, "grad_rel_l2": grad_rel, "plain_loss_rel": plain_loss_rel,
                     "plain_grad_rel_l2": plain_grad_rel, "grad_err_q90": grad_q90,
                     "plain_grad_err_q90": plain_grad_q90})
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_adam_kernel(device) -> list:
+    """Phase 2, Adam (ops/adam.py) over the leaves of each train cell's
+    model (ADAM_LEAF_SETS): ADAM_STEPS steps of the kernel (with the loss
+    and the norm where the DDSP step gives them, without for CREPE's) and
+    of the plain path on the same gradients, equal bit for bit; then each
+    one's device time a step (CUDA events) beside the byte floor at the
+    measured copy rate.  Returns the entries for the report."""
+    from ddsp_pytorch_tpu_torch.ops import adam
+
+    cycles_per_ms = sleep_cycles_per_ms()
+    entries = []
+    for label, path, guarded in ADAM_LEAF_SETS:
+        if path is None:
+            shapes = [p.shape for p in crepe.CREPE("full").parameters()]
+        else:
+            cfg = Config.from_yaml(path)
+            shapes = [p.shape for p in load_model(cfg.model.name, cfg.model.kwargs).parameters()]
+        g = torch.Generator(device).manual_seed(SEED)
+        grads = [0.01 * torch.randn(s, generator=g, device=device) for s in shapes]
+        loss = torch.ones((), device=device) if guarded else None
+        sides = []
+        for kernel in (True, False):
+            tx = Optimizer("adam", 1e-3)
+            params = [torch.randn(s, generator=torch.Generator(device).manual_seed(SEED + 1), device=device)
+                      for s in shapes]
+            state = tx.init(params)
+
+            def step():
+                if kernel:
+                    return tx.apply_(params, grads, state, loss)
+                updates, new = tx.update(grads, state)
+                with torch.no_grad():
+                    for p, u in zip(params, updates):
+                        p.add_(u)
+                    for old, value in zip(tree_leaves(state), tree_leaves(new)):
+                        old.copy_(value)
+
+            for _ in range(ADAM_STEPS):
+                step()
+            torch.cuda.synchronize()
+            sides.append([t.clone() for t in params + tree_leaves(state)])
+            ms, _ = time_ms(step, 20 if kernel else 3, cycles_per_ms)
+            sides.append(ms)
+            del params, state
+        (got, ms), (want, plain_ms) = sides[:2], sides[2:]
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"Adam kernel vs plain after {ADAM_STEPS} steps over the {label} leaves")
+        n = sum(int(np.prod(s)) for s in shapes)
+        nbytes = (32 if guarded else 28) * n
+        floor_ms = 1e3 * nbytes / MEASURED_COPY_BYTES_PER_S
+        blocks = sum(launch[1][-1] for launch in adam.plan([int(np.prod(s)) for s in shapes]))
+        print(f"adam {label}: {len(shapes)} leaves, {n} parameters, {blocks} blocks, norm {guarded}: equal to "
+              f"the plain path after {ADAM_STEPS} steps; kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"bytes={nbytes} floor_ms={floor_ms:.6f} share_of_floor={floor_ms / ms:.3f}", flush=True)
+        entries.append({"name": "adam", "leaves": label, "parameters": n, "norm": guarded, "ms": ms,
+                        "plain_ms": plain_ms, "bytes": nbytes, "ms_at_copy_rate": floor_ms})
+        del grads
     torch.cuda.empty_cache()
     return entries
 
@@ -3138,7 +3211,7 @@ def phase_time_sharded(device, cache: str, tmp: str, card: str) -> dict:
               "leaf errors (max|Δ|/max|g|, own rel L2, |Δ|/|g|): "
               + ", ".join(f"{n}=({of_max[n]:.3e}, {rel_l2[n]:.3e}, {of_whole[n]:.3e})" for n in worst)
               + f"; launches {launched}", flush=True)
-        check(launched == train_launches(1, scales=0),
+        check(launched == train_launches(1, scales=0, adam=False),
               f"the sharded step launched {launched}, expected one forward and one backward of each "
               "oscillator and GRU kernel (its loss is its own)")
         check(rows == fn.plan.frames_pad * cfg.train.batch and fn.plan.frames_pad == 384,
@@ -4081,6 +4154,7 @@ def main() -> int:
     bwd_entry = phase_bwd_kernel(device, kernel_ms)
     gru_entries = phase_gru_kernels(device)
     stft_entries = phase_stft_loss_kernels(device)
+    adam_entries = phase_adam_kernel(device)
     probe_checks = phase_probe_kernels(device)
     phase_streaming(device)
     serving_fwd = phase_server(device)
@@ -4188,7 +4262,8 @@ def main() -> int:
                                      **{path: c["oscillator_bwd"] for path, c in tools.items()},
                                      **{path: 0 for path in last}}
 
-    print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries, *gru_entries, *stft_entries]}), flush=True)
+    print(json.dumps({"kernels": [fwd_entry, bwd_entry, *probe_entries, *gru_entries, *stft_entries,
+                                  *adam_entries]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,13 +9,15 @@ compiled with nvcc into `_build/lib<source>-<source hash>.so` (listed in
 ctypes.  The source hash in the file name rebuilds a kernel whose source
 changed.  Several kernels build in parallel: one nvcc process per source,
 all started together; the first launch of any of the models' kernels
-(`MODEL_KERNELS`) builds all of them so, rather than one after another.
+(`MODEL_KERNELS`) but the optimizer's builds all of them so, rather than
+one after another.
 
 This module is also the one seam between the op modules and the kernels:
 `launch(name, *args)` is the only caller of a C launcher, and counts each
 launch in one table (`counts`, `reset_counts`, `count_replayed`);
 `check_operands` is the rule every wrapper holds its tensors to.  Each op
-module (ops/oscillator.py, ops/gru.py, ops/stft_loss.py, ops/roofline.py)
+module (ops/oscillator.py, ops/gru.py, ops/stft_loss.py, ops/adam.py,
+ops/roofline.py)
 keeps its shape checks, its plain PyTorch versions, the allocation of its
 outputs and one `launch` a kernel.  Adding a kernel adds its `KERNELS`
 entry here and touches nothing else outside its own op module.
@@ -112,10 +114,28 @@ KERNELS = {
         # frames a row, accumulate, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
+    "adam_norm": (
+        "adam.cu",
+        "ddsp_adam_norm",
+        # leaf table (host), partials, blocks, chunk, stream
+        [_P, _P, _I, _I, _P],
+    ),
+    "adam_update": (
+        "adam.cu",
+        "ddsp_adam_update",
+        # leaf table (host), partials, their count, norm out, done counter,
+        # loss, count, schedule count, lr, lr end, 1/steps, steps, clips,
+        # clip, blocks, chunk, finalize, stream
+        [_P, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _F, _I, _I, _I, _P],
+    ),
 }
-# the kernels the models launch: the first launch of one builds them all
+# the optimizer's kernels (ops/adam.py), which also train a model that
+# launches no other (CREPE): the first launch of one builds adam.cu alone
+OPTIMIZER_KERNELS = ("adam_norm", "adam_update")
+# the kernels a train step launches: the first launch of one of the others
+# builds them all
 MODEL_KERNELS = ("oscillator_fwd", "oscillator_bwd", "gru_fwd", "gru_bwd", "stft_frame", "stft_loss_grad",
-                 "stft_loss_sum", "stft_overlap_add")
+                 "stft_loss_sum", "stft_overlap_add", *OPTIMIZER_KERNELS)
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -201,7 +221,7 @@ def launcher(name: str):
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            build(MODEL_KERNELS if name in MODEL_KERNELS else [name])
+            build(MODEL_KERNELS if name in MODEL_KERNELS and name not in OPTIMIZER_KERNELS else [name])
             _, symbol, argtypes = KERNELS[name]
             fn = getattr(ctypes.CDLL(library_path(name)), symbol)
             fn.argtypes = argtypes

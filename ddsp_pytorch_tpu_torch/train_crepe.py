@@ -49,6 +49,7 @@ from ddsp_pytorch_tpu_torch.models.crepe import (
     salience_to_cents,
 )
 from ddsp_pytorch_tpu_torch.models.decoder import _TRUNC_NORMAL_STD
+from ddsp_pytorch_tpu_torch.ops import kernels
 from ddsp_pytorch_tpu_torch.training import profiling
 from ddsp_pytorch_tpu_torch.training.optim import Optimizer
 from ddsp_pytorch_tpu_torch.weights import crepe_flax_from_state_dict
@@ -214,9 +215,11 @@ def train_step(model: CREPE, tx: Optimizer, opt_state: dict, frames: torch.Tenso
     208-233): BatchNorm's running statistics move, dropout keeps
     `dropout_masks` or draws from `generator`.  The forward and the
     backward run in models/crepe.py's conv_precision (cuDNN, no TF32).
-    Returns (loss, gradients, new optimizer state); the parameters are
-    updated in place.  Stamps the CREPE step's marks 2 (the loss ready)
-    and 3 (the gradients returned) inside `profiling.marking`."""
+    Returns (loss, gradients, optimizer state); the parameters and the
+    optimizer state are updated in place (`Optimizer.apply_`, no NaN
+    guard: on the card, Adam's kernel).  Stamps the CREPE step's marks 2
+    (the loss ready) and 3 (the gradients returned) inside
+    `profiling.marking`."""
     params = list(model.parameters())
     with conv_precision():
         logits = model(frames, train=True, dropout_masks=dropout_masks, generator=generator)
@@ -224,10 +227,7 @@ def train_step(model: CREPE, tx: Optimizer, opt_state: dict, frames: torch.Tenso
         profiling.mark(2)
         grads = torch.autograd.grad(loss, params)
         profiling.mark(3)
-    updates, opt_state = tx.update(grads, opt_state)
-    with torch.no_grad():
-        for p, u in zip(params, updates):
-            p.add_(u)
+    tx.apply_(params, grads, opt_state)
     return loss.detach(), grads, opt_state
 
 
@@ -256,7 +256,9 @@ class CrepeTrainer:
     `CREPE_PHASES`) in a call record of its own, inside the host span
     `crepe.step`, and leaves the loss on the device; `pull(loss)` reads it
     (span `crepe.pull`).  `metrics` counts the steps and frames trained
-    (`crepe/steps`, `crepe/frames`)."""
+    (`crepe/steps`, `crepe/frames`) and the optimizer kernels' launches
+    since the trainer was made (`kernel_launches/<name>`, ops/kernels
+    OPTIMIZER_KERNELS: the path its Adam took, 0 on the plain path)."""
 
     def __init__(self, capacity: str = "tiny", batch: int = 256, lr: float = 2e-3,
                  pos_weight: float = 20.0, robust: bool = False, seed: int = 0, *,
@@ -271,6 +273,8 @@ class CrepeTrainer:
         self.tx = Optimizer("adam", lr)
         self.opt_state = self.tx.init(list(self.model.parameters()))
         self.metrics = {"crepe/steps": 0, "crepe/frames": 0}
+        self._counts0 = kernels.counts()
+        self._count_launches()
         self._marks = profiling.StepMarks(1, device, phases=profiling.CREPE_PHASES)
         self._eval = None
 
@@ -292,7 +296,13 @@ class CrepeTrainer:
                 profiling.mark(4)
         self.metrics["crepe/steps"] += 1
         self.metrics["crepe/frames"] += self.batch
+        self._count_launches()
         return loss
+
+    def _count_launches(self) -> None:
+        now = kernels.counts()
+        for name in kernels.OPTIMIZER_KERNELS:
+            self.metrics[f"kernel_launches/{name}"] = now[name]["launches"] - self._counts0[name]["launches"]
 
     def pull(self, loss: torch.Tensor) -> float:
         with profiling.annotate("crepe.pull"):

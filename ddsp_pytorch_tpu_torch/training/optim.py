@@ -16,16 +16,20 @@ step count included (torch.optim.Adam increments its step on every
            applies)
 
 `update` returns the updates and a new state and changes nothing in
-place, like an optax GradientTransformation, so the caller decides whether
-to apply them (training/train.py copies them into the existing tensors,
-whose addresses a captured step reuses).
+place, like an optax GradientTransformation.  `apply_` is the train
+steps' one call: it writes the step into the existing tensors, whose
+addresses a captured step reuses, behind the NaN guard where it is given
+the loss.  On a card, Adam on float32 leaves is ops/adam.py's two kernel
+launches a step; the CPU, float64 and SGD take `update` and the copies.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+
+from ddsp_pytorch_tpu_torch.ops import adam
 
 Tensors = List[torch.Tensor]
 # optax.adam's defaults
@@ -46,18 +50,22 @@ def tree_leaves(tree) -> Tensors:
     return [tree]
 
 
-def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable:
+class LinearSchedule:
     """optax.linear_schedule: init → end over transition_steps counts, then
-    constant; a constant init_value when transition_steps ≤ 0."""
-    if transition_steps <= 0:
-        return lambda count: init_value
+    constant; a constant init_value when transition_steps ≤ 0.  Its
+    numbers are what the card's Adam kernel reads (ops/adam.py)."""
 
-    def schedule(count: torch.Tensor) -> torch.Tensor:
-        count = torch.clamp(count, 0, transition_steps)
-        frac = 1 - count.float() / transition_steps
-        return (init_value - end_value) * frac + end_value
+    def __init__(self, init_value: float, end_value: float, transition_steps: int):
+        self.init_value = init_value
+        self.end_value = end_value
+        self.transition_steps = transition_steps
 
-    return schedule
+    def __call__(self, count: torch.Tensor) -> Union[float, torch.Tensor]:
+        if self.transition_steps <= 0:
+            return self.init_value
+        count = torch.clamp(count, 0, self.transition_steps)
+        frac = 1 - count.float() / self.transition_steps
+        return (self.init_value - self.end_value) * frac + self.end_value
 
 
 def _int32_increment(count: torch.Tensor) -> torch.Tensor:
@@ -66,14 +74,16 @@ def _int32_increment(count: torch.Tensor) -> torch.Tensor:
 
 
 class Optimizer:
-    """Adam or SGD, an optional schedule and an optional global-norm clip."""
+    """Adam or SGD, a constant rate or a `LinearSchedule`, and an optional
+    global-norm clip."""
 
-    def __init__(self, name: str, lr: Union[float, Callable], grad_clip_norm: Optional[float] = None):
+    def __init__(self, name: str, lr: Union[float, LinearSchedule], grad_clip_norm: Optional[float] = None):
         if name not in ("adam", "sgd"):
             raise ValueError(f"unknown train.optimizer: {name!r}")
         self.name = name
         self.lr = lr
         self.grad_clip_norm = grad_clip_norm
+        self._work: Dict[tuple, dict] = {}  # the Adam kernel's workspaces, by device and leaf sizes
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
         device = params[0].device
@@ -114,12 +124,59 @@ class Optimizer:
             step_size = -self.lr
         return [step_size * u for u in updates], new
 
+    def apply_(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: dict,
+               loss: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The step in place: `params` and `state`'s tensors (the same
+        tensors, which a captured step reads at fixed addresses) take the
+        updated values.  Where `loss` is given, the train step's NaN guard:
+        a non-finite loss leaves them all as they were, Adam's count
+        included, and the step's metrics are returned as 0-d device tensors
+        (loss, grad_norm, update_skipped); without a loss, no guard and no
+        metrics.
+
+        Adam on float32 leaves on a card runs ops/adam.py's kernels: two
+        launches a step, whatever the number of leaves (one without a loss
+        or a clip, which need no norm).  Everything else runs the plain
+        path, `update` and the copies, in the same float32 operations."""
+        params, grads = list(params), list(grads)
+        if self.name == "adam" and params[0].is_cuda and params[0].dtype == torch.float32:
+            norm = self._adam_kernel(params, grads, state, loss)
+        else:
+            updates, new = self.update(grads, state)
+            finite = None if loss is None else torch.isfinite(loss)
+            with torch.no_grad():
+                for old, value in zip(params + tree_leaves(state),
+                                      [p + u for p, u in zip(params, updates)] + tree_leaves(new)):
+                    old.copy_(value if finite is None else torch.where(finite, value, old))
+            norm = None if loss is None else global_norm(grads)
+        if loss is None:
+            return {}
+        return {"loss": loss, "grad_norm": norm,
+                "update_skipped": torch.logical_not(torch.isfinite(loss)).to(torch.int32)}
+
+    def _adam_kernel(self, params: Tensors, grads: Tensors, state: dict, loss) -> Optional[torch.Tensor]:
+        """ops/adam.py's step; returns the gradients' norm where `loss` is
+        given."""
+        numels = tuple(p.numel() for p in params)
+        key = (params[0].device, numels)
+        if key not in self._work:
+            self._work[key] = adam.workspace(numels, params[0].device)
+        lr, lr_end, steps = self.lr, 0.0, 0
+        if isinstance(self.lr, LinearSchedule):
+            s = self.lr
+            lr, lr_end, steps = ((s.init_value - s.end_value, s.end_value, s.transition_steps)
+                                 if s.transition_steps > 0 else (s.init_value, 0.0, 0))
+        return adam.adam_(params, [g.contiguous() for g in grads], state["mu"], state["nu"], state["count"],
+                          self._work[key], lr=lr, lr_end=lr_end, steps=steps,
+                          schedule_count=state.get("schedule_count"), clip=self.grad_clip_norm, loss=loss,
+                          norm=loss is not None)
+
 
 def make_optimizer(config) -> Optimizer:
     """The optimizer of config.train (train.py:32-49)."""
     tc = config.train
     if tc.lr_stop is not None:
-        lr = linear_schedule(tc.lr, tc.lr_stop, tc.lr_decay_steps or tc.steps)
+        lr = LinearSchedule(tc.lr, tc.lr_stop, tc.lr_decay_steps or tc.steps)
     else:
         lr = tc.lr
     return Optimizer(tc.optimizer, lr, tc.grad_clip_norm)

@@ -56,12 +56,7 @@ from ddsp_pytorch_tpu_torch.parallel.sharding import GradientReducer, replicate_
 from ddsp_pytorch_tpu_torch.training import profiling
 from ddsp_pytorch_tpu_torch.training.loss import spectral_loss, spectral_loss_from_signals
 from ddsp_pytorch_tpu_torch.training.metrics import MetricsWriter
-from ddsp_pytorch_tpu_torch.training.optim import (
-    Optimizer,
-    global_norm,
-    make_optimizer,
-    tree_leaves,
-)
+from ddsp_pytorch_tpu_torch.training.optim import Optimizer, make_optimizer, tree_leaves
 from ddsp_pytorch_tpu_torch.training.reports import reconstruction_report
 from ddsp_pytorch_tpu_torch.training.state import Checkpointer, TrainState
 from ddsp_pytorch_tpu_torch.training.time_sharded import (
@@ -153,18 +148,7 @@ def _update_in_place(state: TrainState, tx: Optimizer, loss, grads) -> Dict[str,
     """The optimizer update behind the NaN guard, written into the existing
     parameter and optimizer-state tensors (a captured step reads and writes
     fixed addresses).  Returns the step's metrics as 0-d device tensors."""
-    updates, opt_state = tx.update(grads, state.opt_state)
-    finite = torch.isfinite(loss)
-    with torch.no_grad():
-        for p, u in zip(state.params(), updates):
-            p.copy_(torch.where(finite, p + u, p))
-        for old, new in zip(tree_leaves(state.opt_state), tree_leaves(opt_state)):
-            old.copy_(torch.where(finite, new, old))
-    return {
-        "loss": loss,
-        "grad_norm": global_norm(grads),
-        "update_skipped": torch.logical_not(finite).to(torch.int32),
-    }
+    return tx.apply_(state.params(), grads, state.opt_state, loss)
 
 
 def apply_gradient_update(state: TrainState, tx: Optimizer, loss, grads) -> Dict[str, torch.Tensor]:
@@ -173,8 +157,9 @@ def apply_gradient_update(state: TrainState, tx: Optimizer, loss, grads) -> Dict
     A non-finite loss leaves the parameters and the optimizer state (Adam's
     count included) as they were, and the step still advances so the data
     order stays deterministic.  The choice is made on the device
-    (torch.where), so the step does not wait for the loss.  Returns the
-    step's metrics as 0-d device tensors."""
+    (torch.where, or the card's Adam kernel reading the loss), so the step
+    does not wait for the loss.  Returns the step's metrics as 0-d device
+    tensors."""
     metrics = _update_in_place(state, tx, loss, grads)
     state.step += 1
     return metrics

@@ -241,7 +241,8 @@ def test_the_trainer_is_the_plain_loop_bitwise_with_marks_on_and_off(monkeypatch
 def test_the_trainer_counts_marks_and_spans_its_steps():
     t0 = time.monotonic()
     losses, _, trainer = _trainer_steps(2, capacity="micro", batch=4, robust=False, seed=1)
-    assert trainer.metrics == {"crepe/steps": 2, "crepe/frames": 8}
+    assert trainer.metrics == {"crepe/steps": 2, "crepe/frames": 8, "kernel_launches/adam_norm": 0,
+                               "kernel_launches/adam_update": 0}  # the CPU's plain Adam
     assert trainer.pull(losses[-1]) == float(losses[-1])
     records = profiling.calls()
     assert len(records) == 2 and all(r.steps == 1 and t0 <= r.start <= r.end for r in records)

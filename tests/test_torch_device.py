@@ -404,11 +404,12 @@ def test_graphed_steps_equal_eager_steps_on_cuda(cuda, unroll):
     for (name, a), b in zip(model_g.named_parameters(), model_e.parameters()):
         assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
     assert torch.equal(state_g.generator.get_state(), state_e.generator.get_state())
-    # a step: one launch of each oscillator and GRU kernel, and the fused
+    # a step: one launch of each oscillator and GRU kernel, the fused
     # loss's framing, loss-and-gradient and overlap-add once a scale (two)
-    # and its sum once
+    # and its sum once, and Adam's norm and update once
     per_step = {"oscillator_fwd": 1, "oscillator_bwd": 1, "gru_fwd": 1, "gru_bwd": 1,
-                "stft_frame": 2, "stft_loss_grad": 2, "stft_loss_sum": 1, "stft_overlap_add": 2}
+                "stft_frame": 2, "stft_loss_grad": 2, "stft_loss_sum": 1, "stft_overlap_add": 2,
+                "adam_norm": 1, "adam_update": 1}
     assert multi.captured == {name: n * unroll for name, n in per_step.items()}
     assert multi.replays == 4 // unroll
     counts = kernels.counts()
@@ -580,10 +581,11 @@ def test_autoencoder_graphed_steps_equal_eager_steps_on_cuda(cuda):
     for (name, a), b in zip(model_g.named_parameters(), model_e.parameters()):
         assert _rel(a.detach(), b.detach()) <= GRAPHED_REL, name
     # a step holds one launch of each oscillator kernel, for the encoder's
-    # GRU and the decoder's two of each GRU kernel, and the fused loss's
-    # kernels once a scale (two) but its sum once
+    # GRU and the decoder's two of each GRU kernel, the fused loss's
+    # kernels once a scale (two) but its sum once, and Adam's two once
     assert multi.captured == {"oscillator_fwd": 2, "oscillator_bwd": 2, "gru_fwd": 4, "gru_bwd": 4,
-                              "stft_frame": 4, "stft_loss_grad": 4, "stft_loss_sum": 2, "stft_overlap_add": 4}
+                              "stft_frame": 4, "stft_loss_grad": 4, "stft_loss_sum": 2, "stft_overlap_add": 4,
+                              "adam_norm": 2, "adam_update": 2}
 
 
 @pytest.mark.cuda
