@@ -644,6 +644,9 @@ GRU_KERNEL_ATOL, GRU_BWD_REL = 2e-5, 1e-4
 STFT_BATCH, STFT_SAMPLES, STFT_SCALES, STFT_OVERLAP = 16, 192_000, (4096, 2048, 1024, 512, 256, 128), 0.75
 STFT_KERNEL_REL, STFT_LOSS_REL, MEASURED_COPY_BYTES_PER_S = 1e-5, 1e-5, 2.983e12
 STFT_GRAD_OVER_PLAIN = 1.5
+# RAVE v1's distances at rave.train_b8's shape: 8 crops × 16 band rows of
+# 4 096 samples, and the 8 full-band rows of 65 536; its five scales
+RAVE_STFT_SHAPES, RAVE_STFT_SCALES = ((8 * 16, 4096), (8, 65_536)), (2048, 1024, 512, 256, 128)
 # phase 2, Adam (ops/adam.py) over each train cell's leaves: the kernel
 # against the plain path (`update` and the guard's copies) bit for bit
 # after ADAM_STEPS steps, its time beside the byte floor at the measured
@@ -726,9 +729,23 @@ def train_launches(grus: int, steps: int = 1, scales: int = 6, adam: bool = True
     loss and gradients alone)."""
     return {"oscillator_fwd": steps, "oscillator_bwd": steps,
             "gru_fwd": grus * steps, "gru_bwd": grus * steps,
-            "stft_frame": scales * steps, "stft_loss_grad": scales * steps,
-            "stft_loss_sum": steps if scales else 0, "stft_overlap_add": scales * steps,
+            "stft_frame": scales * steps, "stft_loss_grad": scales * steps, "stft_rave_norms": 0,
+            "stft_rave_loss_grad": 0, "stft_loss_sum": steps if scales else 0, "stft_overlap_add": scales * steps,
             "adam_norm": steps if adam else 0, "adam_update": steps if adam else 0}
+
+
+def rave_train_launches(steps: int, adam_launches: int) -> dict:
+    """{kernel: launches} of `steps` RAVE v1 phase-1 steps on the card: for
+    each of its two distances (bands, full band) and each of its scales the
+    framing, norms, RAVE loss-and-gradient and overlap-add kernels, and the
+    sum once; Adam's norm and update `adam_launches` times each (its 119
+    leaves take more than one launch of ops/adam.py's table); nothing of
+    DDSP's."""
+    scales = 2 * len(RAVE_STFT_SCALES)
+    return {**{name: 0 for name in train_launches(0)},
+            "stft_frame": scales * steps, "stft_rave_norms": scales * steps, "stft_rave_loss_grad": scales * steps,
+            "stft_loss_sum": 2 * steps, "stft_overlap_add": scales * steps, "adam_norm": adam_launches * steps,
+            "adam_update": adam_launches * steps}
 
 
 def rel_err(got, want) -> float:
@@ -974,7 +991,8 @@ def phase_stft_loss_kernels(device) -> list:
     measured copy rate, summed over the scales; the plain version's time
     beside each kernel's; then the whole loss forward and backward, fused
     against the plain path (STFTs, means and autograd's backward), loss and
-    gradient compared.  Returns the entries for the report."""
+    gradient compared; then RAVE's two kernels (`stft_rave_kernels`).
+    Returns the entries for the report."""
     from ddsp_pytorch_tpu_torch.ops import stft_loss as sl
     from ddsp_pytorch_tpu_torch.training.loss import spectral_loss_from_signals
 
@@ -1088,6 +1106,100 @@ def phase_stft_loss_kernels(device) -> list:
                     "loss_rel": loss_rel, "grad_rel_l2": grad_rel, "plain_loss_rel": plain_loss_rel,
                     "plain_grad_rel_l2": plain_grad_rel, "grad_err_q90": grad_q90,
                     "plain_grad_err_q90": plain_grad_q90})
+    del x, y, loss, grad, plain_grad, out, plain_out, scratch, partials, plain_partials
+    torch.cuda.empty_cache()
+    return entries + stft_rave_kernels(device, cycles_per_ms)
+
+
+def stft_rave_kernels(device, cycles_per_ms: float) -> list:
+    """RAVE's kernels of the fused loss (ops/stft_loss.py
+    `stft_rave_norms`, `stft_rave_loss_grad`) at rave.train_b8's shapes
+    (RAVE_STFT_SHAPES, its five scales, hop n/4): each against its plain
+    version on the same spectra, as tests/test_torch_rave.py holds them
+    (the norms' float64 block sums to 1e-9, the gradient to 1e-5 of its
+    largest element, the partials' sum to 1e-9); each one's time (CUDA
+    events) beside the bytes it moves over the measured copy rate, summed
+    over the scales and both shapes.  Then the main path: a MultiStep call
+    of two graphed phase-1 steps of RAVE v1 at its published size, whose
+    captured launches must be `rave_train_launches`.  Returns the entries
+    for the report."""
+    from ddsp_pytorch_tpu_torch.config import Config
+    from ddsp_pytorch_tpu_torch.models import load_model
+    from ddsp_pytorch_tpu_torch.ops import adam
+    from ddsp_pytorch_tpu_torch.ops import stft_loss as sl
+    from ddsp_pytorch_tpu_torch.training.optim import make_optimizer
+    from ddsp_pytorch_tpu_torch.training.state import TrainState
+    from ddsp_pytorch_tpu_torch.training.train import make_train_multi_step
+
+    g = torch.Generator().manual_seed(SEED)
+    totals = {"stft_rave_norms": [0.0, 0.0, 0], "stft_rave_loss_grad": [0.0, 0.0, 0]}  # ms, plain ms, bytes
+
+    def add(name, ms, pms, nbytes):
+        totals[name][0] += ms
+        totals[name][1] += pms
+        totals[name][2] += nbytes
+
+    with torch.no_grad():
+        for rows, t in RAVE_STFT_SHAPES:
+            x = (0.3 * torch.randn((rows, t), generator=g)).to(device)
+            y = x + (0.1 * torch.randn((rows, t), generator=g)).to(device)
+            for n in RAVE_STFT_SCALES:
+                hop = sl.hop_length(n, STFT_OVERLAP)
+                spec = torch.fft.rfft(sl.stft_frame(x, y, sl.window_constant(n, torch.float32, device), hop), dim=-1)
+                count = spec.numel() // 2
+                norms = sl.stft_rave_norms(spec, n)
+                want_norms = sl.stft_rave_norms_plain(spec, torch.empty_like(norms))
+                check(torch.allclose(norms, want_norms, rtol=1e-9, atol=0),
+                      f"stft_rave_norms vs plain {rel_err(norms, want_norms)} at rows={rows} T={t} n={n}")
+                partials = torch.empty(norms.shape[1], dtype=torch.float64, device=device)
+                plain_partials = torch.empty_like(partials)
+                grad = sl.stft_rave_loss_grad(spec, n, partials, norms)
+                want = sl.stft_rave_loss_grad_plain(spec, n, plain_partials, norms)
+                err = rel_err(torch.view_as_real(grad), torch.view_as_real(want))
+                check(err <= STFT_KERNEL_REL, f"stft_rave_loss_grad vs plain {err} at rows={rows} T={t} n={n}")
+                check(abs(float(partials.sum() - plain_partials.sum())) <= 1e-9 * float(plain_partials.sum()),
+                      f"stft_rave_loss_grad partials vs plain at rows={rows} T={t} n={n}")
+                ms, _ = time_ms(lambda: sl.stft_rave_norms(spec, n), 20, cycles_per_ms)
+                pms, _ = time_ms(lambda: sl.stft_rave_norms_plain(spec, want_norms), 5, cycles_per_ms)
+                add("stft_rave_norms", ms, pms, 2 * count * 8 + norms.numel() * 8)
+                ms, _ = time_ms(lambda: sl.stft_rave_loss_grad(spec, n, partials, norms), 20, cycles_per_ms)
+                pms, _ = time_ms(lambda: sl.stft_rave_loss_grad_plain(spec, n, plain_partials, norms), 5,
+                                 cycles_per_ms)
+                add("stft_rave_loss_grad", ms, pms, 3 * count * 8 + (partials.numel() + norms.numel()) * 8)
+                del spec, norms, want_norms, grad, want
+            print(f"stft rave rows={rows} T={t}: kernels match their plain versions at {len(RAVE_STFT_SCALES)} "
+                  "scales", flush=True)
+    entries = []
+    for name, (ms, pms, nbytes) in totals.items():
+        at_copy = 1e3 * nbytes / MEASURED_COPY_BYTES_PER_S
+        print(f"{name} shapes={list(RAVE_STFT_SHAPES)} {len(RAVE_STFT_SCALES)} scales: ms={ms:.6f} "
+              f"plain_ms={pms:.6f} bytes={nbytes} ms_at_copy_rate={at_copy:.6f} share={at_copy / ms:.3f}",
+              flush=True)
+        entries.append({"name": name, "shapes_rows_t": [list(s) for s in RAVE_STFT_SHAPES],
+                        "scales": list(RAVE_STFT_SCALES), "ms": ms, "plain_ms": pms, "bytes": nbytes,
+                        "ms_at_copy_rate": at_copy})
+    del x, y
+    torch.cuda.empty_cache()
+
+    cfg = Config.from_yaml("configs/rave_v1.yaml")
+    model = load_model(cfg.model.name, cfg.model.kwargs).to(device)
+    gen = torch.Generator(device).manual_seed(SEED)
+    model.init_weights(gen)
+    tx = make_optimizer(cfg)
+    state = TrainState(step=0, model=model, opt_state=tx.init(list(model.parameters())), generator=gen,
+                       mean_loudness=0.0, std_loudness=1.0)
+    b, t = cfg.train.batch, cfg.preprocess.signal_length
+    crops = (0.3 * torch.randn((2, b, t), generator=g)).to(device)
+    multi = make_train_multi_step(model, tx, cfg, 2)
+    rows = multi(state, {"sig": crops}).cpu()
+    check(bool(torch.isfinite(rows).all()) and state.step == 2, f"RAVE's graphed steps: {rows.tolist()}")
+    want = rave_train_launches(multi.unroll, len(adam.plan([p.numel() for p in model.parameters()])))
+    check(multi.captured == want, f"RAVE's graph captured {multi.captured}, want {want}")
+    print(f"rave graphed step B={b} T={t}: captured {multi.captured} over {multi.unroll} steps, losses "
+          f"{rows[:, 0].tolist()}", flush=True)
+    for e in entries:
+        e["launches_a_step"] = want[e["name"]] // multi.unroll
+    del multi, state, model, crops
     torch.cuda.empty_cache()
     return entries
 

@@ -12,6 +12,11 @@ the Trainer moves to its device; the DeviceDataLoader's are tensors on its
 device.  Under a mesh across processes each loader yields its process's
 interleaved shard of every global batch (`num_shards`, `shard_index`,
 dataset.py:257-298).
+
+A model that trains on raw crops (RAVE v1, whose `needs_features` is
+False) reads the signals alone: its Dataset (`features=False`) holds no
+pitch, loudness or MFCCs, its items and device cache are {sig}, and it has
+no loudness statistics.
 """
 
 from __future__ import annotations
@@ -30,25 +35,27 @@ class Dataset:
     """Feature cache written by preprocessing or the synthetic corpus, of
     this package or the JAX package
     (`<out_dir>/{signals,pitchs,loudness[,mfccs]}.npy`).  Items carry
-    `mfcc` where the cache has mfccs.npy (dataset.py:28-45)."""
+    `mfcc` where the cache has mfccs.npy (dataset.py:28-45).  With
+    `features=False` only signals.npy is read, and items are {sig}."""
 
-    def __init__(self, out_dir):
+    def __init__(self, out_dir, features: bool = True):
         out_dir = Path(out_dir)
         self.signals = np.load(out_dir / "signals.npy", mmap_mode="r")
-        self.pitchs = np.load(out_dir / "pitchs.npy", mmap_mode="r")
-        self.loudness = np.load(out_dir / "loudness.npy", mmap_mode="r")
-        mfcc_path = out_dir / "mfccs.npy"
-        self.mfccs = np.load(mfcc_path, mmap_mode="r") if mfcc_path.exists() else None
+        self.pitchs = self.loudness = self.mfccs = None
+        if features:
+            self.pitchs = np.load(out_dir / "pitchs.npy", mmap_mode="r")
+            self.loudness = np.load(out_dir / "loudness.npy", mmap_mode="r")
+            mfcc_path = out_dir / "mfccs.npy"
+            self.mfccs = np.load(mfcc_path, mmap_mode="r") if mfcc_path.exists() else None
 
     def __len__(self) -> int:
         return self.signals.shape[0]
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        item = {
-            "sig": np.asarray(self.signals[idx], np.float32),
-            "pitch": np.asarray(self.pitchs[idx], np.float32)[:, None],
-            "loudness": np.asarray(self.loudness[idx], np.float32)[:, None],
-        }
+        item = {"sig": np.asarray(self.signals[idx], np.float32)}
+        if self.pitchs is not None:
+            item["pitch"] = np.asarray(self.pitchs[idx], np.float32)[:, None]
+            item["loudness"] = np.asarray(self.loudness[idx], np.float32)[:, None]
         if self.mfccs is not None:
             # the cache holds F + 1 frames (a centered STFT); the model takes F
             item["mfcc"] = np.asarray(self.mfccs[idx], np.float32)[:-1]
@@ -131,8 +138,9 @@ class DeviceDataLoader(DataLoader):
     `take_stacked(idx2d)` an (n, B, ...) super-batch, each one gather per
     array; `device_data` is the cache itself ({sig (N, T), pitch (N, F, 1),
     loudness (N, F, 1)}, and mfcc (N, F, n_mfcc) where the cache has it,
-    its last frame dropped once, at upload), which the captured multi-step
-    gathers from inside its graph.  Iterating yields `take` of each batch."""
+    its last frame dropped once, at upload; {sig} alone for a Dataset of
+    crops), which the captured multi-step gathers from inside its graph.
+    Iterating yields `take` of each batch."""
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, device="cuda", num_shards: int = 1,
@@ -140,11 +148,11 @@ class DeviceDataLoader(DataLoader):
         super().__init__(dataset, batch_size, shuffle, drop_last, seed, num_shards, shard_index)
         self.device = resolve_device(device)
         # one upload per array; trailing feature axes added like __getitem__
-        self._data = {
-            "sig": torch.from_numpy(np.array(dataset.signals, np.float32)).to(self.device),
-            "pitch": torch.from_numpy(np.array(dataset.pitchs, np.float32))[..., None].to(self.device),
-            "loudness": torch.from_numpy(np.array(dataset.loudness, np.float32))[..., None].to(self.device),
-        }
+        self._data = {"sig": torch.from_numpy(np.array(dataset.signals, np.float32)).to(self.device)}
+        if dataset.pitchs is not None:
+            self._data["pitch"] = torch.from_numpy(np.array(dataset.pitchs, np.float32))[..., None].to(self.device)
+            self._data["loudness"] = torch.from_numpy(np.array(dataset.loudness, np.float32))[..., None].to(
+                self.device)
         if dataset.mfccs is not None:
             self._data["mfcc"] = torch.from_numpy(np.array(dataset.mfccs[:, :-1], np.float32)).to(self.device)
 
@@ -188,10 +196,12 @@ class Datamodule:
     the host loader, as in the JAX package.  Under a mesh across processes
     (parallel/mesh.py) config.train.batch is the global batch and each
     loader yields this process's interleaved shard of it, sharded along the
-    data axis (the time ranks of one data shard load the same rows)."""
+    data axis (the time ranks of one data shard load the same rows).
+    `features=False` reads the crops alone (the model's `needs_features`)."""
 
-    def __init__(self, config, device_cache: bool = False, device="cuda", mesh=None):
+    def __init__(self, config, device_cache: bool = False, device="cuda", mesh=None, features: bool = True):
         self.config = config
+        self.features = features
         self.device_cache = device_cache
         self.device = device
         self.train_data: Optional[Dataset] = None
@@ -204,8 +214,8 @@ class Datamodule:
 
     def setup(self) -> None:
         out_dir = Path(self.config.preprocess.out_dir)
-        self.train_data = Dataset(out_dir / "train")
-        self.val_data = Dataset(out_dir / "validation")
+        self.train_data = Dataset(out_dir / "train", self.features)
+        self.val_data = Dataset(out_dir / "validation", self.features)
 
     def train_dataloader(self) -> DataLoader:
         if self.device_cache:

@@ -9,7 +9,9 @@ signal_length (or cut to one chunk if oneshot) and chunked; pitch,
 A-weighted loudness and the MFCCs (F + 1 frames a chunk) are extracted for
 all of a file's chunks at once on `device`; each partition's rows are
 saved as {signals,pitchs,loudness,mfccs}.npy under
-preprocess.out_dir/<partition>.
+preprocess.out_dir/<partition>.  With `features=False` (a model that
+trains on raw crops, RAVE v1) signals.npy is written alone: the same
+chunks, no feature extracted.
 
 Pitch trackers (preprocess.pitch_tracker): "hybrid", the default (CREPE ×
 YIN, models/crepe.py), "crepe" (the CREPE network alone) and "yin"
@@ -68,12 +70,7 @@ def preprocess(
     sample_rate, block_size) → (N, F) f0; default the YIN tracker between
     pitch_fmin and pitch_fmax."""
     device = resolve_device(device)
-    x, _ = load_wav(str(f), sample_rate)
-    pad = (signal_length - len(x) % signal_length) % signal_length
-    x = np.pad(x, (0, pad))
-    if oneshot:
-        x = x[:signal_length]
-    chunks = x.reshape(-1, signal_length)
+    chunks = crop_chunks(f, sample_rate, signal_length, oneshot)
     xt = torch.tensor(chunks, dtype=torch.float32, device=device)
     if pitch_fn is None:
         pitch_fn = functools.partial(extract_pitch, fmin=pitch_fmin, fmax=pitch_fmax, device=device)
@@ -126,17 +123,32 @@ def make_pitch_fn(config: Config, device="cuda"):
     return functools.partial(extract, model=model, fmin=pc.pitch_fmin, fmax=pc.pitch_fmax, device=device)
 
 
-def preprocess_folder(root_dir, partition: str, config: Config, device="cuda") -> None:
+def crop_chunks(f, sample_rate: int, signal_length: int, oneshot: bool = False) -> np.ndarray:
+    """One file → its (N, L) float32 chunks, as `preprocess` cuts them."""
+    x, _ = load_wav(str(f), sample_rate)
+    x = np.pad(x, (0, (signal_length - len(x) % signal_length) % signal_length))
+    if oneshot:
+        x = x[:signal_length]
+    return x.reshape(-1, signal_length).astype(np.float32)
+
+
+def preprocess_folder(root_dir, partition: str, config: Config, device="cuda", features: bool = True) -> None:
     """Process every file under root_dir/partition into the .npy cache at
-    preprocess.out_dir/partition."""
+    preprocess.out_dir/partition (signals.npy alone without `features`)."""
     src = pathlib.Path(root_dir) / partition
     if not src.exists():
         raise FileNotFoundError(f"{src} does not exist")
-    pitch_fn = make_pitch_fn(config, device)
     files = get_files(src, config.data.extension)
     if not files:
         raise FileNotFoundError(f"no *.{config.data.extension} files under {src}")
     pc = config.preprocess
+    out_dir = os.path.join(pc.out_dir, partition)
+    if not features:
+        chunks = [crop_chunks(f, pc.sample_rate, pc.signal_length, pc.oneshot) for f in files]
+        os.makedirs(out_dir, exist_ok=True)
+        np.save(os.path.join(out_dir, "signals.npy"), np.concatenate(chunks, 0))
+        return
+    pitch_fn = make_pitch_fn(config, device)
     rows = {name: [] for name in CACHE_NAMES}
     for i, f in enumerate(files):
         print(f"[{i + 1}/{len(files)}] {f}")
@@ -158,7 +170,6 @@ def preprocess_folder(root_dir, partition: str, config: Config, device="cuda") -
         )
         for name, arr in zip(CACHE_NAMES, out):
             rows[name].append(arr)
-    out_dir = os.path.join(pc.out_dir, partition)
     os.makedirs(out_dir, exist_ok=True)
     for name, arrs in rows.items():
         np.save(os.path.join(out_dir, f"{name}.npy"), np.concatenate(arrs, 0))

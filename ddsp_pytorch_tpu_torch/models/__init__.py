@@ -1,7 +1,8 @@
 """L1+L2 — synthesizer modules and models (torch.nn).
 
 Registry parity with ddsp_pytorch_tpu/models/__init__.py: the
-"single-inst-decoder" and the "mfcc-autoencoder".
+"single-inst-decoder" and the "mfcc-autoencoder"; and "rave-v1"
+(models/rave.py), which the JAX package does not have.
 """
 
 import torch
@@ -13,8 +14,9 @@ from ddsp_pytorch_tpu_torch.models.modules import (  # noqa: F401
     HarmonicSynth,
     Reverb,
 )
+from ddsp_pytorch_tpu_torch.models.rave import RAVE  # noqa: F401
 
-MODEL_REGISTRY = {"single-inst-decoder": DDSPDecoder, "mfcc-autoencoder": DDSPAutoencoder}
+MODEL_REGISTRY = {"single-inst-decoder": DDSPDecoder, "mfcc-autoencoder": DDSPAutoencoder, "rave-v1": RAVE}
 # `model.kwargs.dtype` as a config or a bundle's meta.json carries it → the
 # NN's compute dtype (None: the parameters' own type)
 COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}

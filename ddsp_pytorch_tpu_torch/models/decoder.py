@@ -254,7 +254,52 @@ class GRUDecoder(nn.Module):
         return self.out_mlp(hidden), state
 
 
-class DDSPDecoder(nn.Module):
+class DDSPTraining:
+    """What training/train.py's Trainer and MultiStep ask of a model, as
+    DDSP's two models answer it (models/rave.py answers for RAVE v1): the
+    feature cache as data, the step marks' `PHASES`, flax's initializers,
+    each step's (B, F, block) uniform noise drawn from the state's
+    generator, and training/train.py's `loss_and_grads` and eval outputs."""
+
+    needs_features = True  # batches carry pitch and loudness (and mfcc)
+
+    @property
+    def phases(self):
+        from ddsp_pytorch_tpu_torch.training import profiling  # here: training imports the models
+
+        return profiling.PHASES
+
+    def init_weights(self, generator: torch.Generator):
+        return init_params(self, generator)
+
+    def draw_shape(self, rows: int, data) -> tuple:
+        """The noise's shape for `rows` items of `data` (a batch, or a stack
+        or cache of them: only its frame axis is read)."""
+        return (rows, data["pitch"].shape[-2], self.block_size)
+
+    def draw(self, shape, generator: torch.Generator) -> torch.Tensor:
+        return ops.uniform_noise(shape, generator, self.dtype, generator.device)
+
+    def loss_and_grads(self, state, batch, noise, scales, overlap):
+        from ddsp_pytorch_tpu_torch.training import train  # here: training imports the models
+
+        return train.loss_and_grads(self, batch, state.mean_loudness, state.std_loudness, scales, overlap,
+                                    noise=noise)
+
+    def eval_outputs(self, state, batch, scales, overlap, noise=None, generator=None) -> dict:
+        """The outputs plus the loss, both multiscale spectrograms
+        (`sig_stft`, `rec_stft`), `sig` and the reconstruction `rec`
+        (train.py:198-217)."""
+        from ddsp_pytorch_tpu_torch.training.loss import spectral_loss_from_signals
+
+        model_batch = dict(batch, loudness=(batch["loudness"] - state.mean_loudness) / state.std_loudness)
+        out = self(model_batch, noise=noise, generator=generator)
+        loss, ori, rec = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)
+        out.update({"loss": loss, "sig_stft": ori, "rec_stft": rec, "sig": batch["sig"], "rec": out["signal"]})
+        return out
+
+
+class DDSPDecoder(DDSPTraining, nn.Module):
     """The "single-inst-decoder" model (decoder.py:182-277).  `compute_dtype`
     (None or torch.bfloat16) is the NN's type; the parameters, the synths
     and the outputs keep the parameters' type (`dtype`)."""

@@ -17,6 +17,7 @@ from ddsp_pytorch_tpu_torch.models.decoder import (
     GRU,
     LAYER_NORM_EPS,
     DDSPDecoder,
+    DDSPTraining,
     GRUDecoder,
     controls_marked,
     dense,
@@ -50,7 +51,7 @@ class MFCCEncoder(nn.Module):
         return dense(self.Dense_0, x, dt), state
 
 
-class DDSPAutoencoder(nn.Module):
+class DDSPAutoencoder(DDSPTraining, nn.Module):
     """The "mfcc-autoencoder" model (encoder.py:60-159): the decoder model
     with the MFCC encoder's z fed to the GRU decoder through a z MLP.  The
     controls and the synths are DDSPDecoder's."""

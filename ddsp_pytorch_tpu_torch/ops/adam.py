@@ -85,6 +85,12 @@ def pack(launch: Launch, params, grads, mu, nu) -> np.ndarray:
     return buf
 
 
+def betas(b1: float, b2: float) -> Tuple[float, float, float, float]:
+    """(β₁, β₂, 1 − β₁, 1 − β₂) as the kernel takes them: each a float32,
+    the complements computed in float64 and rounded once."""
+    return tuple(float(np.float32(v)) for v in (b1, b2, 1.0 - b1, 1.0 - b2))
+
+
 def workspace(numels: Sequence[int], device) -> dict:
     """What `adam_` needs besides its operands for leaves of `numels`: the
     norm's float64 partials, and the done counter, zero between steps
@@ -98,14 +104,18 @@ def workspace(numels: Sequence[int], device) -> dict:
 def adam_(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], mu: Sequence[torch.Tensor],
           nu: Sequence[torch.Tensor], count: torch.Tensor, work: dict, *, lr: float, lr_end: float = 0.0,
           steps: int = 0, schedule_count: Optional[torch.Tensor] = None, clip: Optional[float] = None,
-          loss: Optional[torch.Tensor] = None, norm: bool = False) -> Optional[torch.Tensor]:
+          loss: Optional[torch.Tensor] = None, norm: bool = False, b1: float = 0.9,
+          b2: float = 0.999) -> Optional[torch.Tensor]:
     """Adam's step on float32 CUDA leaves, in place: p, mu, nu, `count` and
     `schedule_count` (int32, 0-d), all left as they were where `loss` (a
     0-d float32) is not finite.  `lr`: the constant rate, or (init − end)
     of a linear schedule over `steps` > 0 counts ending at `lr_end`, read
     at `schedule_count`; a `schedule_count` with `steps` 0 counts a
     constant schedule.  `clip`: optax's clip_by_global_norm in front.
-    `work`: `workspace(...)` of these leaves.  Returns the gradients'
+    `work`: `workspace(...)` of these leaves.  `b1`, `b2`: Adam's betas,
+    passed to the kernel with 1 − b1 and 1 − b2 each computed in float64
+    and rounded once to float32 (`betas`), as PyTorch rounds the Python
+    floats of training/optim.py's plain path.  Returns the gradients'
     global norm (0-d float32) where `norm`, else None."""
     tensors = {f"{k}{i}": t for k, ts in (("p", params), ("g", grads), ("mu", mu), ("nu", nu))
                for i, t in enumerate(ts)}
@@ -132,5 +142,5 @@ def adam_(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], mu: Seq
     for k, (table, (_, first, _)) in enumerate(zip(tables, launches)):
         kernels.launch("adam_update", table.ctypes.data, work["partials"], n_partials, norm_out, work["done"],
                        loss, count, schedule_count, lr, lr_end, inv_steps, steps, int(clips),
-                       clip if clips else 0.0, first[-1], CHUNK, int(k == len(launches) - 1))
+                       clip if clips else 0.0, *betas(b1, b2), first[-1], CHUNK, int(k == len(launches) - 1))
     return norm_out

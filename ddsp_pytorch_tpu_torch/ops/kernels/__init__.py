@@ -101,6 +101,19 @@ KERNELS = {
         # bin (−1: none), 1/M as float and as double, blocks, stream
         [_P, _P, _P, _I, _I, _I, _F, _D, _I, _P],
     ),
+    "stft_rave_norms": (
+        "stft_loss.cu",
+        "ddsp_stft_rave_norms",
+        # spec, norms (2 × blocks), bins of one signal, blocks, stream
+        [_P, _P, _I, _I, _P],
+    ),
+    "stft_rave_loss_grad": (
+        "stft_loss.cu",
+        "ddsp_stft_rave_loss_grad",
+        # spec, grad, partials, norms, bins of one signal, bins a frame,
+        # Nyquist bin (−1: none), 1/M as float and as double, blocks, stream
+        [_P, _P, _P, _P, _I, _I, _I, _F, _D, _I, _P],
+    ),
     "stft_loss_sum": (
         "stft_loss.cu",
         "ddsp_stft_loss_sum",
@@ -125,8 +138,8 @@ KERNELS = {
         "ddsp_adam_update",
         # leaf table (host), partials, their count, norm out, done counter,
         # loss, count, schedule count, lr, lr end, 1/steps, steps, clips,
-        # clip, blocks, chunk, finalize, stream
-        [_P, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _F, _I, _I, _I, _P],
+        # clip, b1, b2, 1 − b1, 1 − b2, blocks, chunk, finalize, stream
+        [_P, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _P],
     ),
 }
 # the optimizer's kernels (ops/adam.py), which also train a model that
@@ -135,7 +148,8 @@ OPTIMIZER_KERNELS = ("adam_norm", "adam_update")
 # the kernels a train step launches: the first launch of one of the others
 # builds them all
 MODEL_KERNELS = ("oscillator_fwd", "oscillator_bwd", "gru_fwd", "gru_bwd", "stft_frame", "stft_loss_grad",
-                 "stft_loss_sum", "stft_overlap_add", *OPTIMIZER_KERNELS)
+                 "stft_rave_norms", "stft_rave_loss_grad", "stft_loss_sum", "stft_overlap_add",
+                 *OPTIMIZER_KERNELS)
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

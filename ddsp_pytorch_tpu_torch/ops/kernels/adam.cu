@@ -53,12 +53,6 @@ namespace {
 constexpr int kMaxLeaves = 80;  // ops/adam.py MAX_LEAVES
 constexpr int kThreads = 256;
 constexpr int kIntMax = 2147483647;
-// optax.adam's defaults, as PyTorch rounds the Python floats of
-// training/optim.py to float32
-constexpr float kB1 = 0.9f;
-constexpr float kB2 = 0.999f;
-constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
-constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
 constexpr float kEps = 1e-8f;
 
 // ops/adam.py pack(): MAX_LEAVES int64s each of p, g, mu, nu and the
@@ -135,16 +129,19 @@ adam_norm_kernel(const Leaves t, double* __restrict__ partials, int chunk) {
   if (threadIdx.x == 0) partials[t.partial0 + blockIdx.x] = total;
 }
 
+// b1, b2 and their complements arrive as float32 arguments (ops/adam.py
+// `betas`: each complement computed in float64 and rounded once, as
+// PyTorch rounds the Python floats of training/optim.py)
 struct Step {
-  float c1, c2, step, norm, clip;
+  float b1, b2, one_minus_b1, one_minus_b2, c1, c2, step, norm, clip;
   bool clipped;
 };
 
 // one element: optim.py's clip, moments, bias corrections and step, in order
 __device__ __forceinline__ void adam_element(float& p, float g, float& m, float& v, const Step& s) {
   if (s.clipped) g = __fmul_rn(__fdiv_rn(g, s.norm), s.clip);
-  m = __fadd_rn(__fmul_rn(kOneMinusB1, g), __fmul_rn(kB1, m));
-  v = __fadd_rn(__fmul_rn(kOneMinusB2, __fmul_rn(g, g)), __fmul_rn(kB2, v));
+  m = __fadd_rn(__fmul_rn(s.one_minus_b1, g), __fmul_rn(s.b1, m));
+  v = __fadd_rn(__fmul_rn(s.one_minus_b2, __fmul_rn(g, g)), __fmul_rn(s.b2, v));
   const float u = __fdiv_rn(__fdiv_rn(m, s.c1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.c2)), kEps));
   p = __fadd_rn(p, __fmul_rn(s.step, u));
 }
@@ -159,7 +156,8 @@ adam_update_kernel(const Leaves t, const double* __restrict__ partials, int n_pa
                    float* __restrict__ norm_out, unsigned int* __restrict__ done,
                    const float* __restrict__ loss, int* __restrict__ count,
                    int* __restrict__ schedule_count, float lr, float lr_end, float inv_steps,
-                   int steps, int clips, float clip, int chunk, int finalize) {
+                   int steps, int clips, float clip, float b1, float b2, float one_minus_b1,
+                   float one_minus_b2, int chunk, int finalize) {
   __shared__ double sh[kThreads];
   __shared__ bool last;
   const bool apply = loss == nullptr || isfinite(*loss);
@@ -169,8 +167,12 @@ adam_update_kernel(const Leaves t, const double* __restrict__ partials, int n_pa
   if (apply) {
     Step s;
     const float nf = static_cast<float>(n);
-    s.c1 = __fsub_rn(1.0f, powf(kB1, nf));
-    s.c2 = __fsub_rn(1.0f, powf(kB2, nf));
+    s.b1 = b1;
+    s.b2 = b2;
+    s.one_minus_b1 = one_minus_b1;
+    s.one_minus_b2 = one_minus_b2;
+    s.c1 = __fsub_rn(1.0f, powf(b1, nf));
+    s.c2 = __fsub_rn(1.0f, powf(b2, nf));
     if (steps > 0) {
       const float frac = __fsub_rn(1.0f, __fmul_rn(static_cast<float>(min(max(sc, 0), steps)), inv_steps));
       s.step = -__fadd_rn(__fmul_rn(lr, frac), lr_end);
@@ -252,10 +254,11 @@ extern "C" int ddsp_adam_norm(const void* table, double* partials, int blocks, i
 extern "C" int ddsp_adam_update(const void* table, const double* partials, int n_partials,
                                 float* norm_out, unsigned int* done, const float* loss, int* count,
                                 int* schedule_count, float lr, float lr_end, float inv_steps,
-                                int steps, int clips, float clip, int blocks, int chunk,
+                                int steps, int clips, float clip, float b1, float b2,
+                                float one_minus_b1, float one_minus_b2, int blocks, int chunk,
                                 int finalize, void* stream) {
   adam_update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       read_table(table), partials, n_partials, norm_out, done, loss, count, schedule_count, lr,
-      lr_end, inv_steps, steps, clips, clip, chunk, finalize);
+      lr_end, inv_steps, steps, clips, clip, b1, b2, one_minus_b1, one_minus_b2, chunk, finalize);
   return static_cast<int>(cudaGetLastError());
 }

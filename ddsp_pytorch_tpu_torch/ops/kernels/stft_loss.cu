@@ -39,6 +39,24 @@
 //                           and the scalar upstream gradient; the first
 //                           scale writes, the others add in scale order.
 //
+// RAVE v1's distance (models/rave.py) replaces the linear term by the
+// scale's relative Frobenius norm ‖S_x − S_y‖ / ‖S_x‖, whose gradient needs
+// both norms over the whole scale before any element's can be written, so
+// its form takes one pass more in front (the log term is DDSP's):
+//
+//   stft_rave_norms_kernel      both spectra read: Σ(|S_x| − |S_y|)² and
+//                               Σ|S_x|² of the bins a block walks, into
+//                               per-block partials (float64)
+//   stft_rave_loss_grad_kernel  every block sums those partials in one
+//                               fixed order, then as stft_loss_grad_kernel
+//                               with the linear gradient (|S_y| − |S_x|) /
+//                               (‖S_x − S_y‖·‖S_x‖) (0 where the norms are
+//                               0); block 0 adds ‖S_x − S_y‖ / ‖S_x‖ to its
+//                               partial, so stft_loss_sum_kernel sums it in.
+//
+// DDSP's kernels above are left as they were: their arithmetic, and so the
+// two DDSP cells' losses, are bit for bit what they were.
+//
 // What bounds it on an H100: bytes.  The transforms are 5.26 GFLOP a step
 // at the published shape (B 16 × 192 000 samples, six scales), 0.26 ms at
 // cuFFT's measured rate; the five passes move ≈ 208 B a sample of one
@@ -167,6 +185,83 @@ stft_overlap_add_kernel(const float* __restrict__ gframes, const float* __restri
   out[idx] = accumulate ? out[idx] + v : v;
 }
 
+// the sum over the block of each thread's `x`, in a fixed order; every
+// thread gets it
+__device__ __forceinline__ double block_sum(double x, double* sh) {
+  __syncthreads();  // sh may still be read by an earlier call
+  sh[threadIdx.x] = x;
+  __syncthreads();
+  for (int s = kLossThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
+    __syncthreads();
+  }
+  return sh[0];
+}
+
+// spec: (2B, F, bins) complex, the target's rows first; norms: (2, blocks)
+__global__ void __launch_bounds__(kLossThreads)
+stft_rave_norms_kernel(const float2* __restrict__ spec, double* __restrict__ norms, int count) {
+  const float2* sx = spec;
+  const float2* sy = spec + count;
+  double dd = 0.0, xx = 0.0;
+  for (int i = blockIdx.x * kLossThreads + threadIdx.x; i < count; i += gridDim.x * kLossThreads) {
+    const float2 a = sx[i];
+    const float2 b = sy[i];
+    const float ax = hypotf(a.x, a.y);
+    const float d = ax - hypotf(b.x, b.y);
+    dd += static_cast<double>(d) * d;
+    xx += static_cast<double>(ax) * ax;
+  }
+  __shared__ double sh[kLossThreads];
+  dd = block_sum(dd, sh);
+  xx = block_sum(xx, sh);
+  if (threadIdx.x == 0) {
+    norms[blockIdx.x] = dd;
+    norms[gridDim.x + blockIdx.x] = xx;
+  }
+}
+
+// as stft_loss_grad_kernel, with the relative linear term; norms: the
+// (2, blocks) partials of stft_rave_norms_kernel over the same grid
+__global__ void __launch_bounds__(kLossThreads)
+stft_rave_loss_grad_kernel(const float2* __restrict__ spec, float2* __restrict__ grad,
+                           double* __restrict__ partials, const double* __restrict__ norms,
+                           int count, int bins, int nyquist, float inv_m, double inv_m_d) {
+  __shared__ double sh[kLossThreads];
+  double dd = 0.0, xx = 0.0;
+  for (int i = threadIdx.x; i < gridDim.x; i += kLossThreads) {
+    dd += norms[i];
+    xx += norms[gridDim.x + i];
+  }
+  const double nd = sqrt(block_sum(dd, sh));
+  const double nx = sqrt(block_sum(xx, sh));
+  const float lin = nd > 0.0 && nx > 0.0 ? static_cast<float>(1.0 / (nd * nx)) : 0.f;
+  const float2* sx = spec;
+  const float2* sy = spec + count;
+  double acc = 0.0;
+  for (int i = blockIdx.x * kLossThreads + threadIdx.x; i < count; i += gridDim.x * kLossThreads) {
+    const float2 a = sx[i];
+    const float2 b = sy[i];
+    const float ax = hypotf(a.x, a.y);
+    const float ay = hypotf(b.x, b.y);
+    const float lx = logf(ax + kEps);
+    const float ly = logf(ay + kEps);
+    acc += static_cast<double>(fabsf(lx - ly));
+    const float g = (ay - ax) * lin + sgn(ly - lx) / (ay + kEps) * inv_m;
+    const int m = i % bins;
+    const bool edge = m == 0 || m == nyquist;
+    float2 o = make_float2(0.f, 0.f);
+    if (ay > 0.f) {
+      const float s = (edge ? g : 0.5f * g) / ay;
+      o.x = b.x * s;
+      o.y = edge ? 0.f : b.y * s;
+    }
+    grad[i] = o;
+  }
+  const double total = block_sum(acc, sh) * inv_m_d;
+  if (threadIdx.x == 0) partials[blockIdx.x] = blockIdx.x == 0 && nx > 0.0 ? total + nd / nx : total;
+}
+
 }  // namespace
 
 extern "C" int ddsp_stft_frame(const float* x, const float* y, const float* c, float* frames,
@@ -198,5 +293,21 @@ extern "C" int ddsp_stft_overlap_add(const float* gframes, const float* c, const
   const int blocks = static_cast<int>((total + kAddThreads - 1) / kAddThreads);
   stft_overlap_add_kernel<<<blocks, kAddThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       gframes, c, go, out, rows, T, n, hop, n_frames, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ddsp_stft_rave_norms(const float* spec, double* norms, int count, int blocks,
+                                    void* stream) {
+  stft_rave_norms_kernel<<<blocks, kLossThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(spec), norms, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ddsp_stft_rave_loss_grad(const float* spec, float* grad, double* partials,
+                                        const double* norms, int count, int bins, int nyquist,
+                                        float inv_m, double inv_m_d, int blocks, void* stream) {
+  stft_rave_loss_grad_kernel<<<blocks, kLossThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(spec), reinterpret_cast<float2*>(grad), partials, norms, count,
+      bins, nyquist, inv_m, inv_m_d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,6 +6,10 @@ magnitude STFT (hop = block_size, periodic Hann) → log(mag + 1e-7) → plus th
 IEC A-weighting curve of each bin (floored at −80 dB) → mean over bins →
 the last frame dropped.  The weighting curve is a float64 numpy constant,
 this package's own copy of the JAX function.
+
+`log_magnitude_loudness` is RAVE v1's loudness (rave/core.py `Loudness`),
+which its phase-1 loss compares by squared error: the same weighted
+log-magnitude, every frame kept, differentiable and in the signal's dtype.
 """
 
 from __future__ import annotations
@@ -49,6 +53,25 @@ def _weights(sample_rate: int, n_fft: int) -> np.ndarray:
     weights = a_weighting(fft_frequencies(sample_rate, n_fft)).astype(np.float32)
     weights.flags.writeable = False
     return weights
+
+
+@functools.lru_cache(maxsize=None)
+def weights_tensor(sample_rate: int, n_fft: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The A-weighting of each bin (bins,), computed in float64 and rounded
+    once to `dtype` on `device` (cached: a captured step copies nothing
+    from the host).  Read-only: callers share the cached tensor."""
+    return torch.tensor(a_weighting(fft_frequencies(sample_rate, n_fft)), dtype=dtype, device=device)
+
+
+def log_magnitude_loudness(signal: torch.Tensor, sample_rate: int, n_fft: int = 2048,
+                           hop: int = 512) -> torch.Tensor:
+    """RAVE's loudness of (..., T) → (..., 1 + T // hop): the mean over
+    bins of log(|STFT| + 1e-7) + A(f), the STFT centred, reflect-padded,
+    Hann-windowed and not normalised; A the A-weighting in dB floored at
+    −80, in the signal's dtype.  Differentiable."""
+    mag = stft(signal, n_fft, hop, normalized=False)  # (..., bins, frames)
+    weights = weights_tensor(int(sample_rate), int(n_fft), signal.dtype, signal.device)
+    return torch.mean(torch.log(mag + 1e-7) + weights[:, None], dim=-2)
 
 
 def extract_loudness(signal, sample_rate: int, block_size: int, n_fft: int = 2048, *,

@@ -19,8 +19,19 @@ stacked as 2B rows:
      padded position and the reflect pad's mirrors, times c and the
      upstream gradient; the first scale writes, the others add.
 
-The loss is the train step's last node, so step 3 needs no second read of
-the spectra.  `MultiscaleSpectralLoss` joins the passes as one autograd
+RAVE v1's distance (`form="rave"`, models/rave.py) has the relative
+Frobenius norm ‖S_x − S_y‖ / ‖S_x‖ of the scale in place of the mean L1
+linear term; its gradient needs both norms first, so step 3 is two passes:
+
+  3a. `stft_rave_norms`: Σ(|S_x| − |S_y|)² and Σ|S_x|² into per-block
+      partials;
+  3b. `stft_rave_loss_grad`: the partials summed in every block, then the
+      terms and the gradient as in 3, the linear term's (|S_y| − |S_x|) /
+      (‖S_x − S_y‖·‖S_x‖); block 0's partial carries ‖S_x − S_y‖ / ‖S_x‖.
+
+DDSP's form (`form="ddsp"`, the default) is computed as before, pass for
+pass.  The loss is the train step's last node, so step 3 needs no second
+read of the spectra.  `MultiscaleSpectralLoss` joins the passes as one autograd
 function.  Each of the four wrappers is a dispatch point: a CPU tensor runs
 the plain PyTorch version (`*_plain`, the kernel's dataflow pass for pass,
 in float64 too), a float32 CUDA tensor launches the kernel
@@ -108,6 +119,52 @@ def stft_loss_grad_plain(spec: torch.Tensor, n: int, partials: torch.Tensor) -> 
     return torch.complex(sy.real * s, torch.where(edge, 0.0, sy.imag * s))
 
 
+def stft_rave_norms_plain(spec: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
+    """Plain version of the norms kernel: spec (2B, F, bins), the target's
+    rows first → `norms` (2, blocks) float64: Σ(|S_x| − |S_y|)² and
+    Σ|S_x|² of the bins of each block, bin i in block (i // LOSS_THREADS)
+    % blocks."""
+    b = spec.shape[0] // 2
+    ax, ay = spec[:b].abs(), spec[b:].abs()
+    d2 = ((ax - ay).double() ** 2).flatten()
+    x2 = (ax.double() ** 2).flatten()
+    blocks = norms.shape[1]
+    owner = (torch.arange(d2.shape[0], device=spec.device) // LOSS_THREADS) % blocks
+    for row, terms in enumerate((d2, x2)):
+        norms[row].copy_(torch.zeros(blocks, dtype=torch.float64, device=spec.device).index_add_(0, owner, terms))
+    return norms
+
+
+def stft_rave_loss_grad_plain(spec: torch.Tensor, n: int, partials: torch.Tensor,
+                              norms: torch.Tensor) -> torch.Tensor:
+    """Plain version of RAVE's loss-and-gradient kernel: as
+    `stft_loss_grad_plain`, with the linear term ‖S_x − S_y‖ / ‖S_x‖ from
+    `norms` (2, blocks), added to block 0's partial, and its gradient
+    (|S_y| − |S_x|) / (‖S_x − S_y‖·‖S_x‖)."""
+    b = spec.shape[0] // 2
+    sx, sy = spec[:b], spec[b:]
+    ax, ay = sx.abs(), sy.abs()
+    lx, ly = torch.log(ax + _EPS), torch.log(ay + _EPS)
+    terms = (lx - ly).abs().double().flatten()
+    blocks = partials.shape[0]
+    owner = (torch.arange(terms.shape[0], device=spec.device) // LOSS_THREADS) % blocks
+    inv_m = 1.0 / terms.shape[0]
+    nd, nx = norms[0].sum().sqrt(), norms[1].sum().sqrt()
+    ok = (nd > 0) & (nx > 0)
+    sums = torch.zeros_like(partials).index_add_(0, owner, terms) * inv_m
+    sums[0] = sums[0] + torch.where(nx > 0, nd / torch.where(nx > 0, nx, 1.0), 0.0)
+    partials.copy_(sums)
+    lin = torch.where(ok, 1.0 / torch.where(ok, nd * nx, 1.0), 0.0).to(ay.dtype)
+    g = (ay - ax) * lin + torch.sign(ly - lx) / (ay + _EPS) * inv_m
+    bins = spec.shape[-1]
+    edge = torch.zeros(bins, dtype=torch.bool, device=spec.device)
+    edge[0] = True
+    if n % 2 == 0:
+        edge[-1] = True
+    s = torch.where(ay > 0, torch.where(edge, g, 0.5 * g) / torch.where(ay > 0, ay, 1.0), 0.0)
+    return torch.complex(sy.real * s, torch.where(edge, 0.0, sy.imag * s))
+
+
 def stft_loss_sum_plain(partials: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Plain version of the sum kernel: every partial → the loss (0-d)."""
     return partials.sum().to(dtype)
@@ -183,14 +240,10 @@ def stft_loss_grad(spec: torch.Tensor, n: int, partials: torch.Tensor) -> torch.
     F, bins = n//2 + 1), the target's rows first; the scale's partial sums
     go into `partials` (loss_blocks(B·F·bins),) float64.  CPU tensors run
     the plain version; complex64 CUDA tensors launch the kernel."""
-    if spec.dim() != 3 or spec.shape[0] % 2 or spec.shape[-1] != n // 2 + 1 or not spec.is_complex():
-        raise ValueError(f"need a complex spec (2B, F, {n // 2 + 1}); got {tuple(spec.shape)} {spec.dtype}")
-    count = spec.numel() // 2
+    count = _check_spec(spec, n)
     if partials.shape != (loss_blocks(count),) or partials.dtype != torch.float64:
         raise ValueError(f"need float64 partials ({loss_blocks(count)},); got {tuple(partials.shape)} "
                          f"{partials.dtype}")
-    kernels.check_operands({"spec": spec}, spectra=True)
-    _check_sizes({"spec": spec})
     if partials.device != spec.device or not partials.is_contiguous():
         raise ValueError("partials must be contiguous on the spectrum's device")
     if spec.device.type == "cpu":
@@ -200,6 +253,58 @@ def stft_loss_grad(spec: torch.Tensor, n: int, partials: torch.Tensor) -> torch.
     if count > 0:
         kernels.launch("stft_loss_grad", spec, grad, partials, count, bins, bins - 1 if n % 2 == 0 else -1,
                        1.0 / count, 1.0 / count, partials.shape[0])
+    return grad
+
+
+def _check_spec(spec: torch.Tensor, n: int) -> int:
+    """The bins of one signal of a (2B, F, n//2 + 1) complex spectrum."""
+    if spec.dim() != 3 or spec.shape[0] % 2 or spec.shape[-1] != n // 2 + 1 or not spec.is_complex():
+        raise ValueError(f"need a complex spec (2B, F, {n // 2 + 1}); got {tuple(spec.shape)} {spec.dtype}")
+    kernels.check_operands({"spec": spec}, spectra=True)
+    _check_sizes({"spec": spec})
+    return spec.numel() // 2
+
+
+def stft_rave_norms(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """The (2, loss_blocks(B·F·bins)) float64 partials of Σ(|S_x| − |S_y|)²
+    and Σ|S_x|² of spec (2B, F, bins = n//2 + 1), the target's rows first.
+    CPU tensors run the plain version; complex64 CUDA tensors launch the
+    kernel."""
+    count = _check_spec(spec, n)
+    blocks = loss_blocks(count)
+    norms = torch.empty((2, blocks), dtype=torch.float64, device=spec.device)
+    if spec.device.type == "cpu":
+        return stft_rave_norms_plain(spec, norms)
+    if count > 0:
+        kernels.launch("stft_rave_norms", spec, norms, count, blocks)
+    else:
+        norms.zero_()
+    return norms
+
+
+def stft_rave_loss_grad(spec: torch.Tensor, n: int, partials: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
+    """RAVE's form of `stft_loss_grad`: the gradient with respect to the
+    reconstruction's spectrum (B, F, bins), weighted for the unnormalised
+    C2R, and the scale's partial sums (block 0 carrying the relative
+    linear term) into `partials`, from spec and its `stft_rave_norms`.
+    CPU tensors run the plain version; complex64 CUDA tensors launch the
+    kernel."""
+    count = _check_spec(spec, n)
+    blocks = loss_blocks(count)
+    if partials.shape != (blocks,) or partials.dtype != torch.float64 or norms.shape != (2, blocks) \
+            or norms.dtype != torch.float64:
+        raise ValueError(f"need float64 partials ({blocks},) and norms (2, {blocks}); got "
+                         f"{tuple(partials.shape)} {partials.dtype}, {tuple(norms.shape)} {norms.dtype}")
+    for name, t in (("partials", partials), ("norms", norms)):
+        if t.device != spec.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on the spectrum's device")
+    if spec.device.type == "cpu":
+        return stft_rave_loss_grad_plain(spec, n, partials, norms)
+    grad = torch.empty((spec.shape[0] // 2, *spec.shape[1:]), dtype=spec.dtype, device=spec.device)
+    bins = spec.shape[-1]
+    if count > 0:
+        kernels.launch("stft_rave_loss_grad", spec, grad, partials, norms, count, bins,
+                       bins - 1 if n % 2 == 0 else -1, 1.0 / count, 1.0 / count, blocks)
     return grad
 
 
@@ -245,17 +350,22 @@ def stft_overlap_add(gframes: torch.Tensor, c: torch.Tensor, go: torch.Tensor, t
     return out
 
 
+FORMS = ("ddsp", "rave")
+
+
 class MultiscaleSpectralLoss(torch.autograd.Function):
     """Σ_scales mean|S_x − S_y| + mean|log(S_x + ε) − log(S_y + ε)| of the
     centred, Hann-windowed, n^-1/2-normalised magnitude STFTs of target x
     and reconstruction y (..., T), as training/loss.py
-    `spectral_loss_from_signals` computes it.  Forward: frame, R2C and the
-    loss-and-gradient pass for each scale, one sum; it saves each scale's
-    gradient spectrum.  Backward: C2R and overlap-add for each scale, times
-    the upstream gradient.  The target gets no gradient."""
+    `spectral_loss_from_signals` computes it; with `form` "rave" the
+    linear term is ‖S_x − S_y‖ / ‖S_x‖ (training/loss.py
+    `rave_distance_plain`).  Forward: frame, R2C and the loss-and-gradient
+    pass(es) for each scale, one sum; it saves each scale's gradient
+    spectrum.  Backward: C2R and overlap-add for each scale, times the
+    upstream gradient.  The target gets no gradient."""
 
     @staticmethod
-    def forward(ctx, target, reconstruction, scales: Sequence[int], overlap: float):
+    def forward(ctx, target, reconstruction, scales: Sequence[int], overlap: float, form: str = "ddsp"):
         t = reconstruction.shape[-1]
         x = target.reshape(-1, t).contiguous()
         y = reconstruction.reshape(-1, t).contiguous()
@@ -271,7 +381,10 @@ class MultiscaleSpectralLoss(torch.autograd.Function):
         for n, hop, blocks in plan:
             c = window_constant(n, y.dtype, y.device)
             spec = torch.fft.rfft(stft_frame(x, y, c, hop), dim=-1)
-            grads.append(stft_loss_grad(spec, n, partials[at:at + blocks]))
+            if form == "rave":
+                grads.append(stft_rave_loss_grad(spec, n, partials[at:at + blocks], stft_rave_norms(spec, n)))
+            else:
+                grads.append(stft_loss_grad(spec, n, partials[at:at + blocks]))
             at += blocks
         ctx.save_for_backward(*grads)
         ctx.plan, ctx.shape, ctx.dtype = plan, reconstruction.shape, y.dtype
@@ -285,14 +398,16 @@ class MultiscaleSpectralLoss(torch.autograd.Function):
         for (n, hop, _), g in zip(ctx.plan, ctx.saved_tensors):
             gframes = torch.fft.irfft(g, n=n, dim=-1, norm="forward")
             out = stft_overlap_add(gframes, window_constant(n, ctx.dtype, g.device), go, t, hop, out)
-        return None, out.reshape(ctx.shape), None, None
+        return None, out.reshape(ctx.shape), None, None, None
 
 
 def multiscale_spectral_loss(target: torch.Tensor, reconstruction: torch.Tensor, scales: Sequence[int],
-                             overlap: float) -> torch.Tensor:
+                             overlap: float, form: str = "ddsp") -> torch.Tensor:
     """The loss (0-d) through `MultiscaleSpectralLoss`: target and
     reconstruction (..., T) of one shape and type, float32 on the card or
-    float32/float64 on the CPU."""
+    float32/float64 on the CPU; `form` "ddsp" or "rave"."""
     if target.shape != reconstruction.shape:
         raise ValueError(f"target {tuple(target.shape)} and reconstruction {tuple(reconstruction.shape)} differ")
-    return MultiscaleSpectralLoss.apply(target, reconstruction, tuple(scales), overlap)
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    return MultiscaleSpectralLoss.apply(target, reconstruction, tuple(scales), overlap, form)

@@ -9,7 +9,9 @@ Processes the `train` and `validation` partitions under data.data_location
 into the .npy feature cache at preprocess.out_dir, with the pitch tracker of
 preprocess.pitch_tracker (hybrid, the default, crepe or yin).  The
 features are extracted on the GPU by default; there is no fallback: pass
---device cpu for the plain PyTorch path.  --from-sigmund instead ingests a
+--device cpu for the plain PyTorch path.  A config whose model trains on
+raw crops (configs/rave_v1.yaml) gets the crops alone (signals.npy), no
+feature extracted.  --from-sigmund instead ingests a
 Pd-recorded 3-channel PCM wav (audio, pitch, loudness; data/sigmund.py)
 into preprocess.out_dir[/P], on the host.
 """
@@ -23,6 +25,7 @@ def main(argv=None) -> None:
     from ddsp_pytorch_tpu_torch.config import Config
     from ddsp_pytorch_tpu_torch.data.preprocess import preprocess_folder
     from ddsp_pytorch_tpu_torch.data.sigmund import preprocess_from_sigmund
+    from ddsp_pytorch_tpu_torch.models import MODEL_REGISTRY
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="configs/config.yaml")
@@ -38,8 +41,9 @@ def main(argv=None) -> None:
     if args.from_sigmund:
         preprocess_from_sigmund(args.from_sigmund, config, args.partition)
         return
+    features = MODEL_REGISTRY[config.model.name].needs_features
     for partition in (args.partition,) if args.partition else ("train", "validation"):
-        preprocess_folder(config.data.data_location, partition, config, device=args.device)
+        preprocess_folder(config.data.data_location, partition, config, device=args.device, features=features)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@
         [--mesh-data D] [--mesh-time T] [--no-mesh] [--no-tensorboard]
 
 Loads the YAML config, builds the model by registry name, computes the
-dataset's loudness stats and runs the one-device Trainer on the feature
+dataset's loudness stats (none for RAVE, configs/rave_v1.yaml, which
+trains on raw crops) and runs the one-device Trainer on the feature
 cache at preprocess.out_dir (`train/` and `validation/`), with the
 config's train.steps_per_call steps per call (a CUDA graph of
 train.scan_unroll steps replayed on the card).  --device-cache uploads the
@@ -197,7 +198,8 @@ def _fit(args, cfg, run_dir: str, device):
 
     mesh = build_mesh(args, cfg)
     trainer = Trainer(cfg, run_dir, device=device, mesh=mesh, use_tensorboard=not args.no_tensorboard)
-    datamodule = Datamodule(cfg, device_cache=args.device_cache, device=device, mesh=mesh)
+    datamodule = Datamodule(cfg, device_cache=args.device_cache, device=device, mesh=mesh,
+                            features=trainer.model.needs_features)
     datamodule.setup()
     try:
         if args.profile:

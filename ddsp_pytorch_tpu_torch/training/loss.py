@@ -10,15 +10,20 @@ the CPU, in float64, and wherever the spectrograms are wanted (the eval
 step).  A train step's loss on the card (`spectral_loss`, float32 signals
 with gradients enabled) runs the hand-written kernels around cuFFT of
 ops/stft_loss.py, the same loss and gradient in five passes a scale; their
-launches are counted in ops/kernels, and the plain path launches none."""
+launches are counted in ops/kernels, and the plain path launches none.
+
+RAVE v1's phase-1 loss (`rave_loss`, models/rave.py) takes the same two
+paths for its distance D: `rave_distance` through the fused kernels'
+"rave" form where `fused_takes`, else `rave_distance_plain`."""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from ddsp_pytorch_tpu_torch.ops import multiscale_fft, safe_log
+from ddsp_pytorch_tpu_torch.ops.loudness import log_magnitude_loudness
 from ddsp_pytorch_tpu_torch.ops.stft_loss import multiscale_spectral_loss
 
 
@@ -79,3 +84,47 @@ def _check_lengths(target: torch.Tensor, reconstruction: torch.Tensor) -> None:
             f"{reconstruction.shape[-1]} — sig must be exactly "
             "n_frames * block_size samples"
         )
+
+
+# ------------------------------------------------------------------ RAVE
+def rave_distance_plain(x: torch.Tensor, y: torch.Tensor, scales: Sequence[int], overlap: float) -> torch.Tensor:
+    """RAVE's distance D of signals x (target) and y (..., T), every row a
+    signal: Σ_scales ‖S_x − S_y‖_F / ‖S_x‖_F + mean|log(S_x + ε) − log(S_y
+    + ε)|, each norm and mean over the whole scale; the plain STFTs."""
+    _check_lengths(x, y)
+    ori = multiscale_fft(x.reshape(-1, x.shape[-1]), scales, overlap)
+    rec = multiscale_fft(y.reshape(-1, y.shape[-1]), scales, overlap)
+    loss = torch.zeros((), dtype=y.dtype, device=y.device)
+    for s_x, s_y in zip(ori, rec):
+        lin = torch.linalg.vector_norm(s_x - s_y) / torch.linalg.vector_norm(s_x)
+        log = torch.mean(torch.abs(safe_log(s_x) - safe_log(s_y)))
+        loss = loss + lin + log
+    return loss
+
+
+def rave_distance(x: torch.Tensor, y: torch.Tensor, scales: Sequence[int], overlap: float) -> torch.Tensor:
+    """D through the fused kernels' "rave" form where `fused_takes`, else
+    the plain path."""
+    _check_lengths(x, y)
+    if fused_takes(x, y):
+        t = y.shape[-1]
+        return multiscale_spectral_loss(x.reshape(-1, t).float(), y.reshape(-1, t).float(), scales, overlap,
+                                        form="rave")
+    return rave_distance_plain(x, y, scales, overlap)
+
+
+def rave_loss(model, bands: torch.Tensor, rec_bands: torch.Tensor, kl: torch.Tensor, scales: Sequence[int],
+              overlap: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """RAVE v1's phase-1 loss and its terms for `model` (models/rave.py:
+    its bank, loudness STFT, sample rate and kl_beta): D(X, Y) over the
+    bands X (the target's, B × M rows), D(P⁻¹X, P⁻¹Y) over the bank's
+    reconstructions, mean((ℓ(P⁻¹X) − ℓ(P⁻¹Y))²) of the loudness ℓ
+    (ops/loudness.py `log_magnitude_loudness`), and kl_beta·KL."""
+    x, y = model.pqmf.synthesis(bands)[:, 0], model.pqmf.synthesis(rec_bands)[:, 0]
+    terms = {"multiband": rave_distance(bands, rec_bands, scales, overlap),
+             "fullband": rave_distance(x, y, scales, overlap)}
+    loud = [log_magnitude_loudness(s, model.sample_rate, model.loudness_n_fft, model.loudness_hop) for s in (x, y)]
+    terms["loudness"] = torch.mean((loud[0] - loud[1]) ** 2)
+    terms["kl"] = kl
+    loss = terms["multiband"] + terms["fullband"] + terms["loudness"] + model.kl_beta * kl
+    return loss, terms

@@ -10,6 +10,8 @@ step count included (torch.optim.Adam increments its step on every
 
   adam     mu ← (1−b1)·g + b1·mu;  nu ← (1−b2)·g² + b2·nu;  n ← n + 1
            u = (mu / (1 − b1ⁿ)) / (√(nu / (1 − b2ⁿ)) + eps) · (−lr)
+           (b1, b2 optax's 0.9 and 0.999 unless given: RAVE trains at
+           0.5 and 0.9)
   sgd      u = g · (−lr)
   clip     g ← g if ‖g‖ < max_norm else (g / ‖g‖)·max_norm
            (not clip_grad_norm_'s max/(norm + 1e-6) scale, which always
@@ -77,12 +79,14 @@ class Optimizer:
     """Adam or SGD, a constant rate or a `LinearSchedule`, and an optional
     global-norm clip."""
 
-    def __init__(self, name: str, lr: Union[float, LinearSchedule], grad_clip_norm: Optional[float] = None):
+    def __init__(self, name: str, lr: Union[float, LinearSchedule], grad_clip_norm: Optional[float] = None,
+                 b1: float = B1, b2: float = B2):
         if name not in ("adam", "sgd"):
             raise ValueError(f"unknown train.optimizer: {name!r}")
         self.name = name
         self.lr = lr
         self.grad_clip_norm = grad_clip_norm
+        self.b1, self.b2 = b1, b2
         self._work: Dict[tuple, dict] = {}  # the Adam kernel's workspaces, by device and leaf sizes
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
@@ -105,15 +109,16 @@ class Optimizer:
             trigger = g_norm < self.grad_clip_norm
             grads = [torch.where(trigger, g, (g / g_norm) * self.grad_clip_norm) for g in grads]
         if self.name == "adam":
-            new["mu"] = [(1 - B1) * g + B1 * m for g, m in zip(grads, state["mu"])]
-            new["nu"] = [(1 - B2) * (g * g) + B2 * v for g, v in zip(grads, state["nu"])]
+            b1, b2 = self.b1, self.b2
+            new["mu"] = [(1 - b1) * g + b1 * m for g, m in zip(grads, state["mu"])]
+            new["nu"] = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state["nu"])]
             new["count"] = _int32_increment(state["count"])
             n = new["count"].float()
             # a Python-float base: no host tensor to copy in, so the update
             # can be captured in a CUDA graph (same float32 values as a
             # float32 tensor base)
-            c1 = 1 - torch.pow(B1, n)
-            c2 = 1 - torch.pow(B2, n)
+            c1 = 1 - torch.pow(b1, n)
+            c2 = 1 - torch.pow(b2, n)
             updates = [(m / c1) / (torch.sqrt(v / c2) + EPS) for m, v in zip(new["mu"], new["nu"])]
         else:
             updates = grads
@@ -169,14 +174,17 @@ class Optimizer:
         return adam.adam_(params, [g.contiguous() for g in grads], state["mu"], state["nu"], state["count"],
                           self._work[key], lr=lr, lr_end=lr_end, steps=steps,
                           schedule_count=state.get("schedule_count"), clip=self.grad_clip_norm, loss=loss,
-                          norm=loss is not None)
+                          norm=loss is not None, b1=self.b1, b2=self.b2)
 
 
 def make_optimizer(config) -> Optimizer:
-    """The optimizer of config.train (train.py:32-49)."""
+    """The optimizer of config.train (train.py:32-49); Adam's betas are
+    optax's unless the model's recipe names its own
+    (config.model.kwargs.optimizer_betas, models/rave.py)."""
     tc = config.train
     if tc.lr_stop is not None:
         lr = LinearSchedule(tc.lr, tc.lr_stop, tc.lr_decay_steps or tc.steps)
     else:
         lr = tc.lr
-    return Optimizer(tc.optimizer, lr, tc.grad_clip_norm)
+    b1, b2 = config.model.kwargs.get("optimizer_betas", (B1, B2))
+    return Optimizer(tc.optimizer, lr, tc.grad_clip_norm, float(b1), float(b2))

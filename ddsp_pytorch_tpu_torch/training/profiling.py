@@ -34,6 +34,11 @@ gradient ready, (5) the gradients of the NN's outputs ready, (6) every
 parameter's gradient returned, (7) the update and the metrics row written;
 the CREPE step's (`CREPE_PHASES`) at (0) its start, (1) the batch
 synthesized, (2) the loss ready, (3) the gradients returned, (4) the update
+written; RAVE's phase-1 step in `MultiStep` (`RAVE_PHASES`) at (0) its
+start, (1) the bands analysed, encoded and the latent drawn, (2) the
+generator's bands ready, (3) the loss ready (both distances with their
+fused gradients, the synthesis bank, the loudness and the KL), (4) every
+trained leaf's gradient returned, (5) the update and the metrics row
 written.  Phase i lies between marks i and i + 1.  The times of a call's
 last replay (an eager step's own) are read, without waiting, when the next
 call starts or `calls()` is asked, and only if the card has finished them
@@ -61,6 +66,7 @@ TRACE_FILE = "trace.json"
 PHASES = ("nn_fwd", "synth_fwd", "loss_fwd", "loss_bwd", "synth_bwd", "nn_bwd", "optimizer")
 N_MARKS = len(PHASES) + 1
 CREPE_PHASES = ("synth", "forward", "backward", "optimizer")
+RAVE_PHASES = ("encode", "decode", "loss", "backward", "optimizer")
 MAX_CALLS = 4096
 MAX_SPANS = 8192
 

@@ -13,7 +13,13 @@ preemption-safe `fit` (SIGTERM/SIGINT → checkpoint → return).
 Both model families train: the single-inst-decoder, and the
 mfcc-autoencoder, whose batches carry `mfcc` (B, F, n_mfcc) beside the
 decoder's keys; every step, gather and static buffer below is generic over
-the batch's keys.  The harmonic branch runs through `ops.OscillatorBank`,
+the batch's keys.  RAVE v1 (models/rave.py) trains through the same
+Trainer and MultiStep on batches of raw crops ({sig} alone).  What differs
+between the models the model answers itself (models/decoder.py
+`DDSPTraining`, models/rave.py `RAVE`): whether batches carry features,
+the step marks' phases, the initial weights, each step's random draw
+(DDSP's noise, RAVE's latent ε, drawn from the state's generator in step
+order), the step's loss and gradients and the eval outputs.  The harmonic branch runs through `ops.OscillatorBank`,
 so on the card a step launches the hand-written forward kernel once and the
 backward kernel once.  On the card a call of `steps_per_call` steps replays a CUDA graph
 of `scan_unroll` whole steps (forward, backward, Adam and the NaN guard,
@@ -48,13 +54,13 @@ import torch
 
 from ddsp_pytorch_tpu_torch import resolve_device
 from ddsp_pytorch_tpu_torch.config import Config
-from ddsp_pytorch_tpu_torch.models import init_params, load_model
+from ddsp_pytorch_tpu_torch.models import load_model
 from ddsp_pytorch_tpu_torch.models.decoder import matmul_precision
-from ddsp_pytorch_tpu_torch.ops import kernels, mean_std_loudness, uniform_noise
+from ddsp_pytorch_tpu_torch.ops import kernels, mean_std_loudness
 from ddsp_pytorch_tpu_torch.parallel.mesh import Mesh
 from ddsp_pytorch_tpu_torch.parallel.sharding import GradientReducer, replicate_state
 from ddsp_pytorch_tpu_torch.training import profiling
-from ddsp_pytorch_tpu_torch.training.loss import spectral_loss, spectral_loss_from_signals
+from ddsp_pytorch_tpu_torch.training.loss import spectral_loss
 from ddsp_pytorch_tpu_torch.training.metrics import MetricsWriter
 from ddsp_pytorch_tpu_torch.training.optim import Optimizer, make_optimizer, tree_leaves
 from ddsp_pytorch_tpu_torch.training.reports import reconstruction_report
@@ -175,7 +181,8 @@ def make_loss_and_grads(model, config: Config, mesh: Optional[Mesh] = None) -> C
     noise being the global batch's (B · mesh.data_procs, F, S) draw: the
     time-sharded step where mesh.time > 1; across processes the
     data-parallel step (this rank's rows, the loss and gradients averaged
-    over the ranks); else the unsharded step."""
+    over the ranks); else the unsharded step, the model's own
+    `loss_and_grads` (RAVE's, with its draw ε, is tested unsharded only)."""
     if mesh is not None and mesh.time > 1:
         return make_time_sharded_loss_and_grads(model, config, mesh)
     scales = tuple(config.train.scales)
@@ -185,8 +192,7 @@ def make_loss_and_grads(model, config: Config, mesh: Optional[Mesh] = None) -> C
     def fn(state: TrainState, batch, noise):
         if mesh is not None:
             noise = mesh.data_rows(noise)
-        loss, grads = loss_and_grads(model, batch, state.mean_loudness, state.std_loudness,
-                                     scales, overlap, noise=noise)
+        loss, grads = model.loss_and_grads(state, batch, noise, scales, overlap)
         if reducer is not None:
             grads, loss = reducer(grads, loss)
         return loss, grads
@@ -195,10 +201,9 @@ def make_loss_and_grads(model, config: Config, mesh: Optional[Mesh] = None) -> C
 
 
 def draw_noise(model, generator: torch.Generator, batch, rows: int = 1) -> torch.Tensor:
-    """A step's (B · rows, F, block) noise from `generator`: the draw the
-    model makes itself for a (B · rows)-item batch (ops.uniform_noise)."""
-    b, f = batch["pitch"].shape[:2]
-    return uniform_noise((b * rows, f, model.block_size), generator, model.dtype, generator.device)
+    """A step's draw for the (B · rows)-item batch from `generator`: DDSP's
+    (B · rows, F, block) noise, RAVE's ε."""
+    return model.draw(model.draw_shape(batch["sig"].shape[0] * rows, batch), generator)
 
 
 def make_train_step(model, tx: Optimizer, config: Config, mesh: Optional[Mesh] = None) -> Callable:
@@ -258,10 +263,14 @@ of any keys (the autoencoder's carry `mfcc`).
     Tracing (training/profiling.py): each call leaves a `profiling.calls()`
     record; each replay's input copy, noise draw and graph launch are host
     spans (`multistep.load`, `multistep.noise`, `multistep.launch`); the
-    step bodies stamp the step marks, captured into the graph as timing
+    step bodies stamp the step marks (the model's `phases`), captured into the graph as timing
     events, so each record holds the device ms of the step's phases in the
     call's last replay; `graph_nodes` is the captured graph's node count
     over `unroll`, counted once at capture.
+
+    RAVE's step draws ε where DDSP's draws noise (the model's `draw`), and
+    writes BatchNorm's running statistics inside the graph; the warm-up
+    runs before the capture undo them too.
 
     Under a mesh each step is make_loss_and_grads(mesh)'s; on an in-process
     mesh and on NCCL its collectives are captured with it.  A gloo group
@@ -283,6 +292,7 @@ of any keys (the autoencoder's carry `mfcc`).
             )
         self.model = model
         self.tx = tx
+        self.phases = model.phases
         self.n_steps = n_steps
         self.unroll = unroll
         self.indexed = indexed
@@ -306,7 +316,7 @@ of any keys (the autoencoder's carry `mfcc`).
         return metrics_row(_update_in_place(state, self.tx, loss, grads))
 
     def _draw_noise(self, state: TrainState, shape) -> torch.Tensor:
-        return uniform_noise(shape, state.generator, self.model.dtype, state.generator.device)
+        return self.model.draw(shape, state.generator)
 
     def __call__(self, state: TrainState, *inputs) -> torch.Tensor:
         """inputs: `batches` ({key: (n_steps, B, ...)} on the device), or
@@ -315,7 +325,7 @@ of any keys (the autoencoder's carry `mfcc`).
         if self.indexed:
             data, idx2d = inputs
             idx = torch.as_tensor(np.asarray(idx2d, np.int64)).to(data["sig"].device)
-            lead, noise_shape = idx.shape[0], (idx.shape[1], data["pitch"].shape[1])
+            lead, batch_rows = idx.shape
 
             def take(j):
                 return {k: v.index_select(0, idx[j]) for k, v in data.items()}
@@ -324,7 +334,7 @@ of any keys (the autoencoder's carry `mfcc`).
                 self._idx.copy_(idx[rows])
         else:
             (data,) = inputs
-            lead, noise_shape = data["sig"].shape[0], tuple(data["pitch"].shape[1:3])
+            lead, batch_rows = data["sig"].shape[:2]
 
             def take(j):  # a fresh tensor per step on the CPU, as a single step receives
                 return {k: v[j].clone() for k, v in data.items()}
@@ -336,12 +346,12 @@ of any keys (the autoencoder's carry `mfcc`).
             raise ValueError(
                 f"super-batch has a leading axis of {lead}, expected steps_per_call={self.n_steps}"
             )
-        noise_shape = (noise_shape[0] * self._rows, noise_shape[1], self.model.block_size)
+        noise_shape = self.model.draw_shape(batch_rows * self._rows, data)
         device = next(self.model.parameters()).device
         with profiling.call(self.n_steps) as rec:
             if device.type != "cpu":
                 return self._replay(state, data, load, noise_shape, rec)
-            rec.marks = profiling.StepMarks(self.n_steps, device, self._unbounded)
+            rec.marks = profiling.StepMarks(self.n_steps, device, self._unbounded, self.phases)
             rows = []
             with profiling.marking(rec.marks) as marks:
                 for j in range(self.n_steps):
@@ -349,7 +359,7 @@ of any keys (the autoencoder's carry `mfcc`).
                     marks.step = j
                     profiling.mark(0)
                     rows.append(self._body(state, batch, noise))
-                    profiling.mark(7)
+                    profiling.mark(marks.n_marks - 1)
                     state.step += 1
             return torch.stack(rows)
 
@@ -375,7 +385,7 @@ of any keys (the autoencoder's carry `mfcc`).
         u = self.unroll
         self._noise = torch.zeros((u, *noise_shape), dtype=self.model.dtype, device=device)
         self._metrics = torch.zeros((u, len(METRIC_KEYS)), dtype=torch.float32, device=device)
-        self._marks = profiling.StepMarks(u, device, self._unbounded)
+        self._marks = profiling.StepMarks(u, device, self._unbounded, self.phases)
         if self.indexed:
             self._data = data
             self._idx = torch.zeros((u, noise_shape[0]), dtype=torch.int64, device=device)
@@ -394,11 +404,11 @@ of any keys (the autoencoder's carry `mfcc`).
             else:
                 batch = {k: v[u] for k, v in self._batch.items()}
             self._metrics[u].copy_(self._body(state, batch, self._noise[u]))
-            profiling.mark(7)
+            profiling.mark(self._marks.n_marks - 1)
 
     def _capture(self, state: TrainState) -> None:
         device = self._metrics.device
-        tensors = state.params() + tree_leaves(state.opt_state)
+        tensors = state.params() + tree_leaves(state.opt_state) + list(self.model.buffers())
         saved = [t.detach().clone() for t in tensors]
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -475,23 +485,18 @@ def make_train_multi_step_indexed(model, tx: Optimizer, config: Config, n_steps:
 
 
 def make_eval_step(model, config: Config) -> Callable:
-    """eval_step(state, batch, generator) → the model's outputs plus the
-    loss, both multiscale spectrograms (`sig_stft`, `rec_stft`), the target
-    `sig` and the reconstruction `rec` (train.py:198-217), without
-    gradients: what validation and the media reports read.  The noise is
-    injected, or drawn from `generator`."""
+    """eval_step(state, batch, generator) → the model's `eval_outputs`
+    without gradients: its outputs plus the loss, the target `sig` and the
+    reconstruction `rec` (DDSP's also both multiscale spectrograms,
+    `sig_stft` and `rec_stft`; train.py:198-217), what validation and the
+    media reports read.  The noise is injected, or drawn from `generator`."""
     scales = tuple(config.train.scales)
     overlap = config.train.overlap
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None):
-        model_batch = _normalize_loudness(batch, state.mean_loudness, state.std_loudness)
-        out = model(model_batch, noise=noise, generator=generator)
-        loss, ori, rec = spectral_loss_from_signals(batch["sig"], out["signal"], scales, overlap)
-        out.update({"loss": loss, "sig_stft": ori, "rec_stft": rec, "sig": batch["sig"],
-                    "rec": out["signal"]})
-        return out
+        return model.eval_outputs(state, batch, scales, overlap, noise=noise, generator=generator)
 
     return eval_step
 
@@ -554,7 +559,7 @@ class Trainer:
         """Fresh weights (flax's initializers) and optimizer state; the
         generator that drew the weights then draws the noise."""
         generator = torch.Generator(self.device).manual_seed(self.config.train.seed)
-        init_params(self.model, generator)
+        self.model.init_weights(generator)
         state = TrainState(
             step=0,
             model=self.model,
@@ -653,14 +658,15 @@ class Trainer:
                 f"the device-resident loader is on {train_loader.device}, the trainer on {self.device}"
             )
 
-        mean_l, std_l = self._loudness_stats(train_loader)
+        features = self.model.needs_features  # raw crops have no loudness to normalise
+        mean_l, std_l = self._loudness_stats(train_loader) if features else (None, None)
         cfg.data.mean_loudness, cfg.data.std_loudness = mean_l, std_l
         if self.mesh is not None:
             self.mesh.barrier()  # every rank has read the frozen config before rank 0 rewrites it
         if self._is_primary:
             cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
 
-        state, resumed = self.resume_or_init(mean_l, std_l)
+        state, resumed = self.resume_or_init(*((mean_l, std_l) if features else (0.0, 1.0)))
         start_step = state.step if resumed else 0
         # a captured graph is bound to this fit's state tensors
         self._multi_step = None
@@ -810,7 +816,7 @@ class Trainer:
             self.metrics.add_scalar("graph_capture_s", self._multi_step.capture_s, step)
             self.metrics.add_scalar("graph_nodes", self._multi_step.graph_nodes, step)
         records = [c for c in profiling.calls() if c.start >= since]
-        for phase in profiling.PHASES:
+        for phase in self.model.phases:
             ms = [c.phase_ms[phase] for c in records if c.phase_ms and c.phase_ms[phase] is not None]
             if ms:
                 self.metrics.add_scalar(f"step_phase_ms/{phase}", float(np.median(ms)), step)
@@ -853,6 +859,8 @@ class Trainer:
     def _log_eval(self, state, sample_batch) -> None:
         out = self._eval(state, sample_batch, 1)
         self.metrics.add_scalar("loss/train", float(out["loss"]), state.step)
+        for key in (k for k in out if k.startswith("loss/")):  # RAVE's terms
+            self.metrics.add_scalar(f"{key}/train", float(out[key]), state.step)
         reverb = getattr(self.model, "reverb", None)
         if reverb is not None:
             self.metrics.add_scalar("reverb_decay", float(reverb.decay.detach()), state.step)
@@ -868,6 +876,8 @@ class Trainer:
         sr = self.config.preprocess.sample_rate
         self.metrics.add_audio(f"sig/{stage}", out["sig"][0], step, sr)
         self.metrics.add_audio(f"rec/{stage}", out["rec"][0], step, sr)
+        if not self.model.needs_features:  # the figure plots the controls read from the features
+            return
         try:
             plt = pyplot()
         except ImportError:  # no matplotlib: the wavs are the report

@@ -408,8 +408,8 @@ def test_graphed_steps_equal_eager_steps_on_cuda(cuda, unroll):
     # loss's framing, loss-and-gradient and overlap-add once a scale (two)
     # and its sum once, and Adam's norm and update once
     per_step = {"oscillator_fwd": 1, "oscillator_bwd": 1, "gru_fwd": 1, "gru_bwd": 1,
-                "stft_frame": 2, "stft_loss_grad": 2, "stft_loss_sum": 1, "stft_overlap_add": 2,
-                "adam_norm": 1, "adam_update": 1}
+                "stft_frame": 2, "stft_loss_grad": 2, "stft_rave_norms": 0, "stft_rave_loss_grad": 0,
+                "stft_loss_sum": 1, "stft_overlap_add": 2, "adam_norm": 1, "adam_update": 1}
     assert multi.captured == {name: n * unroll for name, n in per_step.items()}
     assert multi.replays == 4 // unroll
     counts = kernels.counts()
@@ -584,7 +584,8 @@ def test_autoencoder_graphed_steps_equal_eager_steps_on_cuda(cuda):
     # GRU and the decoder's two of each GRU kernel, the fused loss's
     # kernels once a scale (two) but its sum once, and Adam's two once
     assert multi.captured == {"oscillator_fwd": 2, "oscillator_bwd": 2, "gru_fwd": 4, "gru_bwd": 4,
-                              "stft_frame": 4, "stft_loss_grad": 4, "stft_loss_sum": 2, "stft_overlap_add": 4,
+                              "stft_frame": 4, "stft_loss_grad": 4, "stft_rave_norms": 0,
+                              "stft_rave_loss_grad": 0, "stft_loss_sum": 2, "stft_overlap_add": 4,
                               "adam_norm": 2, "adam_update": 2}
 
 

@@ -203,8 +203,9 @@ def test_cpu_takes_the_plain_path(monkeypatch, dtype):
     assert torch.equal(loss, want) and loss.requires_grad
     assert not loss_mod.fused_takes(x, y)
     stft_loss.multiscale_spectral_loss(x, y, (512, 256), 0.75).backward()  # plain versions
+    stft_loss.multiscale_spectral_loss(x, y, (512, 256), 0.75, "rave").backward()
     after = kernels.counts()
-    assert len(stft_names) == 4 and all(after[name] == before[name] for name in stft_names)
+    assert len(stft_names) == 6 and all(after[name] == before[name] for name in stft_names)
 
 
 # (on the card, dtype, gradients enabled, target wants a gradient) → fused
